@@ -1,0 +1,1 @@
+from repro_torch.config.base import FedConfig

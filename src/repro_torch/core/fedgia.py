@@ -1,0 +1,206 @@
+"""FedGiA — the paper's Algorithm 1 on the flat client-state buffer.
+
+Counterpart of `repro/core/fedgia.py`, dense single-device path only (no
+compressor, faults, screening, overlap or stale anchors). One round:
+
+  1. aggregate   x̄ = (1/m) Σ z_i              (eq. 11)
+  2. grads       ḡ_i = (1/m) ∇f_i(x̄)          (computed ONCE per round)
+  3. split       C ~ alpha·m clients            (selection.py, or `mask=`)
+  4. ADMM branch (i ∈ C):  k0 iterations of eqs (12)-(14)
+     GD   branch (i ∉ C):  eqs (15)-(17), once
+  5. state carries (z_i, π_i) per client; x_i = z_i − π_i/σ is derived.
+
+With `collapsed=True` and a diagonal H (scalar or diag_ema) the k0-step
+recursion runs in closed form as one fused pass: the CUDA `fedgia_update`
+kernel on the card, its plain version on the CPU. Otherwise (gram H, or
+`collapsed=False`) the paper-faithful k0-step loop runs in torch.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.config import FedConfig
+from repro_torch.core import api, hparams, selection
+from repro_torch.kernels.fedgia_update import fedgia_update_flat
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+class FedGiA:
+    name = "fedgia"
+    # model-shaped state the engine ravels into (m, N) / (N,) buffers
+    # (gram_chol is client-stacked but not model-shaped)
+    flat_client_keys = ("z", "pi", "h")
+    flat_global_keys = ("x",)
+
+    def __init__(self, fed: FedConfig, loss_fn: api.LossFn, model=None):
+        self.fed = fed
+        self.loss_fn = loss_fn
+        self.model = model
+        self._vg = api.per_client_value_and_grad(loss_fn)
+
+    # ------------------------------------------------------------------ init
+    def init(self, params0: Dict[str, torch.Tensor], gen: torch.Generator,
+             init_batch=None) -> Dict[str, Any]:
+        """Round-0 state. `gen` is the run's selection generator
+        (`selection.make_generator`); the state owns it from here on."""
+        fed = self.fed
+        m = fed.num_clients
+        sdt = _DTYPES[fed.state_dtype]
+        device = next(iter(params0.values())).device
+        if fed.auto_lipschitz:
+            raise NotImplementedError(
+                "auto_lipschitz (hparams.estimate_lipschitz) is not ported")
+        r = torch.tensor(fed.lipschitz, dtype=torch.float32, device=device)
+        if (self.model is not None and hasattr(self.model, "lipschitz")
+                and init_batch is not None):
+            r = self.model.lipschitz(init_batch).max().float()
+
+        # paper §V.B: x_i^0 = pi_i^0 = 0; start from params0 instead (the
+        # paper's setting is params0 = zeros)
+        x = {k: v.to(sdt) for k, v in params0.items()}
+        z = {k: v.expand((m,) + v.shape).clone() for k, v in x.items()}
+        sigma = hparams.sigma_from(fed.sigma_t, r, m).float()
+        state: Dict[str, Any] = {
+            "x": x,
+            "z": z,  # z = x + pi/sigma with pi = 0
+            "pi": {k: torch.zeros_like(v) for k, v in z.items()},
+            "sigma": sigma,
+            "r": r,
+            "round": 0,
+            "rng": gen,
+        }
+        if fed.h_policy == "diag_ema":
+            state["h"] = {k: r.expand(v.shape).clone() for k, v in z.items()}
+        elif fed.h_policy == "gram":
+            if self.model is None or not hasattr(self.model, "gram"):
+                raise ValueError("gram H policy requires a model exposing "
+                                 ".gram(batch) (linear models, Table III)")
+            if init_batch is None:
+                raise ValueError("gram H policy needs init_batch")
+            H = self.model.gram(init_batch)  # (m, n, n)
+            eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+            # upper factor, as the reference's jsl.cho_factor stores it
+            state["gram_chol"] = torch.linalg.cholesky(H / m + sigma * eye,
+                                                       upper=True)
+        return state
+
+    # ------------------------------------------------------------- internals
+    def _apply_Dinv_flat(self, state, v, spec):
+        """v -> (H/m + sigma I)^{-1} v on the (m, N) buffer."""
+        m, sigma = self.fed.num_clients, state["sigma"]
+        if self.fed.h_policy == "gram":
+            n = spec.size  # gram is restricted to single-leaf linear models
+            out = torch.cholesky_solve(v[:, :n, None], state["gram_chol"],
+                                       upper=True)[..., 0]
+            pad = v.shape[1] - n
+            return torch.nn.functional.pad(out, (0, pad)) if pad else out
+        h = state.get("h")
+        if h is None:  # scalar policy: H = r I
+            return v / (state["r"] / m + sigma)
+        return v / (h / m + sigma)
+
+    def _admm_branch_unrolled(self, state, xbar_c, gbar, spec):
+        """k0 iterations of eqs (12)-(14) for ALL clients (masked later)."""
+        sigma = state["sigma"]
+        pi_after = state["pi"]
+        for _ in range(self.fed.k0 - 1):
+            x = xbar_c - self._apply_Dinv_flat(state, gbar + pi_after, spec)
+            pi_after = sigma * (x - xbar_c) + pi_after
+        x_new = xbar_c - self._apply_Dinv_flat(state, gbar + pi_after, spec)
+        pi_new = sigma * (x_new - xbar_c) + pi_after
+        z_new = (1.0 / sigma) * pi_new + x_new
+        return pi_new, z_new
+
+    # ------------------------------------------------------------ flat round
+    def round_inputs(self, state, batch, spec, mask=None):
+        """Steps (1)-(3) of a round on the flat `state`: x̄ (eq. 11), the
+        (m,) branch select, and the per-client losses, raveled gradients
+        and ḡ at x̄. `mask=None` draws the select from `state["rng"]`.
+        Returns (xbar, sel, losses, grads_flat, gbar)."""
+        m = self.fed.num_clients
+        xbar = api.client_mean(state["z"])  # (1) eq. (11)
+        if mask is None:  # (3) client selection
+            mask = selection.selection_mask(state["rng"], m, self.fed.alpha,
+                                            device=xbar.device)
+        # (2) per-client gradient: the one boundary that unravels
+        losses, grads = self._vg(spec.unravel(xbar), batch)
+        grads_flat = spec.ravel_stacked(grads)
+        gbar = (grads_flat * (1.0 / m)).to(_DTYPES[self.fed.state_dtype])
+        return xbar, mask, losses, grads_flat, gbar
+
+    def kernel_args(self, state, xbar, gbar, sel):
+        """The fused update's arguments, as `round_flat` passes them to
+        `fedgia_update_flat`: (xbar_c, gbar, pi, h, sel, sigma, m, k0).
+        The kernel takes contiguous buffers, so the broadcast x̄ and the
+        scalar policy's h = r are materialised as (m, N) copies."""
+        m = self.fed.num_clients
+        h = state.get("h")
+        if h is None:  # scalar policy: the kernel reads an (m, N) h
+            h = state["r"].to(gbar.dtype).expand(gbar.shape)
+        return (api.broadcast_clients(xbar, m).contiguous(), gbar,
+                state["pi"], h.contiguous(), sel, state["sigma"], m,
+                self.fed.k0)
+
+    def round_flat(self, state, batch, spec, mask=None,
+                   donate_kernel: bool = False):
+        """One communication round on the FLAT client-state buffer:
+        `state["z"]`, `state["pi"]`, `state["h"]` are (m, N) buffers and
+        `state["x"]` is (N,) (`engine.flatten_state`). Returns
+        (new_state, metrics).
+
+        `mask` is the (m,) ADMM/GD branch split; None draws it from
+        `state["rng"]` (`selection.selection_mask`).
+
+        `donate_kernel=True` runs the in-place kernel: the update is
+        written into the buffer of `state["pi"]` (and into this round's
+        own ḡ and anchor buffers), so the caller must treat the input
+        state's `pi` as consumed. Under diag_ema the H refresh reads ḡ
+        after the update, as the reference orders it, so ḡ is not
+        donated there and the undonated kernel runs.
+        """
+        fed = self.fed
+        m = fed.num_clients
+        sigma = state["sigma"]
+        xbar, sel, losses, grads_flat, gbar = self.round_inputs(
+            state, batch, spec, mask)
+
+        # (4) both branches + masked combine
+        if fed.collapsed and fed.h_policy != "gram":
+            *args, k0 = self.kernel_args(state, xbar, gbar, sel)
+            donate = donate_kernel and fed.h_policy != "diag_ema"
+            _, pi_new, z_new = fedgia_update_flat(*args, k0=k0, donate=donate)
+        else:
+            xbar_c = api.broadcast_clients(xbar, m)  # stride-0 view
+            pia, za = self._admm_branch_unrolled(state, xbar_c, gbar, spec)
+            pig = gbar * -1.0  # eq. (16)
+            zg = (-1.0 / sigma) * gbar + xbar_c  # eq. (17)
+            pi_new = api.masked_update(sel, pia, pig)
+            z_new = api.masked_update(sel, za, zg)
+
+        new_state = dict(state)
+        new_state.update(x=xbar, z=z_new, pi=pi_new, round=state["round"] + 1)
+        if fed.h_policy == "diag_ema":
+            new_state["h"] = hparams.update_diag_h(state["h"], gbar,
+                                                   state["r"], m)
+        metrics = {
+            "f_xbar": api.client_scalar_mean(losses),
+            "grad_sq_norm": api.flat_grad_sq_norm(grads_flat, spec),
+            "selected": api.client_scalar_sum(sel),
+            "cr": 2.0 * (state["round"] + 1),
+            "local_grad_evals": 1.0,  # per client per round (C2)
+        }
+        return new_state, metrics
+
+    # ------------------------------------------------------------ diagnostics
+    def client_params(self, state):
+        """x_i = z_i − π_i/σ (derived; never stored), on a dict or flat
+        state."""
+        a = -1.0 / state["sigma"]
+        z, pi = state["z"], state["pi"]
+        if isinstance(z, dict):
+            return {k: a * pi[k] + z[k] for k in z}
+        return a * pi + z

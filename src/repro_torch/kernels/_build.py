@@ -1,0 +1,94 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/*.cu` file has a plain C interface and is compiled on first
+use into a shared library under `build/kernels/` at the repository root,
+named by a hash of its source and flags, so a changed source is rebuilt
+and an unchanged one is reused. All sources are compiled in parallel,
+one nvcc process each. Nothing falls back: a missing nvcc, a failed
+compile or a failed load raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
+SOURCES = {
+    "fedgia_update": _PKG / "fedgia_update" / "csrc" / "fedgia_update.cu",
+}
+# IEEE division and no FMA contraction: the kernels are held to their
+# plain PyTorch versions bit for bit.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
+    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict = {}
+# compiler output (ptxas register and spill report) of each build made by
+# this process, by kernel name
+build_logs: dict = {}
+
+
+def nvcc_path() -> str:
+    home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    cand = home / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the port's CUDA kernels are built from source")
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict:
+    """Compile the named sources (default: all) that are not built yet,
+    in parallel. Returns {name: library path}."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not library_path(n).is_file()]
+    if todo:
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for n in todo:
+            final = library_path(n)
+            tmp = final.with_name(f"{final.stem}.{os.getpid()}.tmp.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+            procs.append((n, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for n, tmp, p in procs:
+            out, _ = p.communicate()
+            build_logs[n] = out
+            if p.returncode != 0:
+                failed.append(f"{n} (nvcc exit {p.returncode}):\n{out}")
+            else:
+                os.replace(tmp, library_path(n))
+        if failed:
+            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {n: library_path(n) for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _libs[name] = lib
+        return lib
