@@ -7,8 +7,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. Build: compile every CUDA source of the port with nvcc (in parallel)
    and print the card's name and power limit.
-2. Main path, through `repro_torch.launch.train`, with the kernels'
-   launch counts set to 0 just before each run and read just after:
+2. FedGiA main path, through `repro_torch.launch.train`, with every
+   kernel's launch count set to 0 just before each run and read just
+   after:
    * the paper run at the CLI defaults (linreg, m=128, n=100, d=12800,
      k0=5, alpha=0.5, scalar H, tol 1e-7, up to 500 rounds) on the card,
      then again on the CPU with the plain versions: both must stop early
@@ -18,14 +19,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      rounds): every (m, N) fp32 buffer is 64 MiB, above the 50 MB L2;
    * a one-client run (m=1, n=1024, sigma_t=6), which takes the
      single-client launch.
-3. Kernels: each wrapper of the `fedgia_update` kernel against its
-   plain version on the card (max abs error, expected bitwise), on the
-   next round's inputs of the run that launched it, as `round_flat`
-   builds them (batched: population run, (16384, 1024); donated: paper
-   run, (128, 128), and also the population inputs; single: one-client
-   run, (1, 1024)); then CUDA-event times (median of 25 launches after
-   warm-up) of kernel and plain version beside the bound.
-4. Print one `{"kernels": [...]}` line, the card line again, and last
+3. Serving path, through `repro_torch.launch.serve` at full width with
+   parameters drawn on the card from --seed, counts reset just before
+   and read just after each run (after one short warm-up run each):
+   * tinyllama-1.1b, batch 4, prompt 2048, gen 32: exactly 22 flash
+     attention launches (one per layer's prefill);
+   * rwkv6-3b, batch 4, prompt 1024, gen 32: exactly 32 WKV-scan
+     launches.
+   The first launch of each kernel in these runs (layer 0's prefill) is
+   recorded, so that phase 5 checks and times the kernel on its own
+   main-path inputs.
+4. Card against CPU: the reduced tinyllama-1.1b and rwkv6-3b in float32,
+   parameters made on the CPU and copied to the card, prefill of 64
+   tokens and 8 decode steps on both: the same tokens, logits within
+   1e-4.
+5. Kernels against their plain versions on the card: each
+   `fedgia_update` wrapper (expected bitwise) on the next round's inputs
+   of the run that launched it; flash attention and the WKV scan on the
+   prefill's layer-0 inputs and at edge cases (window, ragged length,
+   MQA at head_dim 128, float32 and bfloat16), held to the tolerances of
+   tests/test_kernels.py. Then CUDA-event times (median of 25 launches
+   after warm-up) of each kernel at its main-path shape, of its plain
+   version and, for flash attention, of PyTorch's
+   `scaled_dot_product_attention` on the same inputs, beside the bound.
+6. Print one `{"kernels": [...]}` line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package `repro`. There is no
@@ -34,7 +51,9 @@ file, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -42,11 +61,14 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+FP32_FLOPS = 67e12  # fp32 peak outside the tensor cores, H100 SXM
 # kernel vs plain version: the same IEEE operations in the same order
 # (the kernel is built with --fmad=false), so bitwise is expected; the
 # check allows 2 float32 ulps
@@ -61,6 +83,20 @@ POPULATION = ["--clients", "16384", "--dim", "1024", "--samples", "262144",
 ONE_CLIENT = ["--clients", "1", "--dim", "1024", "--samples", "4096",
               "--sigma-t", "6", "--rounds", "5", "--tol", "0"]
 
+# full width; the warm-up run before each takes the same prefill, gen 2
+TINYLLAMA = ["--arch", "tinyllama-1.1b", "--batch", "4", "--prompt-len",
+             "2048", "--gen", "32", "--seed", "0"]
+RWKV6 = ["--arch", "rwkv6-3b", "--batch", "4", "--prompt-len", "1024",
+         "--gen", "32", "--seed", "0"]
+# card vs CPU at reduced size, float32: the logits differ by the order of
+# fp32 sums (cuBLAS vs CPU GEMMs, the kernels vs their plain versions)
+PARITY_TOL = 1e-4
+PARITY_PROMPT, PARITY_GEN = 64, 9  # the prefill's token, then 8 decode steps
+# kernel vs plain version: the tolerances of tests/test_kernels.py
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-2}
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SCAN_STATE_TOL = dict(rtol=1e-4, atol=1e-3)
+
 TPU_KERNELS = {
     "fedgia_update_batched":
         "src/repro/kernels/fedgia_update/kernel.py:133",
@@ -68,8 +104,18 @@ TPU_KERNELS = {
         "src/repro/kernels/fedgia_update/kernel.py:150",
     "fedgia_update_single":
         "src/repro/kernels/fedgia_update/kernel.py:166",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:65",
 }
-SOURCE = "src/repro_torch/kernels/fedgia_update/csrc/fedgia_update.cu"
+_FEDGIA_SOURCE = "src/repro_torch/kernels/fedgia_update/csrc/fedgia_update.cu"
+SOURCES = {
+    "fedgia_update_batched": _FEDGIA_SOURCE,
+    "fedgia_update_batched_donated": _FEDGIA_SOURCE,
+    "fedgia_update_single": _FEDGIA_SOURCE,
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "rwkv6_scan": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+}
 
 
 def say(*parts):
@@ -90,11 +136,72 @@ def done_line(tag, res):
             f"err={res['final_err']:.2e}")
 
 
-def run_main_path(train, ops, argv):
+def reset_counts(counters):
+    for mod in counters:
+        mod.reset_launches()
+
+
+def read_counts(counters):
+    return {k: v for mod in counters for k, v in mod.launches.items()}
+
+
+def run_main_path(train, counters, argv):
     """One CLI run on the card, launch counts reset before, read after."""
-    ops.reset_launches()
+    reset_counts(counters)
     res = train.main(argv)
-    return res, dict(ops.launches)
+    return res, read_counts(counters)
+
+
+class LogRecords(logging.Handler):
+    """Keeps the records of a logger, to read the numbers of its lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def record_first_call(mod, name, store):
+    """Replace `mod.name` by a function that records a copy of the
+    arguments of its first call into `store` and calls the original.
+    Returns the function that puts the original back."""
+    real = getattr(mod, name)
+
+    def wrapped(*args, **kwargs):
+        if not store:
+            store.append(([a.clone() for a in args], dict(kwargs)))
+        return real(*args, **kwargs)
+
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, real)
+
+
+def serve_main_path(serve, counters, argv, mod, name):
+    """A warm-up serve run, then the measured one: counts reset before and
+    read after, the first call of `mod.name` recorded, the prefill and
+    decode times read from serve's log line. Returns (tokens, counts,
+    times, the recorded call)."""
+    warm = list(argv)
+    warm[warm.index("--gen") + 1] = "2"
+    serve.main(warm)
+    logs = LogRecords()
+    serve.log.addHandler(logs)
+    store = []
+    restore = record_first_call(mod, name, store)
+    try:
+        reset_counts(counters)
+        tokens = serve.main(argv)
+        counts = read_counts(counters)
+    finally:
+        restore()
+        serve.log.removeHandler(logs)
+    t_prefill, n_tok, t_decode, tok_s = next(
+        r.args for r in logs.records if r.msg.startswith("prefill"))
+    times = {"prefill_s": t_prefill, "prefill_tokens": n_tok,
+             "decode_s": t_decode, "decode_tok_s_req": tok_s}
+    return tokens, counts, times, store[0]
 
 
 def round_inputs(res, engine, selection, pt):
@@ -190,11 +297,127 @@ def hold_and_time(name, args, ops, ref):
     ms = median_ms(call, prep)
     plain_ms = median_ms(lambda: plain(ref, *args))
     bound_ms, nbytes = bound(xbar)
-    return {"name": name, "route": "cuda", "source": SOURCE,
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             "shape": shape, "nbytes": nbytes}
+
+
+def visible_pairs(S, causal=True, window=None):
+    """Number of (query, key) pairs that the masks leave visible."""
+    i = torch.arange(S, dtype=torch.int64)
+    lo = torch.zeros_like(i) if window is None else (i - window + 1).clamp_min(0)
+    hi = i if causal else torch.full_like(i, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+def flash_bound(q, k, window=None):
+    """Least time for flash attention on an H100 SXM: the larger of 4 hd
+    operations per visible (query, key) pair and head over the tensor-core
+    peak of the input type, and q, k, v read once and the output written
+    once over the HBM rate. Returns (ms, bound_by, flops, bytes)."""
+    B, H, S, hd = q.shape
+    flops = 4 * hd * visible_pairs(S, True, window) * B * H
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    peak = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    return bound_of(flops / peak, nbytes / HBM_BYTES_PER_S) + (flops, nbytes)
+
+
+def scan_bound(r, w, u):
+    """Least time for the WKV scan on an H100 SXM: r, k, v, w, u read once,
+    y and the final state written once, over the HBM rate; against 5 fp32
+    operations per state element a step (r S: 2, w S + k v^T: 3; the u
+    term is O(hd)) over the fp32 peak. Returns (ms, bound_by, flops,
+    bytes)."""
+    B, H, T, hd = r.shape
+    flops = 5 * B * H * T * hd * hd
+    nbytes = (4 * r.numel() * r.element_size() + w.numel() * 4
+              + u.numel() * 4 + B * H * hd * hd * 4)
+    return bound_of(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) + (
+        flops, nbytes)
+
+
+def bound_of(t_ops, t_bytes):
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def check_flash(flash_ops, flash_ref, q, k, v, window, what):
+    """Hold the flash kernel to its plain version on (q, k, v)."""
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    want = flash_ref.flash_attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[q.dtype]
+    if out.dtype != q.dtype or not torch.isfinite(out).all():
+        raise SystemExit(f"flash_attention {what}: bad output")
+    err = float((out.float() - want.float()).abs().max())
+    torch.testing.assert_close(
+        out.float(), want.float(), rtol=tol, atol=tol,
+        msg=lambda m: f"flash_attention {what}: {m}")
+    say(f"  flash_attention {what}: q {list(q.shape)} k {list(k.shape)} "
+        f"{str(q.dtype)[6:]} window={window}: max_abs_err={err!r} "
+        f"(tolerance rtol=atol={tol})")
+    return err
+
+
+def check_scan(scan_ops, scan_ref, r, k, v, w, u, what):
+    """Hold the WKV-scan kernel to its plain version."""
+    y, s = scan_ops.rwkv6_scan(r, k, v, w, u)
+    yr, sr = scan_ref.rwkv6_scan_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[r.dtype]
+    if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+        raise SystemExit(f"rwkv6_scan {what}: non-finite output")
+    err = float((y.float() - yr.float()).abs().max())
+    serr = float((s - sr).abs().max())
+    torch.testing.assert_close(y.float(), yr.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"rwkv6_scan {what} y: {m}")
+    torch.testing.assert_close(s, sr, **SCAN_STATE_TOL,
+                               msg=lambda m: f"rwkv6_scan {what} S: {m}")
+    say(f"  rwkv6_scan {what}: r {list(r.shape)} {str(r.dtype)[6:]}: "
+        f"y max_abs_err={err!r} (tolerance rtol=atol={tol}), state "
+        f"max_abs_err={serr!r} (tolerance {SCAN_STATE_TOL})")
+    return err
+
+
+def randn(gen, shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda")
+            * scale).to(dtype)
+
+
+def sdpa(q, k, v):
+    """PyTorch's fused attention on the same function, as a yardstick
+    (the port never calls it), on contiguous copies made outside the
+    timed call."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def card_vs_cpu(serve, Transformer, get_config, arch, counters):
+    """The reduced float32 model on the CPU and, with the same parameters,
+    on the card: the same tokens, logits within PARITY_TOL."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    cpu = Transformer(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    gpu = Transformer(cfg, "cuda").load_params(cpu.state_dict())
+    prompts = torch.randint(0, cfg.vocab_size, (2, PARITY_PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    want = serve.generate(cpu, prompts, PARITY_GEN)
+    reset_counts(counters)
+    got = serve.generate(gpu, prompts.cuda(), PARITY_GEN)
+    n = read_counts(counters)
+    if not torch.equal(got["tokens"].cpu(), want["tokens"]):
+        raise SystemExit(f"{arch}: the card generated {got['tokens'].tolist()}"
+                         f", the CPU {want['tokens'].tolist()}")
+    err = float((got["logits"].cpu() - want["logits"]).abs().max())
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"],
+                               rtol=PARITY_TOL, atol=PARITY_TOL,
+                               msg=lambda m: f"{arch} card vs cpu: {m}")
+    say(f"  {cfg.name} fp32: tokens equal ({want['tokens'][0].tolist()}), "
+        f"logits max_abs_err={err!r} (tolerance rtol=atol={PARITY_TOL}); "
+        f"card launches {n}")
 
 
 def main():
@@ -203,11 +426,19 @@ def main():
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke: {SRC / 'repro_torch'} not found")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
     from repro_torch.core import engine, selection
     from repro_torch.kernels import _build
     from repro_torch.kernels.fedgia_update import ops, ref
-    from repro_torch.launch import train
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+    from repro_torch.kernels.rwkv6_scan import ref as scan_ref
+    from repro_torch.launch import serve, train
+    from repro_torch.models import Transformer
     from repro_torch.utils import pytree as pt
+
+    counters = (ops, flash_ops, scan_ops)
 
     # 1. build -----------------------------------------------------------
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -217,12 +448,13 @@ def main():
     for name, path in _build.build().items():
         say(f"built {name}: {path.relative_to(ROOT)}")
         for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 say("  " + line.strip())
 
-    # 2. main path -------------------------------------------------------
-    launches = {k: 0 for k in ops.launches}
-    paper, n = run_main_path(train, ops, PAPER)
+    # 2. FedGiA main path ----------------------------------------------------
+    launches = {k: 0 for k in read_counts(counters)}
+    paper, n = run_main_path(train, counters, PAPER)
     say(done_line("paper run (cuda)", paper))
     say(f"  launches: {n}")
     if not paper["stopped_early"]:
@@ -233,7 +465,7 @@ def main():
     for k in launches:
         launches[k] += n[k]
 
-    pop, n = run_main_path(train, ops, POPULATION)
+    pop, n = run_main_path(train, counters, POPULATION)
     say(done_line("population run (cuda)", pop))
     say(f"  launches: {n}")
     if n["fedgia_update_batched"] != 20 or sum(n.values()) != 20:
@@ -243,14 +475,13 @@ def main():
     for k in launches:
         launches[k] += n[k]
 
-    one, n = run_main_path(train, ops, ONE_CLIENT)
+    one, n = run_main_path(train, counters, ONE_CLIENT)
     say(done_line("one-client run (cuda)", one))
     say(f"  launches: {n}")
     if n["fedgia_update_single"] != 5 or sum(n.values()) != 5:
         raise SystemExit(f"one-client run: launches {n} != 5 rounds")
     for k in launches:
         launches[k] += n[k]
-    say(f"main-path launches: {launches}")
 
     cpu = train.main(PAPER + ["--device", "cpu"])
     say(done_line("paper run (cpu, plain versions)", cpu))
@@ -268,21 +499,53 @@ def main():
         raise SystemExit(f"paper run: f {f_gpu!r} (cuda) vs {f_cpu!r} (cpu)")
     say(f"paper run parity: rounds {r_gpu} (cuda) vs {r_cpu} (cpu), "
         f"f {f_gpu!r} vs {f_cpu!r}")
-
-    # 3. kernels against their plain versions, then times ----------------
-    # each wrapper on the round inputs of the run that launched it, so at
-    # its main-path shape; the donated wrapper also at the population
-    # shape, which no driven run gives it (diag_ema does not donate)
     paper_in, pop_in, one_in = (round_inputs(res, engine, selection, pt)
                                 for res in (paper, pop, one))
+    for res in (paper, pop, one, cpu):
+        del res["batch"], res["state"]
+
+    # 3. serving path, full width -------------------------------------------
+    served = {}
+    for argv, mod, name, layers in (
+            (TINYLLAMA, flash_ops, "flash_attention", 22),
+            (RWKV6, scan_ops, "rwkv6_scan", 32)):
+        arch = argv[1]
+        tokens, n, times, call = serve_main_path(serve, counters, argv, mod,
+                                                 name)
+        cfg = get_config(arch)
+        batch, gen = int(argv[3]), int(argv[7])
+        say(f"serve {arch} (cuda, full width, batch {batch}, prompt "
+            f"{argv[5]}, gen {gen}): prefill_s={times['prefill_s']!r} "
+            f"({times['prefill_tokens']} tokens) "
+            f"decode_s={times['decode_s']!r} "
+            f"decode_tok_s_req={times['decode_tok_s_req']!r} on {card}")
+        say(f"  generated[0,:16] = {tokens[0, :16].tolist()}")
+        say(f"  launches: {n}")
+        if n[name] != layers or sum(n.values()) != layers:
+            raise SystemExit(f"serve {arch}: launches {n}, want {layers} "
+                             f"{name} launches and no other")
+        if tokens.shape != (batch, gen) or tokens.min() < 0 or \
+                tokens.max() >= cfg.vocab_size:
+            raise SystemExit(f"serve {arch}: bad tokens {tokens.shape}")
+        launches[name] += n[name]
+        served[name] = call
+    say(f"main-path launches: {launches}")
+
+    # 4. card against CPU, reduced, float32 ------------------------------------
+    say("card vs cpu, reduced float32 models (prefill "
+        f"{PARITY_PROMPT} tokens, {PARITY_GEN - 1} decode steps):")
+    for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+        card_vs_cpu(serve, Transformer, get_config, arch, counters)
+
+    # 5. kernels against their plain versions, then times --------------------
+    # each fedgia_update wrapper on the round inputs of the run that
+    # launched it, so at its main-path shape; the donated wrapper also at
+    # the population shape, which no driven run gives it (diag_ema does
+    # not donate)
     cases = [("fedgia_update_batched", pop_in, True),
              ("fedgia_update_batched_donated", paper_in, True),
              ("fedgia_update_batched_donated", pop_in, False),
              ("fedgia_update_single", one_in, True)]
-    for res in (paper, pop, one, cpu):
-        del res["batch"], res["state"]
-
-    ops.reset_launches()
     say(f"kernel vs plain version on one round's inputs, then times on "
         f"{card} (median of {REPS} launches, CUDA events):")
     kernels = []
@@ -301,7 +564,74 @@ def main():
                 raise SystemExit(f"{name} was not launched on the main path")
             kernels.append(k)
 
-    # 4. result ------------------------------------------------------------
+    g = torch.Generator(device="cuda").manual_seed(0)
+    say("flash_attention vs plain version (layer 0 of the tinyllama "
+        "prefill, then edge cases):")
+    (q, k, v), kw = served["flash_attention"]
+    if kw.get("window") is not None or not kw.get("causal", True):
+        raise SystemExit(f"flash_attention: unexpected main-path options {kw}")
+    flash_err = check_flash(flash_ops, flash_ref, q, k, v, None, "main path")
+    check_flash(flash_ops, flash_ref, q.float(), k.float(), v.float(), None,
+                "main path in float32")
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, Kv, S, hd, window, what in (
+                (1, 8, 2, 1024, 64, 256, "causal + window 256"),
+                (2, 8, 2, 1000, 64, None, "ragged S 1000"),
+                (2, 4, 1, 512, 128, None, "MQA, head_dim 128")):
+            qs, ks, vs = (randn(g, (B, S, n, hd), dt).transpose(1, 2)
+                          for n in (H, Kv, Kv))
+            check_flash(flash_ops, flash_ref, qs, ks, vs, window, what)
+
+    say("rwkv6_scan vs plain version (layer 0 of the rwkv6 prefill, then "
+        "edge cases):")
+    (r, kk, vv, w, u), _ = served["rwkv6_scan"]
+    scan_err = check_scan(scan_ops, scan_ref, r, kk, vv, w, u, "main path")
+    for B, H, T, hd, dt, what in ((2, 4, 1000, 64, torch.float32,
+                                   "ragged T 1000"),
+                                  (2, 4, 200, 64, torch.bfloat16, "bf16 r k v"),
+                                  (2, 3, 64, 32, torch.float32, "head_dim 32")):
+        rs, ks, vs = (randn(g, (B, T, H, hd), dt, 0.5).transpose(1, 2)
+                      for _ in range(3))
+        ws = (0.85 + 0.149 * torch.rand((B, T, H, hd), generator=g,
+                                        device="cuda")).transpose(1, 2)
+        check_scan(scan_ops, scan_ref, rs, ks, vs, ws,
+                   randn(g, (H, hd), scale=0.5), what)
+
+    say(f"times at the main-path shapes on {card} (median of {REPS} "
+        f"launches, CUDA events):")
+    ms = median_ms(lambda: flash_ops.flash_attention(q, k, v))
+    plain_ms = median_ms(lambda: flash_ref.flash_attention_ref(q, k, v))
+    library_ms = median_ms(sdpa(q, k, v))
+    bound_ms, bound_by, flops, nbytes = flash_bound(q, k)
+    say(f"  flash_attention q {list(q.shape)} k {list(k.shape)} bf16 causal: "
+        f"kernel_us={ms * 1e3:.2f} plain_us={plain_ms * 1e3:.2f} "
+        f"library_us={library_ms * 1e3:.2f} (scaled_dot_product_attention) "
+        f"bound_us={bound_ms * 1e3:.2f} ({bound_by}; {flops} flop, "
+        f"{nbytes} bytes) achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": TPU_KERNELS["flash_attention"],
+        "launches": launches["flash_attention"], "max_abs_err": flash_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms})
+
+    ms = median_ms(lambda: scan_ops.rwkv6_scan(r, kk, vv, w, u))
+    plain_ms = median_ms(lambda: scan_ref.rwkv6_scan_ref(r, kk, vv, w, u))
+    bound_ms, bound_by, flops, nbytes = scan_bound(r, w, u)
+    say(f"  rwkv6_scan r {list(r.shape)} fp32: kernel_us={ms * 1e3:.2f} "
+        f"plain_us={plain_ms * 1e3:.2f} library_us=none (no PyTorch call "
+        f"computes this recurrence) bound_us={bound_ms * 1e3:.2f} "
+        f"({bound_by}; {flops} flop, {nbytes} bytes) "
+        f"achieved={nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    kernels.append({
+        "name": "rwkv6_scan", "route": "cuda", "source": SOURCES["rwkv6_scan"],
+        "replaces": TPU_KERNELS["rwkv6_scan"],
+        "launches": launches["rwkv6_scan"], "max_abs_err": scan_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None})
+
+    # 6. result ------------------------------------------------------------
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-from repro_torch.config.base import FedConfig
+from repro_torch.config.base import FedConfig, ModelConfig

@@ -1,0 +1,25 @@
+"""Architecture registry of the port: the architectures its serving path
+runs (counterpart of `repro/configs/__init__.py`).
+
+Usage:  from repro_torch.configs import get_config
+        cfg = get_config("tinyllama-1.1b")
+"""
+from __future__ import annotations
+
+from repro_torch.config import ModelConfig
+from repro_torch.configs.qwen15_05b import CONFIG as _qwen
+from repro_torch.configs.rwkv6_3b import CONFIG as _rwkv6
+from repro_torch.configs.tinyllama_11b import CONFIG as _tinyllama
+
+ARCHITECTURES = {c.name: c for c in [_rwkv6, _qwen, _tinyllama]}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHITECTURES:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {sorted(ARCHITECTURES)}")
+    return ARCHITECTURES[name]
+
+
+def list_architectures():
+    return sorted(ARCHITECTURES)

@@ -21,9 +21,13 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES = {
     "fedgia_update": _PKG / "fedgia_update" / "csrc" / "fedgia_update.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "rwkv6_scan": _PKG / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
 }
-# IEEE division and no FMA contraction: the kernels are held to their
-# plain PyTorch versions bit for bit.
+# IEEE division and no FMA contraction: the fedgia_update kernel is held
+# to its plain PyTorch version bit for bit. The attention and scan
+# kernels write their fused multiply-adds out as fmaf, which the flag
+# leaves alone, and are held to their plain versions at a tolerance.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,112 @@
+"""Serving driver for the port: prefill a batch of requests, then decode
+greedily, token by token.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
+
+Counterpart of `repro.launch.serve`, with its flags (but `--no-scan`: the
+decode is always a per-token loop) and its closing log lines. Runs on the
+CUDA device unless `--device cpu` is given, in which case the plain
+PyTorch versions stand in for the CUDA kernels. Parameters come from the
+model's own initialiser, drawn from a generator on the run's device
+seeded by `--seed`; the prompts are drawn from the same generator.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, list_architectures
+from repro_torch.device import resolve_device
+from repro_torch.launch.train import get_logger
+from repro_torch.models import Transformer
+
+log = get_logger("serve")
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model: Transformer, prompts, gen: int, window=None) -> dict:
+    """Prefill `prompts` (B, P) and decode `gen` tokens greedily (the
+    prefill's argmax first). Returns {"tokens": (B, gen), "logits":
+    (gen, B, V) the logits each token was taken from, "prefill_s",
+    "decode_s"}, the times on the host clock around work that ends in a
+    device sync."""
+    B, P = prompts.shape
+    dev = model.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompts, cache_len=P + gen, window=window)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    tokens = logits.argmax(-1)[:, None]
+    out, seen = [tokens], [logits]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = model.decode_step(cache, tokens, P + i, window=window)
+        tokens = logits.argmax(-1)[:, None]
+        out.append(tokens)
+        seen.append(logits)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return {"tokens": torch.cat(out, dim=1), "logits": torch.stack(seen),
+            "prefill_s": t_prefill, "decode_s": t_decode}
+
+
+def serve(args, params=None, prompts=None):
+    """One serving run. `params` (a `Transformer` state dict) and
+    `prompts` ((batch, prompt_len) ints) replace the drawn ones, so that a
+    caller can feed in another run's. Returns the generated tokens
+    (batch, gen) as a numpy array."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = Transformer(cfg, device)
+    rng = torch.Generator(device=device).manual_seed(args.seed)
+    if params is None:
+        model.init(rng)
+    else:
+        model.load_params(params)
+    if prompts is None:
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch,
+                                                    args.prompt_len),
+                                generator=rng, device=device)
+    else:
+        prompts = torch.as_tensor(prompts, device=device).long()
+    window = cfg.sliding_window if args.long_context else None
+
+    res = generate(model, prompts, args.gen, window=window)
+    B, P = prompts.shape
+    log.info("prefill %.3fs (%d tokens)  decode %.3fs (%.1f tok/s/req)",
+             res["prefill_s"], B * P, res["decode_s"],
+             (args.gen - 1) / max(res["decode_s"], 1e-9))
+    out = res["tokens"].cpu().numpy()
+    log.info("generated[0,:16] = %s", out[0, :16].tolist())
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", choices=list_architectures(), required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--long-context", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap
+
+
+def main(argv=None):
+    return serve(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

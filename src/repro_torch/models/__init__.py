@@ -3,3 +3,4 @@ from repro_torch.models.linear_models import (
     LogisticRegression,
     NonConvexLogistic,
 )
+from repro_torch.models.transformer import Transformer

@@ -1,0 +1,168 @@
+"""Attention: GQA (llama-style, optional QKV bias / sliding window).
+
+Counterpart of the GQA part of `repro/models/attention.py` (MLA is still
+to port). Prefill and train attend over the fresh K/V through the flash
+attention kernel's wrapper (`kernels/flash_attention`). Decode attends
+one new query against the cache with `blocked_attention`, the model's own
+streaming softmax in plain PyTorch, as the reference decodes with it: the
+reference has no kernel there.
+
+The KV cache is updated in place (the reference returns a new one): the
+tensors of `cache` are written and the same dict is returned.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layers import apply_rope, he_init
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnMode:
+    kind: str = "train"  # train | prefill | decode
+    window: Optional[int] = None  # sliding-window mask width (None = full)
+    block_k: int = 512
+
+
+# ============================================================ blocked softmax
+def blocked_attention(q, k, v, q_positions, kv_positions, *, window=None,
+                      block_k=512, scale=None):
+    """Streaming-softmax attention.
+
+    q: (B, S, H, dqk); k: (B, T, Kv, dqk); v: (B, T, Kv, dv)
+    q_positions: (S,) absolute positions of queries
+    kv_positions: (T,) absolute positions of keys (-1 = invalid slot)
+    Causal: key visible iff 0 <= kv_pos <= q_pos (and q_pos - kv_pos < window).
+    Returns (B, S, H, dv).
+    """
+    B, S, H, dqk = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    G = H // Kv
+    scale = scale if scale is not None else 1.0 / (dqk ** 0.5)
+
+    qr = q.reshape(B, S, Kv, G, dqk).permute(0, 2, 3, 1, 4)  # B,Kv,G,S,dqk
+    qr = (qr * scale).to(q.dtype).float()
+
+    block_k = min(block_k, T)
+    nb = -(-T // block_k)
+    pad = nb * block_k - T
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+    kb = k.reshape(B, nb, block_k, Kv, dqk).permute(1, 0, 3, 2, 4)  # nb,B,Kv,bk,d
+    vb = v.reshape(B, nb, block_k, Kv, dv).permute(1, 0, 3, 2, 4)
+    pb = kv_positions.reshape(nb, block_k)
+
+    m = torch.full((B, Kv, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Kv, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Kv, G, S, dv), dtype=torch.float32, device=q.device)
+    for i in range(nb):
+        s = torch.einsum("bkgsd,bktd->bkgst", qr, kb[i].float())
+        pos = pb[i][None, :]
+        valid = (pos <= q_positions[:, None]) & (pos >= 0)
+        if window is not None:
+            valid &= q_positions[:, None] - pos < window
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,bktd->bkgsd", p, vb[i].float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dv)
+    return out.to(q.dtype)
+
+
+# ===================================================================== GQA
+def gqa_init(gen, cfg: ModelConfig, dtype, device=None):
+    d, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": he_init(gen, (d, H * hd), d, dtype, device),
+        "wk": he_init(gen, (d, Kv * hd), d, dtype, device),
+        "wv": he_init(gen, (d, Kv * hd), d, dtype, device),
+        "wo": he_init(gen, (H * hd, d), H * hd, dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((Kv * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((Kv * hd,), dtype=dtype, device=device)
+    return p
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device=None):
+    Kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, cache_len, Kv, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, cache_len, Kv, hd), dtype=dtype,
+                         device=device),
+        "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                               device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _write_cache(cache, k_new, v_new, positions):
+    """Ring-buffer write, in place: entries land at position % W.
+    positions: (S,). When S > W only the LAST W entries are written
+    (unique slots, as in the reference)."""
+    W = cache["k"].shape[1]
+    S = k_new.shape[1]
+    if S > W:
+        k_new, v_new, positions = k_new[:, -W:], v_new[:, -W:], positions[-W:]
+    idx = positions % W
+    cache["k"][:, idx] = k_new.to(cache["k"].dtype)
+    cache["v"][:, idx] = v_new.to(cache["v"].dtype)
+    cache["slot_pos"][idx] = positions.to(torch.int32)
+    cache["pos"].copy_(positions[-1] + 1)
+    return cache
+
+
+def gqa_apply(params, cfg: ModelConfig, x, positions, cache, mode: AttnMode):
+    """x: (B,S,d); positions: (S,). Returns (out, cache).
+
+    Train and prefill take positions 0..S-1 (what `Transformer.forward`
+    and `Transformer.prefill` give them): the flash kernel masks by
+    index."""
+    B, S, d = x.shape
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Kv, hd)
+    v = v.reshape(B, S, Kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if mode.kind in ("train", "prefill"):
+        # prefill attends over the FRESH K/V (window-masked), independent of
+        # ring-buffer wrap-around; the cache write keeps only the last W.
+        out = flash_ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=mode.window).transpose(1, 2)
+        if mode.kind == "prefill":
+            _write_cache(cache, k, v, positions)
+    else:
+        _write_cache(cache, k, v, positions)
+        out = blocked_attention(
+            q, cache["k"], cache["v"], positions, cache["slot_pos"],
+            window=mode.window, block_k=mode.block_k)
+    out = out.reshape(B, S, H * hd)
+    return out @ params["wo"], cache

@@ -13,7 +13,14 @@ from repro_torch.core.selection import make_generator
 
 
 def _tensor(v, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(v, copy=True)).to(device)
+    """One array as a tensor, bit for bit. numpy has no bfloat16 of its
+    own: a JAX bf16 array comes as an `ml_dtypes.bfloat16` array, which
+    `torch.from_numpy` refuses, so its bits go across as int16."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def params_from_numpy(tree, device):
@@ -21,6 +28,45 @@ def params_from_numpy(tree, device):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def transformer_state_from_numpy(tree, device) -> dict:
+    """A JAX `Transformer.init` pytree as numpy -> the port's
+    `Transformer` state dict ({key path: tensor}). The reference stacks
+    each group's layers on a leading axis (`jax.vmap` over the layer
+    keys); the port keeps one entry per layer: `groups/dense/attn/wq[i]`
+    becomes "groups.dense.{i}.attn.wq"."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        out[".".join(path)] = _tensor(node, device)
+
+    for k, v in tree.items():
+        if k != "groups":
+            walk(v, (k,))
+    for g, layers in tree["groups"].items():
+        n = len(next(iter(_leaves(layers))))
+        for i in range(n):
+            walk(_index(layers, i), ("groups", g, str(i)))
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
 
 
 def state_from_numpy(state: dict, device, seed: int) -> dict:

@@ -1,0 +1,106 @@
+"""The port's flash attention module against the JAX package's.
+
+Mirrors tests/test_kernels.py's flash attention tests: the same four
+shapes in float32 and bfloat16, inputs made with numpy from a seed. The
+port's wrapper on CPU tensors runs its plain version (the full softmax of
+`ref.py`); it is held to the Pallas kernel run in interpret mode, to the
+JAX full-softmax oracle and to the port's own `blocked_attention`. The
+CUDA kernel cannot run here; chip_smoke.py holds it to the same plain
+version on the card. Tolerances are the reference's kernel-vs-oracle
+ones: 2e-5 in float32 (the sums run in other orders), 2.5e-2 in bfloat16
+(one bf16 rounding of outputs of size ~1).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
+from repro.models.attention import blocked_attention as jax_blocked
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.models.attention import blocked_attention
+
+SHAPES = [
+    (2, 4, 4, 128, 64, None, 64, 64),
+    (1, 8, 2, 200, 64, None, 64, 64),   # GQA, unaligned seq
+    (2, 4, 1, 192, 128, None, 128, 64), # MQA
+    (1, 4, 4, 256, 64, 64, 64, 64),     # sliding window
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2.5e-2)}
+
+
+def _inputs(seed, B, H, Kv, S, hd, jdt):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, n, S, hd)) for n in (H, Kv, Kv)]
+    # round through the dtype once, so both packages see the same values
+    return [np.array(jnp.asarray(a, jdt).astype(jnp.float32)) for a in arrs]
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("B,H,Kv,S,hd,window,bq,bk", SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_matches_reference(B, H, Kv, S, hd, window, bq, bk,
+                                           dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrs = _inputs(S + hd, B, H, Kv, S, hd, jdt)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrs)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrs)
+    out = ops.flash_attention(q, k, v, window=window)
+    assert out.dtype == tdt and out.shape == q.shape
+    assert ops.launches["flash_attention"] == 0  # the plain version ran
+    kernel = jax_flash(jq, jk, jv, window=window, interpret=True,
+                       block_q=bq, block_k=bk)
+    _close(out, kernel, tol, "vs Pallas kernel (interpret)")
+    _close(out, jax_flash_ref(jq, jk, jv, window=window), tol,
+           "vs JAX oracle")
+    # the model's own streaming softmax, in its (B,S,H,hd) layout
+    pos = torch.arange(S)
+    blocked = blocked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), pos, pos, window=window,
+                                block_k=bk).transpose(1, 2)
+    _close(out, blocked.float().numpy(), tol, "vs port blocked_attention")
+
+
+def test_blocked_attention_matches_reference_over_a_ring_cache():
+    """The decode form: one query against a cache whose slots are out of
+    order and partly empty (slot_pos -1), with a window."""
+    rng = np.random.default_rng(7)
+    B, H, Kv, T, hd = 2, 4, 2, 40, 32
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, T, Kv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, T, Kv, hd)).astype(np.float32)
+    slot = np.full(T, -1, np.int32)
+    slot[:30] = (np.arange(30) + 17) % 30 + 5  # positions 5..34, wrapped
+    qpos = np.array([34], np.int32)
+    want = jax_blocked(*map(jnp.asarray, (q, k, v, qpos, slot)), window=20,
+                       block_k=16)
+    got = blocked_attention(*map(torch.from_numpy, (q, k, v, qpos, slot)),
+                            window=20, block_k=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(hd=32), "head_dim"),
+    (dict(kdtype=torch.float16), "dtype"),
+    (dict(T=96), "S == T"),
+    (dict(Kv=3), "H % Kv"),
+    (dict(), "CUDA"),
+])
+def test_kernel_path_validates_and_never_falls_back(case, match):
+    """A tensor that is not on the CPU goes to the kernel path, which
+    checks shape, dtype and device and raises: nothing quietly runs the
+    plain version instead."""
+    hd, T, Kv = case.get("hd", 64), case.get("T", 128), case.get("Kv", 2)
+    q = torch.empty((1, 4, 128, hd), device="meta")
+    k = torch.empty((1, Kv, T, hd), device="meta",
+                    dtype=case.get("kdtype", torch.float32))
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention(q, k, k.clone())
+    assert ops.launches["flash_attention"] == 0
