@@ -37,11 +37,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    `fedgia_update` wrapper (expected bitwise) on the next round's inputs
    of the run that launched it; flash attention and the WKV scan on the
    prefill's layer-0 inputs and at edge cases (window, ragged length,
-   MQA at head_dim 128, float32 and bfloat16), held to the tolerances of
+   MQA at head_dim 128, a single query, one whole tile and a ragged one,
+   a GQA group of 8 at head_dim 128 with a window, float32 and bfloat16;
+   the scan at one step and at head_dim 32), held to the tolerances of
    tests/test_kernels.py. Then CUDA-event times (median of 25 launches
    after warm-up) of each kernel at its main-path shape, of its plain
    version and, for flash attention, of PyTorch's
-   `scaled_dot_product_attention` on the same inputs, beside the bound.
+   `scaled_dot_product_attention` on the same inputs, beside the bound,
+   with each kernel's rate and share of its bound.
 6. Print one `{"kernels": [...]}` line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
@@ -338,6 +341,19 @@ def scan_bound(r, w, u):
         flops, nbytes)
 
 
+def flash_tile_flops(flash_ops, q, window=None):
+    """Flops of the (query, key) tiles that the kernel computes for q's
+    shape, causal: visible pairs and the masked part of the tiles that
+    the masks cut (the diagonal, the ragged edge)."""
+    B, H, S, hd = q.shape
+    bq, bk = flash_ops.TILES[(q.dtype, hd)]
+    pairs = 0
+    for qt in range(-(-S // bq)):
+        lo, hi = flash_ops.kv_tiles(qt, S, bq, bk, True, window)
+        pairs += min(bq, S - qt * bq) * (min(hi * bk, S) - lo * bk)
+    return 4 * hd * pairs * B * H
+
+
 def bound_of(t_ops, t_bytes):
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -577,7 +593,15 @@ def main():
         for B, H, Kv, S, hd, window, what in (
                 (1, 8, 2, 1024, 64, 256, "causal + window 256"),
                 (2, 8, 2, 1000, 64, None, "ragged S 1000"),
-                (2, 4, 1, 512, 128, None, "MQA, head_dim 128")):
+                (2, 4, 1, 512, 128, None, "MQA, head_dim 128"),
+                # the tensor-core form's edges: one query, one whole
+                # 128-query tile and a ragged one, and at head_dim 128
+                # (64-key tiles, two TMA boxes a row) a GQA group of 8
+                # with the window's edge tile
+                (2, 8, 2, 1, 64, None, "S 1"),
+                (2, 8, 2, 130, 64, None, "S 130 (128 + ragged 2)"),
+                (1, 16, 2, 1024, 128, 256,
+                 "GQA group 8, head_dim 128, window 256")):
             qs, ks, vs = (randn(g, (B, S, n, hd), dt).transpose(1, 2)
                           for n in (H, Kv, Kv))
             check_flash(flash_ops, flash_ref, qs, ks, vs, window, what)
@@ -589,7 +613,13 @@ def main():
     for B, H, T, hd, dt, what in ((2, 4, 1000, 64, torch.float32,
                                    "ragged T 1000"),
                                   (2, 4, 200, 64, torch.bfloat16, "bf16 r k v"),
-                                  (2, 3, 64, 32, torch.float32, "head_dim 32")):
+                                  (2, 3, 64, 32, torch.float32, "head_dim 32"),
+                                  # one step: a single ragged chunk
+                                  (2, 4, 1, 64, torch.float32, "T 1"),
+                                  # one 32-column group holds the whole
+                                  # head, 2 state rows a thread
+                                  (1, 2, 17, 32, torch.bfloat16,
+                                   "head_dim 32, bf16, ragged T 17")):
         rs, ks, vs = (randn(g, (B, T, H, hd), dt, 0.5).transpose(1, 2)
                       for _ in range(3))
         ws = (0.85 + 0.149 * torch.rand((B, T, H, hd), generator=g,
@@ -603,11 +633,15 @@ def main():
     plain_ms = median_ms(lambda: flash_ref.flash_attention_ref(q, k, v))
     library_ms = median_ms(sdpa(q, k, v))
     bound_ms, bound_by, flops, nbytes = flash_bound(q, k)
+    done = flash_tile_flops(flash_ops, q)
     say(f"  flash_attention q {list(q.shape)} k {list(k.shape)} bf16 causal: "
         f"kernel_us={ms * 1e3:.2f} plain_us={plain_ms * 1e3:.2f} "
         f"library_us={library_ms * 1e3:.2f} (scaled_dot_product_attention) "
         f"bound_us={bound_ms * 1e3:.2f} ({bound_by}; {flops} flop, "
-        f"{nbytes} bytes) achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        f"{nbytes} bytes) achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"share_of_bound={bound_ms / ms:.4f}; the tiles computed hold "
+        f"{done} flop, {done / flops:.4f}x the visible pairs' "
+        f"({done / (ms * 1e-3) / 1e12:.2f} TFLOP/s issued)")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCES["flash_attention"],
@@ -619,11 +653,15 @@ def main():
     ms = median_ms(lambda: scan_ops.rwkv6_scan(r, kk, vv, w, u))
     plain_ms = median_ms(lambda: scan_ref.rwkv6_scan_ref(r, kk, vv, w, u))
     bound_ms, bound_by, flops, nbytes = scan_bound(r, w, u)
+    split = scan_ops.column_split(r.shape[3])
     say(f"  rwkv6_scan r {list(r.shape)} fp32: kernel_us={ms * 1e3:.2f} "
         f"plain_us={plain_ms * 1e3:.2f} library_us=none (no PyTorch call "
         f"computes this recurrence) bound_us={bound_ms * 1e3:.2f} "
         f"({bound_by}; {flops} flop, {nbytes} bytes) "
-        f"achieved={nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        f"achieved={nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+        f"share_of_bound={bound_ms / ms:.4f}; "
+        f"{split.warps(r.shape[0], r.shape[1])} warps in "
+        f"{split.groups * r.shape[0] * r.shape[1]} blocks")
     kernels.append({
         "name": "rwkv6_scan", "route": "cuda", "source": SOURCES["rwkv6_scan"],
         "replaces": TPU_KERNELS["rwkv6_scan"],

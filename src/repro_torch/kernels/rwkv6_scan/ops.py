@@ -10,6 +10,7 @@ launches, and nothing else.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +21,54 @@ HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"rwkv6_scan": 0}
+COPY_ALIGN = 16  # bytes: the kernel stages r, k, v, w by 16-byte cp.async
+
+
+class ColumnSplit(NamedTuple):
+    """How the kernel spreads one head's (hd x hd) state over threads (the
+    constants of `csrc/rwkv6_scan.cu`): a head takes `groups` blocks of
+    `cols` value columns each; the key rows are cut in `parts` parts of
+    `rows` rows, one a half-warp, and lane c of a half-warp keeps its
+    part's entries in columns c and c + cols / 2."""
+    cols: int
+    parts: int
+    rows: int
+    groups: int
+
+    @property
+    def threads(self) -> int:
+        return self.cols // 2 * self.parts
+
+    def owner(self, i: int, j: int):
+        """(block column group, thread in the block, register) holding
+        S[i][j], registers counted row-major over (row, column pair)."""
+        half = self.cols // 2
+        jc = j % self.cols
+        return (j // self.cols, i // self.rows * half + jc % half,
+                i % self.rows * 2 + jc // half)
+
+    def warps(self, B: int, H: int) -> int:
+        """Warps the launch puts on the card for B x H heads."""
+        return B * H * self.groups * self.threads // 32
+
+
+def column_split(hd: int) -> ColumnSplit:
+    cols, parts = 32, 16
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: head_dim {hd} not in {HEAD_DIMS}")
+    return ColumnSplit(cols, parts, hd // parts, hd // cols)
+
+
+def check_copy_alignment(t, name: str = "r") -> None:
+    """Raise unless the kernel can stage `t` (B,H,T,hd) by 16-byte copies:
+    its start and its b, h, t strides multiples of 16 bytes."""
+    if t.data_ptr() % COPY_ALIGN:
+        raise ValueError(f"rwkv6_scan: {name} must start on a {COPY_ALIGN}-"
+                         f"byte boundary, got address {t.data_ptr():#x}")
+    if any(t.stride(i) * t.element_size() % COPY_ALIGN for i in range(3)):
+        raise ValueError(f"rwkv6_scan: the strides of {name} must be "
+                         f"multiples of {COPY_ALIGN} bytes, got "
+                         f"{t.stride()} of {t.element_size()}-byte values")
 
 
 def reset_launches() -> None:
@@ -44,8 +93,7 @@ def _launch(r, k, v, w, u):
     if tuple(u.shape) != (H, hd):
         raise ValueError(f"rwkv6_scan: u must be {(H, hd)}, "
                          f"got {tuple(u.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_scan: head_dim {hd} not in {HEAD_DIMS}")
+    column_split(hd)  # raises for a head_dim the kernel has no form for
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"rwkv6_scan: r, k, v must share one dtype of "
                          f"{list(_DTYPES)}, got {r.dtype}, {k.dtype}, "
@@ -53,6 +101,9 @@ def _launch(r, k, v, w, u):
     if w.dtype != torch.float32 or u.dtype != torch.float32:
         raise ValueError(f"rwkv6_scan: w and u must be float32, got "
                          f"{w.dtype}, {u.dtype}")
+    if r.numel():  # layout, checked before the device: a meta tensor
+        for name, t in zip("rkvw", (r, k, v, w)):  # reaches it too
+            check_copy_alignment(t, name)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: the kernel takes CUDA tensors, "
                          f"got {r.device}")

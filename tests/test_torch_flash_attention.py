@@ -104,3 +104,102 @@ def test_kernel_path_validates_and_never_falls_back(case, match):
     with pytest.raises(ValueError, match=match):
         ops.flash_attention(q, k, k.clone())
     assert ops.launches["flash_attention"] == 0
+
+
+def _meta_bf16(B, H, S, hd, seq_stride=None, offset=0):
+    """A (B,H,S,hd) bfloat16 meta tensor laid out as the model's
+    transposed (B,S,H,hd) view, with a chosen sequence stride and a
+    storage offset in elements."""
+    ss = H * hd if seq_stride is None else seq_stride
+    flat = torch.empty(B * S * ss + offset, device="meta",
+                       dtype=torch.bfloat16)
+    return flat.as_strided((B, H, S, hd), (S * ss, hd, ss, 1), offset)
+
+
+@pytest.mark.parametrize("what,match", [
+    ("misaligned q", "16-byte boundary"),
+    ("misaligned v", "16-byte boundary"),
+    ("sequence stride", "multiples of 8 elements"),
+    ("head_dim 96", "head_dim"),
+    ("head_dim 32", "head_dim"),
+])
+def test_bf16_kernel_checks_its_tma_layout_and_never_falls_back(what, match):
+    """The bfloat16 kernel reads q, k, v by TMA: a base pointer or a stride
+    off 16 bytes, or a head_dim without a form, raises before anything
+    runs, on the kernel path (meta tensors take it)."""
+    hd = {"head_dim 96": 96, "head_dim 32": 32}.get(what, 64)
+    q = _meta_bf16(1, 4, 130, hd, offset=4 if what == "misaligned q" else 0,
+                   seq_stride=4 * hd + 4 if what == "sequence stride" else None)
+    k = _meta_bf16(1, 2, 130, hd)
+    v = _meta_bf16(1, 2, 130, hd, offset=1 if what == "misaligned v" else 0)
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention(q, k, v)
+    assert ops.launches["flash_attention"] == 0
+
+
+def test_tma_layout_checks_are_bf16_only():
+    """float32 keeps the CUDA-core body, which takes any strides: the same
+    odd layout passes the layout checks and stops only at the device."""
+    flat = torch.empty(4 * 130 * 260 + 1, device="meta")
+    q = flat.as_strided((1, 4, 130, 64), (130 * 260, 64, 260, 1), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, q, q)
+
+
+def test_tma_strides_of_the_models_transposed_views():
+    """The model's (B,S,H,hd) tensors, transposed to (B,H,S,hd), give TMA
+    byte strides (s, h, b), innermost first."""
+    B, S, H, hd = 2, 130, 32, 64
+    q = torch.empty((B, S, H, hd), dtype=torch.bfloat16).transpose(1, 2)
+    assert ops.tma_strides(q) == (H * hd * 2, hd * 2, S * H * hd * 2)
+    kv = torch.empty((B, S, 4, 128), dtype=torch.bfloat16).transpose(1, 2)
+    assert ops.tma_strides(kv) == (4 * 128 * 2, 128 * 2, S * 4 * 128 * 2)
+
+
+def _visible(S, causal, window):
+    i = np.arange(S)[:, None]
+    j = np.arange(S)[None, :]
+    m = np.ones((S, S), bool)
+    if causal:
+        m &= j <= i
+    if window is not None:
+        m &= i - j < window
+    return m
+
+
+@pytest.mark.parametrize("S", [1, 127, 128, 130, 300, 1000])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 256),
+                                           (True, 64), (False, None),
+                                           (False, 100)])
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 64)])
+def test_kv_tiles_cover_every_visible_key_and_skip_only_hidden_tiles(
+        S, causal, window, dtype, hd):
+    """The tile skip of each form of the kernel, ragged edges included:
+    the key tiles a block walks hold every key visible to its queries,
+    and each tile it skips holds none; its first and last tiles hold
+    some."""
+    bq, bk = ops.TILES[(dtype, hd)]
+    vis = _visible(S, causal, window)
+    for qt in range(-(-S // bq)):
+        rows = vis[qt * bq:(qt + 1) * bq]
+        lo, hi = ops.kv_tiles(qt, S, bq, bk, causal, window)
+        assert 0 <= lo < hi <= -(-S // bk)
+        for kt in range(-(-S // bk)):  # no tile with a visible key skipped
+            if rows[:, kt * bk:(kt + 1) * bk].any():
+                assert lo <= kt < hi, (qt, kt)
+        assert rows[:, lo * bk:(lo + 1) * bk].any()
+        assert rows[:, (hi - 1) * bk:hi * bk].any()
+
+
+@pytest.mark.parametrize("S", [1, 130, 2048, 2100])
+def test_reversed_query_tiles_put_the_heaviest_causal_blocks_first(S):
+    """The bfloat16 kernel's blocks take query tiles in reverse
+    (gridDim.x - 1 - blockIdx.x): a causal grid's work then falls along
+    the launch order, and its tail is the lightest tiles."""
+    bq, bk = ops.TILES[(torch.bfloat16, 64)]
+    order = range(-(-S // bq) - 1, -1, -1)
+    work = [hi - lo for lo, hi in (ops.kv_tiles(qt, S, bq, bk)
+                                   for qt in order)]
+    assert work == sorted(work, reverse=True) and work[-1] == 1

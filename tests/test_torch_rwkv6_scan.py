@@ -121,3 +121,56 @@ def test_kernel_path_validates_and_never_falls_back(case, match):
     with pytest.raises(ValueError, match=match):
         ops.rwkv6_scan(r, r, r, w, u)
     assert ops.launches["rwkv6_scan"] == 0
+
+
+@pytest.mark.parametrize("what,match", [
+    ("misaligned r", "16-byte boundary"),
+    ("misaligned w", "16-byte boundary"),
+    ("odd t stride", "multiples of 16 bytes"),
+])
+def test_kernel_checks_its_copy_alignment_and_never_falls_back(what, match):
+    """The kernel stages r, k, v, w by 16-byte copies: a start or a stride
+    off 16 bytes raises on the kernel path (meta tensors take it)."""
+    B, H, T, hd = 1, 2, 10, 64
+    ts = H * hd + (2 if what == "odd t stride" else 0)
+
+    def make(offset=0):
+        flat = torch.empty(B * T * ts + offset, device="meta")
+        return flat.as_strided((B, H, T, hd), (T * ts, hd, ts, 1), offset)
+
+    r = make(1 if what == "misaligned r" else 0)
+    w = make(3 if what == "misaligned w" else 0)
+    u = torch.empty((H, hd), device="meta")
+    with pytest.raises(ValueError, match=match):
+        ops.rwkv6_scan(r, make(), make(), w, u)
+    assert ops.launches["rwkv6_scan"] == 0
+
+
+@pytest.mark.parametrize("hd", ops.HEAD_DIMS)
+def test_column_split_gives_each_state_entry_one_owner(hd):
+    """The kernel's split of a head's state: every entry S[i][j] has one
+    (block, thread, register); the 16 lanes of a half-warp share their key
+    rows, and a thread's two columns are 16 apart. At head_dim 32 one
+    block holds the whole head, fewer columns than hd 64's two groups."""
+    split = ops.column_split(hd)
+    assert split.threads == 256 and split.groups == hd // 32
+    owners = {}
+    for i in range(hd):
+        for j in range(hd):
+            g, t, reg = split.owner(i, j)
+            assert 0 <= g < split.groups and 0 <= t < split.threads
+            assert 0 <= reg < 2 * split.rows
+            owners.setdefault((g, t), []).append((i, j))
+    assert len(owners) == split.groups * split.threads
+    for (g, t), cells in owners.items():
+        assert len(cells) == 2 * split.rows  # rows x two columns
+        cols = sorted({j for _, j in cells})
+        assert cols[1] - cols[0] == 16
+        assert {i // split.rows for i, _ in cells} == {2 * (t // 32)
+                                                        + t % 32 // 16}
+
+
+def test_column_split_puts_4x_the_warps_of_one_block_per_head():
+    """At the RWKV-6-3B prefill (B 4, H 40, hd 64) the split launches 2560
+    warps, eight times the 320 of one 64-thread block per head."""
+    assert ops.column_split(64).warps(4, 40) == 2560 >= 4 * 4 * 40 * 2

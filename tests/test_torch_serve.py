@@ -146,3 +146,21 @@ def test_every_kernel_source_is_built():
     for name, src in _build.SOURCES.items():
         assert src.is_file() and src.suffix == ".cu"
         assert _build.library_path(name).name.startswith(name + "-")
+
+
+@pytest.mark.parametrize("name", ["fedgia_update", "flash_attention",
+                                  "rwkv6_scan"])
+def test_each_kernel_builds_with_its_own_flags(name, monkeypatch):
+    """nvcc flags are per source and part of each library's hash: a change
+    of one kernel's flags renames (so rebuilds) that library alone. The
+    bitwise kernels keep --fmad=false."""
+    from repro_torch.kernels import _build
+
+    flags = _build.nvcc_flags(name)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert ("--fmad=false" in flags) == (name != "flash_attention")
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    monkeypatch.setitem(_build.SOURCE_FLAGS, name,
+                        _build.SOURCE_FLAGS[name] + ("-lineinfo",))
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert {n for n in before if before[n] != after[n]} == {name}
