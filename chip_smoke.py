@@ -9,16 +9,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and print the card's name and power limit.
 2. FedGiA main path, through `repro_torch.launch.train`, with every
    kernel's launch count set to 0 just before each run and read just
-   after:
+   after. Each run takes the default driver, the chunked one, which
+   replays each chunk of rounds as a CUDA graph (eq. (35) checked on the
+   card, rounds after the stop skipped by conditional graph nodes):
    * the paper run at the CLI defaults (linreg, m=128, n=100, d=12800,
-     k0=5, alpha=0.5, scalar H, tol 1e-7, up to 500 rounds) on the card,
-     then again on the CPU with the plain versions: both must stop early
-     at the same round (or one apart when the metric lies within fp noise
-     of tol) with the same final f (rel 1e-5);
+     k0=5, alpha=0.5, scalar H, tol 1e-7, up to 500 rounds) on the card;
+     again with the eager `--no-scan` loop on the card (the same rounds,
+     a final state bitwise equal); and on the CPU with the plain versions:
+     card and CPU stop early at the same round (or one apart when the
+     metric lies within fp noise of tol) with the same final f (rel
+     1e-5);
    * the population run (m=16384, n=1024, d=262144, diag_ema H, 20
-     rounds): every (m, N) fp32 buffer is 64 MiB, above the 50 MB L2;
+     rounds), replayed and eager, held to each other the same way: every
+     (m, N) fp32 buffer is 64 MiB, above the 50 MB L2;
    * a one-client run (m=1, n=1024, sigma_t=6), which takes the
      single-client launch.
+   Launches under replay are those the card executed: the donated kernel
+   once a paper round, the batched one 20 times, the single one 5 times.
+   Per-round times, replayed and eager, and the capture time apart.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each):
@@ -34,18 +42,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    tokens and 8 decode steps on both: the same tokens, logits within
    1e-4.
 5. Kernels against their plain versions on the card: each
-   `fedgia_update` wrapper (expected bitwise) on the next round's inputs
-   of the run that launched it; flash attention and the WKV scan on the
-   prefill's layer-0 inputs and at edge cases (window, ragged length,
-   MQA at head_dim 128, a single query, one whole tile and a ragged one,
-   a GQA group of 8 at head_dim 128 with a window, float32 and bfloat16;
-   the scan at one step and at head_dim 32), held to the tolerances of
-   tests/test_kernels.py. Then CUDA-event times (median of 25 launches
-   after warm-up) of each kernel at its main-path shape, of its plain
-   version and, for flash attention, of PyTorch's
-   `scaled_dot_product_attention` on the same inputs, beside the bound,
-   with each kernel's rate and share of its bound.
-6. Print one `{"kernels": [...]}` line, the card line again, and last
+   `fedgia_update` form that a round launches (an (N,) anchor, a 0-d h
+   under scalar H, no x') bitwise on the next round's inputs of the run
+   that launched it, then timed eagerly and inside a replayed CUDA graph
+   of 25 launches, beside the same kernel through the TPU kernels'
+   interface (materialised (m, N) anchor and h, x' written); flash
+   attention and the WKV scan on the prefill's layer-0 inputs and at
+   edge cases (window, ragged length, MQA at head_dim 128, a single
+   query, one whole tile and a ragged one, a GQA group of 8 at head_dim
+   128 with a window, float32 and bfloat16; the scan at one step and at
+   head_dim 32), held to the tolerances of tests/test_kernels.py. Then
+   CUDA-event times (median of 25 launches after warm-up) of each kernel
+   at its main-path shape, of its plain version and, for flash
+   attention, of PyTorch's `scaled_dot_product_attention` on the same
+   inputs, beside the bound, with each kernel's rate and share of its
+   bound.
+6. A `torch.profiler` split of one eager paper round and one eager
+   population round (gradient, eq. (11), update kernel, H refresh,
+   metrics, copies, other; idle against the unprofiled round time), and
+   the device's busy share in the replayed runs.
+7. Print one `{"kernels": [...]}` line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX or of the JAX package `repro`. There is no
@@ -61,6 +77,7 @@ import math
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -77,6 +94,11 @@ FP32_FLOPS = 67e12  # fp32 peak outside the tensor cores, H100 SXM
 # check allows 2 float32 ulps
 RTOL = 2.4e-7
 REPS, WARMUP = 25, 3
+# replayed vs eager rounds on the card: the same kernels in the same
+# order, so bitwise is expected; were cuBLAS to pick another algorithm
+# inside a graph, the states would be held to the port's per-round fp32
+# parity tolerance instead (tests/test_torch_fedgia.py), and say so
+STATE_RTOL, STATE_ATOL = 1e-5, 1e-6
 
 PAPER = ["--rounds", "500"]
 POPULATION = ["--clients", "16384", "--dim", "1024", "--samples", "262144",
@@ -209,7 +231,8 @@ def serve_main_path(serve, counters, argv, mod, name):
 
 def round_inputs(res, engine, selection, pt):
     """The kernel's arguments for the round after a run's last one, as
-    `FedGiA.round_flat` builds them: (x̄_c, ḡ, π, h, sel, σ, m, k0)."""
+    `FedGiA.round_flat` builds them: (x̄, ḡ, π, h, sel, σ, m, k0), with
+    the (N,) anchor, and h 0-d under scalar H."""
     algo, batch, state = res["algorithm"], res["batch"], res["state"]
     spec = pt.ravel_spec(state["x"])
     flat = engine.flatten_state(algo, state, spec)
@@ -240,71 +263,279 @@ def median_ms(fn, prep=None):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(xbar):
-    """Least time for the update on an H100 SXM: 4 reads and 3 writes of
-    every element, plus sel and σ, over the HBM rate. The operations are
-    no bound: about 20 fp32 operations per element (a^(k0-1) by
-    square-and-multiply) against 28 bytes, below one per byte, where the
-    card's fp32 rate over its HBM rate is about 20 per byte."""
-    m, n = xbar.shape
-    nbytes = 28 * m * n + 4 * m + 4
-    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+def graph_ms(fn):
+    """Per-launch time of `fn` inside a CUDA graph of REPS calls: the
+    median CUDA-event time of 5 replays over REPS. At a launch-bound
+    shape this is the card's own cost of a launch in a replayed graph.
+    A donated call runs on its own outputs from one call to the next."""
+    fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(REPS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / REPS)
+    return statistics.median(times)
+
+
+def fedgia_bytes(xbar, gbar, h, sel, want_x):
+    """Bytes the update must move on these inputs: ḡ read and π', z'
+    written for every row; π, and h unless it is one scalar, read for
+    the selected rows only (the GD arm needs neither); the anchor (one
+    (N,) vector or (m, N)), x' when written, sel (a byte a row) and σ."""
+    m, n = gbar.shape
+    n_sel = int(sel.sum())
+    row_bytes = 4 * n
+    nbytes = m * row_bytes * 3 + n_sel * row_bytes
+    nbytes += 4 if h.dim() == 0 else n_sel * row_bytes
+    nbytes += xbar.numel() * 4 + (m * row_bytes if want_x else 0) + m + 4
+    return nbytes
+
+
+def bound(nbytes):
+    """Least time on an H100 SXM: the bytes over the HBM rate. The
+    operations are no bound: about 20 fp32 operations an element (a^(k0-1)
+    by square-and-multiply) against 12-28 bytes, below one per byte, where
+    the card's fp32 rate over its HBM rate is about 20 per byte."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def plain(ref, xbar, gbar, pi, h, sel, sigma, m, k0):
     return ref.fedgia_update_collapsed(
         xbar, gbar, pi, h,
-        sel.reshape(sel.shape + (1,) * (xbar.dim() - sel.dim())), sigma,
+        sel.reshape(sel.shape + (1,) * (gbar.dim() - sel.dim())), sigma,
         float(1.0 / m), k0=k0)
 
 
-def hold_and_time(name, args, ops, ref):
-    """Hold one wrapper against its plain version on `args`, the
-    arguments `round_flat` passes (x̄_c, ḡ, π, h, sel, σ, m, k0), then
-    time both. Returns the wrapper's entry of the kernels line."""
+def materialised(args):
+    """The same inputs through the TPU kernels' interface: the anchor and
+    a scalar h copied to (m, N)."""
+    xbar, gbar, pi, h, sel, sigma, m, k0 = args
+    full = lambda t: t.expand(gbar.shape).contiguous()  # noqa: E731
+    return (full(xbar), gbar, pi, full(h), sel, sigma, m, k0)
+
+
+def hold_and_time(name, args, ops, ref, *, round_form):
+    """Hold one form of the kernel against its plain version on `args`
+    (x̄, ḡ, π, h, sel, σ, m, k0), then time both. `round_form`: the call
+    `round_flat` makes (`fedgia_update_flat`, no x'), else the TPU
+    wrapper `name` on materialised inputs. Returns the entry of the
+    kernels line."""
+    if not round_form:
+        args = materialised(args)
     xbar, gbar, pi, h, sel, sigma, m, k0 = args
     want = plain(ref, *args)
+    donated = name == "fedgia_update_batched_donated"
     prep = None
-    if name == "fedgia_update_single":  # the (N,) form of the m = 1 launch
-        ins = [t[0] for t in (xbar, gbar, pi, h, sel)]
-        want = [w[0] for w in want]
-    elif name == "fedgia_update_batched_donated":
-        # writes x' into x̄_c, π' into π, z' into ḡ: run on copies, and
-        # restore them before every timed launch
+    if donated:
+        # writes π' into π and z' into ḡ (and x' into a materialised
+        # anchor): run on copies, restored before every timed launch
         ins = [t.clone() for t in (xbar, gbar, pi)] + [h, sel]
 
         def prep():
             for buf, src in zip(ins, (xbar, gbar, pi)):
                 buf.copy_(src)
+    elif name == "fedgia_update_single" and not round_form:
+        ins = [t[0] for t in (xbar, gbar, pi, h, sel)]  # the (N,) form
+        want = [w[0] for w in want]
     else:
         ins = [xbar, gbar, pi, h, sel]
-    wrapper = getattr(ops, name)
+    if round_form:
+        def call():
+            return ops.fedgia_update_flat(*ins, sigma, m, k0=k0,
+                                          donate=donated, want_x=False)
+    else:
+        wrapper = getattr(ops, name)
 
-    def call():
-        return wrapper(*ins, sigma, m, k0=k0)
+        def call():
+            return wrapper(*ins, sigma, m, k0=k0)
 
+    before = ops.launches[name]
     out = call()
-    if prep and [t.data_ptr() for t in out] != \
-            [ins[i].data_ptr() for i in (0, 2, 1)]:
+    if ops.launches[name] != before + 1:
+        raise SystemExit(f"{name}: the call did not launch its kernel once")
+    if donated and [t.data_ptr() for t in out[1:]] != \
+            [ins[i].data_ptr() for i in (2, 1)]:
         raise SystemExit(f"{name} did not write into its inputs")
-    err = max(float((a - b).abs().max()) for a, b in zip(out, want))
-    diff = sum(int((a != b).sum()) for a, b in zip(out, want))
-    for a, b, part in zip(out, want, ("x", "pi", "z")):
+    pairs = [(a, b, part) for a, b, part in zip(out, want, ("x", "pi", "z"))
+             if a is not None]
+    if round_form and out[0] is not None:
+        raise SystemExit(f"{name}: the round's form wrote x'")
+    err = max(float((a - b).abs().max()) for a, b, _ in pairs)
+    diff = sum(int((a != b).sum()) for a, b, _ in pairs)
+    for a, b, part in pairs:
         if not torch.isfinite(a).all():
             raise SystemExit(f"{name}: non-finite {part}'")
         torch.testing.assert_close(a, b, rtol=RTOL, atol=0.0,
                                    msg=lambda msg: f"{name} {part}': {msg}")
-    shape = list(xbar.shape)
-    say(f"  {name} {shape}: max_abs_err={err!r} differing_elements={diff} "
-        f"(tolerance rtol {RTOL}, bitwise expected)")
+    form = ("round form: (N,) anchor, h " +
+            ("0-d" if h.dim() == 0 else "(m, N)") + ", no x'"
+            if round_form else "TPU interface: (m, N) anchor and h, x'")
+    shape = list(gbar.shape)
+    say(f"  {name} {shape} [{form}]: max_abs_err={err!r} "
+        f"differing_elements={diff} (tolerance rtol {RTOL}, bitwise "
+        f"expected)")
     ms = median_ms(call, prep)
     plain_ms = median_ms(lambda: plain(ref, *args))
-    bound_ms, nbytes = bound(xbar)
+    nbytes = fedgia_bytes(xbar, gbar, h, sel, want_x=not round_form)
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "shape": shape, "nbytes": nbytes}
+            "bound_ms": bound(nbytes), "bound_by": "bytes",
+            "library_ms": None, "graph_ms": graph_ms(call) if round_form
+            else None, "shape": shape, "nbytes": nbytes, "form": form}
+
+
+def run_pair(train, counters, argv, what):
+    """The run `argv` with the default (CUDA-graph chunk) driver, then with
+    the eager `--no-scan` loop, launch counts of each read apart: the same
+    rounds and a final state bitwise equal. Returns (replayed, its
+    launches, eager, its launches)."""
+    graph_res, n_graph = run_main_path(train, counters, argv)
+    say(done_line(f"{what} (cuda, CUDA-graph chunks)", graph_res))
+    say(f"  launches: {n_graph}; warm-up and capture "
+        f"{graph_res['capture_s']!r} s (not in the rounds' time)")
+    eager_res, n_eager = run_main_path(train, counters, argv + ["--no-scan"])
+    say(done_line(f"{what} (cuda, eager --no-scan)", eager_res))
+    say(f"  launches: {n_eager}")
+    if graph_res["rounds"] != eager_res["rounds"] or n_graph != n_eager:
+        raise SystemExit(f"{what}: {graph_res['rounds']} rounds, launches "
+                         f"{n_graph} replayed; {eager_res['rounds']} rounds, "
+                         f"launches {n_eager} eager")
+    a, b = graph_res["state"], eager_res["state"]
+    diffs = {}
+    for k in ("x", "z", "pi", "h"):
+        if k in a:
+            for leaf in a[k]:
+                x, y = a[k][leaf], b[k][leaf]
+                diffs[f"{k}.{leaf}"] = int((x != y).sum())
+                torch.testing.assert_close(
+                    x, y, rtol=STATE_RTOL, atol=STATE_ATOL,
+                    msg=lambda m: f"{what}: replayed vs eager {k}: {m}")
+    bitwise = not any(diffs.values())
+    say(f"  replayed vs eager final state: "
+        f"{'bitwise equal' if bitwise else 'NOT bitwise'} (differing "
+        f"elements {diffs}; held to rtol {STATE_RTOL}, atol {STATE_ATOL} "
+        f"otherwise)")
+    for tag, res in (("replayed", graph_res), ("eager", eager_res)):
+        say(f"  per-round time {tag}: {res['wall_s'] / res['rounds'] * 1e3!r}"
+            f" ms ({res['rounds']} rounds in {res['wall_s']!r} s)")
+    return graph_res, n_graph, eager_res, n_eager
+
+
+LABELS = ("gradient", "eq. (11)", "update kernel", "H refresh", "metrics")
+COPY_OPS = ("aten::copy_", "aten::cat", "aten::clone", "aten::constant_pad_nd")
+UPDATE_KERNEL = "fedgia_update_kernel"
+
+
+def labelled(obj, name, label, undo):
+    """Wrap `obj.name` in a profiler range `label`; `undo` collects the
+    functions that put the originals back."""
+    real = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return real(*args, **kwargs)
+
+    setattr(obj, name, wrapped)
+    undo.append(lambda: setattr(obj, name, real))
+
+
+def device_split(prof):
+    """Device time (us) of one profiled round by step. A kernel or copy
+    that a PyTorch op launched goes under the outermost of LABELS around
+    the op; the ops of the autograd engine's worker thread (the backward
+    of the gradient, the round's only autograd work) under "gradient";
+    other copies under "copies". The fused update, launched through
+    ctypes and so under no op, is found by its kernel's name."""
+    split = dict.fromkeys(LABELS + ("copies", "other"), 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            if UPDATE_KERNEL in e.name:
+                split["update kernel"] += e.time_range.elapsed_us()
+            continue
+        kernels = [k for k in e.kernels if UPDATE_KERNEL not in k.name]
+        if not kernels:
+            continue
+        label, p = None, e
+        while p is not None:
+            if p.name in LABELS:
+                label = p.name
+            elif label is None and p.name.startswith("autograd::engine"):
+                label = "gradient"
+            p = p.cpu_parent
+        if label is None:
+            label = "copies" if e.name in COPY_OPS or all(
+                k.name.startswith(("Memcpy", "Memset"))
+                for k in kernels) else "other"
+        split[label] += sum(k.duration for k in kernels)
+    return split
+
+
+def profile_round(res, modules, engine, selection, pt):
+    """One eager round after the run's last, under torch.profiler, with
+    its steps in ranges: device time per step. Also the median host-clock
+    time of 5 unprofiled eager rounds. Returns (split, wall_us)."""
+    fedgia_mod, hparams_mod, api_mod = modules
+    algo, batch, state = res["algorithm"], res["batch"], res["state"]
+    spec = pt.ravel_spec(state["x"])
+    flat = engine.flatten_state(algo, state, spec)
+    flat["rng"] = selection.copy_generator(state["rng"])
+    walls = []
+    for _ in range(6):  # undonated: flat is left as it was
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo.round_flat(dict(flat), batch, spec)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    undo = []
+    labelled(algo, "_vg", "gradient", undo)
+    labelled(api_mod, "client_mean", "eq. (11)", undo)
+    labelled(fedgia_mod, "fedgia_update_flat", "update kernel", undo)
+    labelled(hparams_mod, "update_diag_h", "H refresh", undo)
+    for name in ("client_scalar_mean", "flat_grad_sq_norm",
+                 "client_scalar_sum"):
+        labelled(api_mod, name, "metrics", undo)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            algo.round_flat(dict(flat), batch, spec)
+            torch.cuda.synchronize()
+    finally:
+        for fn in reversed(undo):
+            fn()
+    return device_split(prof), statistics.median(walls[1:])
+
+
+def replay_busy(run):
+    """Device busy time (us) from the first CUDA-graph launch of `run()`
+    on, under torch.profiler (the warm-up before it is left out). Returns
+    (busy_us, the run's RoundResult)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    starts = [e.time_range.start for e in events
+              if e.name == "cudaGraphLaunch"]
+    if not starts:
+        raise SystemExit("profiled replay: no cudaGraphLaunch was traced")
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type != torch.autograd.DeviceType.CPU
+               and e.time_range.start >= min(starts))
+    return busy, res
 
 
 def visible_pairs(S, causal=True, window=None):
@@ -443,7 +674,10 @@ def main():
         raise SystemExit(f"chip_smoke: {SRC / 'repro_torch'} not found")
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
+    from repro_torch.core import api as api_mod
     from repro_torch.core import engine, selection
+    from repro_torch.core import fedgia as fedgia_mod
+    from repro_torch.core import hparams as hparams_mod
     from repro_torch.kernels import _build
     from repro_torch.kernels.fedgia_update import ops, ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -469,10 +703,10 @@ def main():
                 say("  " + line.strip())
 
     # 2. FedGiA main path ----------------------------------------------------
+    # the default driver replays CUDA-graph chunks; each run is also made
+    # with the eager --no-scan loop, launches read apart from the main path
     launches = {k: 0 for k in read_counts(counters)}
-    paper, n = run_main_path(train, counters, PAPER)
-    say(done_line("paper run (cuda)", paper))
-    say(f"  launches: {n}")
+    paper, n, _, _ = run_pair(train, counters, PAPER, "paper run")
     if not paper["stopped_early"]:
         raise SystemExit("paper run did not stop early")
     if n["fedgia_update_batched_donated"] != paper["rounds"] or \
@@ -481,18 +715,18 @@ def main():
     for k in launches:
         launches[k] += n[k]
 
-    pop, n = run_main_path(train, counters, POPULATION)
-    say(done_line("population run (cuda)", pop))
-    say(f"  launches: {n}")
+    pop, n, pop_eager, _ = run_pair(train, counters, POPULATION,
+                                    "population run")
     if n["fedgia_update_batched"] != 20 or sum(n.values()) != 20:
         raise SystemExit(f"population run: launches {n} != 20 rounds")
     if not all(math.isfinite(h["f"]) for h in pop["history"]):
         raise SystemExit("population run: non-finite f")
     for k in launches:
         launches[k] += n[k]
+    del pop_eager["batch"], pop_eager["state"]
 
     one, n = run_main_path(train, counters, ONE_CLIENT)
-    say(done_line("one-client run (cuda)", one))
+    say(done_line("one-client run (cuda, CUDA-graph chunks)", one))
     say(f"  launches: {n}")
     if n["fedgia_update_single"] != 5 or sum(n.values()) != 5:
         raise SystemExit(f"one-client run: launches {n} != 5 rounds")
@@ -517,7 +751,11 @@ def main():
         f"f {f_gpu!r} vs {f_cpu!r}")
     paper_in, pop_in, one_in = (round_inputs(res, engine, selection, pt)
                                 for res in (paper, pop, one))
-    for res in (paper, pop, one, cpu):
+    # the split of a round (phase 6) goes on from these runs' states
+    profiled = {what: (res, argv, res["wall_s"] / res["rounds"] * 1e6)
+                for what, res, argv in (("paper", paper, PAPER),
+                                        ("population", pop, POPULATION))}
+    for res in (one, cpu):
         del res["batch"], res["state"]
 
     # 3. serving path, full width -------------------------------------------
@@ -554,27 +792,34 @@ def main():
         card_vs_cpu(serve, Transformer, get_config, arch, counters)
 
     # 5. kernels against their plain versions, then times --------------------
-    # each fedgia_update wrapper on the round inputs of the run that
-    # launched it, so at its main-path shape; the donated wrapper also at
-    # the population shape, which no driven run gives it (diag_ema does
-    # not donate)
-    cases = [("fedgia_update_batched", pop_in, True),
-             ("fedgia_update_batched_donated", paper_in, True),
-             ("fedgia_update_batched_donated", pop_in, False),
-             ("fedgia_update_single", one_in, True)]
-    say(f"kernel vs plain version on one round's inputs, then times on "
-        f"{card} (median of {REPS} launches, CUDA events):")
+    # each fedgia_update form on the round inputs of the run that launched
+    # it, so at its main-path shape; then the same kernel through the TPU
+    # kernels' interface (the form timed before the redesign), with the
+    # donated one also at the population shape, which no run gives it
+    say(f"fedgia_update vs plain version on one round's inputs, then times "
+        f"on {card} (median of {REPS} launches, CUDA events; in a graph: "
+        f"one replay of {REPS} launches):")
     kernels = []
-    for name, args, on_path in cases:
-        k = hold_and_time(name, args, ops, ref)
-        where = "main path" if on_path else "not a main-path shape"
-        say(f"  {name} {k['shape']} ({where}): kernel_us={k['ms'] * 1e3:.2f} "
+    for name, args, round_form in (
+            ("fedgia_update_batched", pop_in, True),
+            ("fedgia_update_batched_donated", paper_in, True),
+            ("fedgia_update_single", one_in, True),
+            ("fedgia_update_batched", pop_in, False),
+            ("fedgia_update_batched_donated", paper_in, False),
+            ("fedgia_update_batched_donated", pop_in, False),
+            ("fedgia_update_single", one_in, False)):
+        k = hold_and_time(name, args, ops, ref, round_form=round_form)
+        nbytes = k.pop("nbytes")
+        in_graph = ("" if k["graph_ms"] is None else
+                    f"in_graph_us={k['graph_ms'] * 1e3:.3f} ")
+        say(f"  {name} {k['shape']} [{k.pop('form')}]: "
+            f"kernel_us={k['ms'] * 1e3:.3f} {in_graph}"
             f"plain_us={k['plain_ms'] * 1e3:.2f} "
-            f"bound_us={k['bound_ms'] * 1e3:.2f} (bytes) "
-            f"achieved={k.pop('nbytes') / (k['ms'] * 1e-3) / 1e9:.1f} GB/s "
-            f"library_us=none (no single PyTorch call computes this fused "
-            f"update)")
-        if on_path:
+            f"bound_us={k['bound_ms'] * 1e3:.3f} (bytes: {nbytes}) "
+            f"achieved={nbytes / (k['ms'] * 1e-3) / 1e9:.1f} GB/s "
+            f"share_of_bound={k['bound_ms'] / k['ms']:.4f} library_us=none "
+            f"(no single PyTorch call computes this fused update)")
+        if round_form:
             k["launches"] = launches[name]
             if k["launches"] < 1:
                 raise SystemExit(f"{name} was not launched on the main path")
@@ -669,7 +914,36 @@ def main():
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None})
 
-    # 6. result ------------------------------------------------------------
+    # 6. where a round's time goes ---------------------------------------
+    say(f"split of one eager round after each run's last (torch.profiler, "
+        f"device us per step) and the device's busy share in a replayed "
+        f"run, on {card}:")
+    modules = (fedgia_mod, hparams_mod, api_mod)
+    for what, (res, argv, replayed_us) in profiled.items():
+        split, wall_us = profile_round(res, modules, engine, selection, pt)
+        busy = sum(split.values())
+        if busy <= 0:
+            raise SystemExit(f"{what}: the profiler recorded no device time")
+        say(f"  {what} round, eager: " + " ".join(
+            f"{k}={v:.1f}" for k, v in split.items()) +
+            f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, median of 5)"
+            f" idle_share={1 - busy / wall_us:.4f}")
+        algo, batch = res["algorithm"], res["batch"]
+        state = algo.init(algo.model.init(batch["A"].device),
+                          selection.make_generator(1), init_batch=batch)
+        rounds = int(argv[argv.index("--rounds") + 1])
+        tol = float(argv[argv.index("--tol") + 1]) if "--tol" in argv \
+            else 1e-7
+        busy, rr = replay_busy(lambda: engine.run_rounds(
+            algo, state, batch, rounds, tol=tol))
+        per_round = busy / rr.rounds_run
+        say(f"  {what} run, replayed: {rr.rounds_run} rounds, device busy "
+            f"{per_round:.1f} us a round (profiled), against "
+            f"{replayed_us:.1f} us a round unprofiled (phase 2): "
+            f"busy_share={per_round / replayed_us:.4f}")
+        del res["batch"], res["state"]
+
+    # 7. result ------------------------------------------------------------
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

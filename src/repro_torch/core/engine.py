@@ -2,14 +2,27 @@
 `repro/core/engine.py::run_rounds`).
 
 The state is raveled ONCE at entry into lane-padded flat buffers
-(`flatten_state`), the rounds run `algo.round_flat` on them in one Python
-loop, and the dict layout is rebuilt at return (`unflatten_state`). The
-stop rule is the reference's legacy loop's (eq. 35): stop after the first
-round whose metric is < tol, and that round counts. With tol > 0 this
-reads one scalar per round back to the host.
+(`flatten_state`) and the dict layout is rebuilt at return
+(`unflatten_state`). Two drivers run the rounds, both with the stop rule
+of eq. (35): stop after the first round whose metric is < tol, and that
+round counts.
+
+* Chunked (`scan=True`, the default; the reference's scan driver). The
+  rounds run in chunks on static buffers: the host draws a chunk's
+  selection masks before it and reads one flag and one round counter
+  after it. On a CUDA device each chunk length is captured once, before
+  the timed window, as a CUDA graph of that many rounds, and a chunk is
+  one replay. With tol > 0 each round of a chunk is the body of a
+  conditional graph node (`graphs.skip_if`) that runs only while the
+  stop has not held, so the rounds after it launch nothing and leave the
+  state as it was (the reference's `lax.cond` freeze). On the CPU the
+  same chunk program runs eagerly.
+* Legacy (`scan=False`): one Python loop of `algo.round_flat`, which
+  reads the stop metric back to the host every round when tol > 0.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict
@@ -17,7 +30,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import graphs, selection
 from repro_torch.core.selection import copy_generator
+from repro_torch.kernels import launch_counters
 from repro_torch.utils.pytree import ravel_spec
 
 
@@ -30,6 +45,9 @@ class RoundResult:
     rounds_run: int
     stopped_early: bool
     wall_s: float
+    # warm-up and CUDA-graph capture of the chunked driver, kept out of
+    # wall_s (the reference compiles its chunks before its timed window)
+    capture_s: float = 0.0
 
 
 def flatten_state(algo, state, spec):
@@ -63,18 +81,38 @@ def _stack(values):
 
 
 def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
-               tol_metric: str = "grad_sq_norm") -> RoundResult:
+               tol_metric: str = "grad_sq_norm", scan: bool = True,
+               chunk_size: int = 0) -> RoundResult:
     """Run up to `num_rounds` communication rounds of `algo`.
 
-    tol > 0 enables the paper's stopping rule (eq. 35). The caller's
-    `state` is left as it was: its tensors are copied into fresh flat
-    buffers at entry and its generator is copied, so every round can
-    run the in-place (donated) kernel, as the reference donates off the
-    CPU backend; on the CPU the donated plain version writes in place too.
+    tol > 0 enables the paper's stopping rule (eq. 35). `scan=True` runs
+    the chunked driver with chunks of `chunk_size` rounds (0: the whole
+    run when tol <= 0, else min(num_rounds, 32), as the reference);
+    `scan=False` the legacy per-round loop. Both give the same state,
+    history, `rounds_run` and returned generator state.
+
+    The caller's `state` is left as it was: its tensors are copied into
+    fresh flat buffers at entry and its generator is copied, so every
+    round can run the in-place (donated) kernel, as the reference donates
+    off the CPU backend; on the CPU the donated plain version writes in
+    place too.
     """
     spec = ravel_spec(state["x"])
     flat = flatten_state(algo, state, spec)
     flat["rng"] = copy_generator(state["rng"])
+    if num_rounds <= 0:
+        return RoundResult(unflatten_state(algo, flat, spec), {}, 0, False,
+                           0.0)
+    if not scan:
+        return _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol,
+                                tol_metric)
+    if chunk_size <= 0:
+        chunk_size = num_rounds if tol <= 0 else min(num_rounds, 32)
+    return _Chunked(algo, flat, batch, spec, tol, tol_metric,
+                    min(chunk_size, num_rounds)).run(num_rounds)
+
+
+def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric):
     device = flat["x"].device
     hist = []
     stopped = False
@@ -88,7 +126,228 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    history = ({k: _stack([h[k] for h in hist]) for k in hist[0]}
-               if hist else {})
+    history = {k: _stack([h[k] for h in hist]) for k in hist[0]}
     return RoundResult(unflatten_state(algo, flat, spec), history, len(hist),
                        stopped, wall)
+
+
+def _counts():
+    return [dict(c) for c in launch_counters()]
+
+
+def _set_counts(counts):
+    for live, saved in zip(launch_counters(), counts):
+        live.update(saved)
+
+
+def _diff(after, before):
+    return [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+
+
+def _add_counts(deltas):
+    for live, d in zip(launch_counters(), deltas):
+        for k, v in d.items():
+            live[k] += v
+
+
+class _Chunked:
+    """The chunked driver: static buffers that every chunk reads and
+    writes in place (the state, the chunk's selection masks, the per-round
+    history and, with tol > 0, the stop flag and the count of rounds run),
+    and one chunk program per chunk length, captured as a CUDA graph on
+    the card.
+
+    The round number is carried on the device (`state["round"]` is a 0-d
+    int64 tensor inside, an int outside), so `round` and the `cr` metric
+    advance inside a replayed graph as in the legacy loop.
+
+    Launch counts: a capture makes no launch, so the counts that the
+    wrappers add while a chunk is captured are taken back, and each
+    replay adds the launches recorded by the rounds that ran in it.
+    """
+
+    def __init__(self, algo, flat, batch, spec, tol, tol_metric, chunk):
+        self.algo, self.batch, self.spec = algo, batch, spec
+        self.tol, self.tol_metric, self.chunk = tol, tol_metric, chunk
+        self.gen = flat["rng"]
+        self.st = {k: v for k, v in flat.items() if k != "rng"}
+        dev = self.device = self.st["x"].device
+        self.cuda = dev.type == "cuda"
+        self.st["round"] = torch.tensor(flat["round"], device=dev)
+        m = algo.fed.num_clients
+        self.masks = torch.ones((chunk, m), dtype=torch.bool, device=dev)
+        self.host_masks = torch.ones((chunk, m), dtype=torch.bool,
+                                     pin_memory=self.cuda)
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.hist = {}
+        self.graphs = {}  # chunk length -> (graph, per-round launch counts)
+        if self.cuda:
+            self.capture_stream = torch.cuda.Stream(dev)
+            self.body = graphs.Body(dev)
+            self.uploaded = torch.cuda.Event()
+
+    # ---------------------------------------------------------- the chunk
+    def _round(self, st, i):
+        st, met = self.algo.round_flat(st, self.batch, self.spec,
+                                       mask=self.masks[i], donate_kernel=True)
+        for k, v in met.items():
+            if torch.is_tensor(v):
+                self.hist[k][i].copy_(v)
+            else:
+                self.hist[k][i].fill_(v)
+        return st, met
+
+    def _commit(self, st):
+        """Copy a round's new state into the static buffers (an entry the
+        round updated in place, such as the donated π, is already there)."""
+        for k, v in st.items():
+            if v.data_ptr() != self.st[k].data_ptr():
+                self.st[k].copy_(v)
+
+    def _program(self, length, unless_done):
+        """Enqueue (or, on the CPU, run) `length` rounds on the static
+        buffers. `unless_done` wraps each round when tol > 0. Returns the
+        launch counts that each round added."""
+        per_round = []
+        if self.tol <= 0:  # every round runs: the state flows round to
+            st = dict(self.st)  # round and is stored once, at the end
+            for i in range(length):
+                before = _counts()
+                st, _ = self._round(st, i)
+                per_round.append(_diff(_counts(), before))
+            self._commit(st)
+            return per_round
+        for v in self.hist.values():
+            v.zero_()  # a frozen round reports zeros, as the reference's
+        for i in range(length):
+            before = _counts()
+            with unless_done() as live:
+                if live:
+                    st, met = self._round(self.st, i)
+                    self._commit(st)
+                    self.done.copy_(met[self.tol_metric].double() < self.tol)
+                    self.count.add_(1)
+            per_round.append(_diff(_counts(), before))
+        return per_round
+
+    @contextlib.contextmanager
+    def _eager_unless_done(self):
+        yield not bool(self.done)
+
+    @contextlib.contextmanager
+    def _captured_unless_done(self):
+        with graphs.skip_if(self.done, self.body):
+            yield True
+
+    # ---------------------------------------------------------- the card
+    def _on_capture_streams(self, fn):
+        """Run `fn` eagerly on each stream that captures will use."""
+        streams = [self.capture_stream]
+        if self.tol > 0:
+            streams.append(self.body.stream)
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(s):
+                out = fn()
+            torch.cuda.current_stream(self.device).wait_stream(s)
+        return out
+
+    def _warm_up(self):
+        """One round on copies of the state, with every client selected
+        (no draw), eagerly: it sizes the history buffers from the metrics
+        and, on the card, runs on the capture streams before any capture
+        (cuBLAS handles and workspaces, the kernel libraries), outside the
+        timed window and the launch counts."""
+        counts = _counts()
+
+        def warm():
+            copies = {k: v.clone() for k, v in self.st.items()}
+            return self.algo.round_flat(copies, self.batch, self.spec,
+                                        mask=torch.ones_like(self.masks[0]),
+                                        donate_kernel=True)[1]
+
+        met = self._on_capture_streams(warm) if self.cuda else warm()
+        _set_counts(counts)
+        for k, v in met.items():
+            dt = v.dtype if torch.is_tensor(v) else torch.float32
+            self.hist[k] = torch.zeros((self.chunk,), dtype=dt,
+                                       device=self.device)
+
+    def _graph(self, length):
+        if length not in self.graphs:
+            counts = _counts()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=self.capture_stream):
+                per_round = self._program(length, self._captured_unless_done)
+            _set_counts(counts)
+            self.graphs[length] = (g, per_round)
+        return self.graphs[length]
+
+    # ---------------------------------------------------------- the run
+    def _upload_masks(self, length):
+        """Draw the chunk's masks from the run's generator and send them to
+        the static buffer. Returns the generator state before each draw
+        and after the last, so a stop can put back the state at it."""
+        if self.cuda:
+            self.uploaded.synchronize()  # the last upload has left
+        m, alpha = self.masks.shape[1], self.algo.fed.alpha
+        states = []
+        for i in range(length):
+            states.append(self.gen.get_state())
+            self.host_masks[i] = selection.selection_mask(self.gen, m, alpha)
+        states.append(self.gen.get_state())
+        self.masks[:length].copy_(self.host_masks[:length],
+                                  non_blocking=self.cuda)
+        if self.cuda:
+            self.uploaded.record()
+        return states
+
+    def run(self, num_rounds):
+        t0 = time.perf_counter()
+        self._warm_up()
+        if self.cuda:
+            lengths = {self.chunk}
+            if self.tol <= 0 and num_rounds % self.chunk:
+                lengths.add(num_rounds % self.chunk)
+            for length in lengths:  # a chunk that tol > 0 may never reach
+                self._graph(length)  # (the remainder) is captured on use
+            torch.cuda.synchronize(self.device)
+        capture = time.perf_counter() - t0
+
+        chunks, rounds_run, stopped = [], 0, False
+        t0 = time.perf_counter()
+        while rounds_run < num_rounds and not stopped:
+            length = min(self.chunk, num_rounds - rounds_run)
+            states = self._upload_masks(length)
+            if self.cuda:
+                tc = time.perf_counter()
+                fresh = length not in self.graphs
+                graph, per_round = self._graph(length)
+                if fresh:
+                    torch.cuda.synchronize(self.device)
+                    capture += time.perf_counter() - tc
+                    t0 += time.perf_counter() - tc
+                graph.replay()
+            else:
+                per_round = self._program(length, self._eager_unless_done)
+            live = length
+            if self.tol > 0:  # the chunk's one read back to the host
+                live = int(self.count) - rounds_run
+                stopped = bool(self.done)
+            if self.cuda:
+                for d in per_round[:live]:
+                    _add_counts(d)
+            chunks.append({k: v[:live].clone() for k, v in self.hist.items()})
+            rounds_run += live
+            if stopped:
+                self.gen.set_state(states[live])
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+
+        history = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()
+                   for k in self.hist}
+        flat = dict(self.st, rng=self.gen, round=int(self.st["round"]))
+        return RoundResult(unflatten_state(self.algo, flat, self.spec),
+                           history, rounds_run, stopped, wall, capture)

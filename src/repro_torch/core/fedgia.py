@@ -134,16 +134,15 @@ class FedGiA:
 
     def kernel_args(self, state, xbar, gbar, sel):
         """The fused update's arguments, as `round_flat` passes them to
-        `fedgia_update_flat`: (xbar_c, gbar, pi, h, sel, sigma, m, k0).
-        The kernel takes contiguous buffers, so the broadcast x̄ and the
-        scalar policy's h = r are materialised as (m, N) copies."""
-        m = self.fed.num_clients
+        `fedgia_update_flat`: (xbar, gbar, pi, h, sel, sigma, m, k0). The
+        kernel reads the (N,) x̄ for every client row and, under the
+        scalar policy, the 0-d h = r once, so neither is copied to
+        (m, N)."""
         h = state.get("h")
-        if h is None:  # scalar policy: the kernel reads an (m, N) h
-            h = state["r"].to(gbar.dtype).expand(gbar.shape)
-        return (api.broadcast_clients(xbar, m).contiguous(), gbar,
-                state["pi"], h.contiguous(), sel, state["sigma"], m,
-                self.fed.k0)
+        if h is None:  # scalar policy: H = r I
+            h = state["r"].to(gbar.dtype)
+        return (xbar, gbar, state["pi"], h, sel, state["sigma"],
+                self.fed.num_clients, self.fed.k0)
 
     def round_flat(self, state, batch, spec, mask=None,
                    donate_kernel: bool = False):
@@ -155,12 +154,12 @@ class FedGiA:
         `mask` is the (m,) ADMM/GD branch split; None draws it from
         `state["rng"]` (`selection.selection_mask`).
 
-        `donate_kernel=True` runs the in-place kernel: the update is
-        written into the buffer of `state["pi"]` (and into this round's
-        own ḡ and anchor buffers), so the caller must treat the input
-        state's `pi` as consumed. Under diag_ema the H refresh reads ḡ
-        after the update, as the reference orders it, so ḡ is not
-        donated there and the undonated kernel runs.
+        `donate_kernel=True` runs the in-place kernel: π' is written into
+        the buffer of `state["pi"]` and z' into this round's own ḡ, so
+        the caller must treat the input state's `pi` as consumed. Under
+        diag_ema the H refresh reads ḡ after the update, as the reference
+        orders it, so ḡ is not donated there and the undonated kernel
+        runs. The kernel never writes x' here: x̄ is the new state's x.
         """
         fed = self.fed
         m = fed.num_clients
@@ -172,7 +171,8 @@ class FedGiA:
         if fed.collapsed and fed.h_policy != "gram":
             *args, k0 = self.kernel_args(state, xbar, gbar, sel)
             donate = donate_kernel and fed.h_policy != "diag_ema"
-            _, pi_new, z_new = fedgia_update_flat(*args, k0=k0, donate=donate)
+            _, pi_new, z_new = fedgia_update_flat(*args, k0=k0, donate=donate,
+                                                  want_x=False)
         else:
             xbar_c = api.broadcast_clients(xbar, m)  # stride-0 view
             pia, za = self._admm_branch_unrolled(state, xbar_c, gbar, spec)

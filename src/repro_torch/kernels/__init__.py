@@ -1,0 +1,13 @@
+"""The port's hand-written CUDA kernels, each with its plain version."""
+from __future__ import annotations
+
+import importlib
+
+KERNELS = ("fedgia_update", "flash_attention", "rwkv6_scan")
+
+
+def launch_counters():
+    """The `launches` dict of each kernel's wrapper module (imported on
+    first use: the wrappers import this package's `_build`)."""
+    return [importlib.import_module(f"repro_torch.kernels.{k}.ops").launches
+            for k in KERNELS]

@@ -23,6 +23,8 @@ SOURCES = {
     "fedgia_update": _PKG / "fedgia_update" / "csrc" / "fedgia_update.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "rwkv6_scan": _PKG / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
+    # not a kernel port: the round driver's conditional graph nodes
+    "graph_if": _PKG.parent / "core" / "csrc" / "graph_if.cu",
 }
 COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -40,6 +42,7 @@ SOURCE_FLAGS = {
     "fedgia_update": ("--fmad=false",),
     "flash_attention": (),
     "rwkv6_scan": ("--fmad=false",),
+    "graph_if": (),
 }
 
 

@@ -6,6 +6,12 @@ tensors: on the CPU every wrapper runs the plain version
 (`ref.fedgia_update_collapsed`); on a CUDA tensor it launches the
 hand-written kernel (`csrc/fedgia_update.cu`) or raises. `launches`
 counts the kernel launches of each wrapper, and nothing else.
+
+Operand forms (`fedgia_update_flat`, and the wrappers below it): ḡ and π
+are (mb, N); the anchor x̄ is (mb, N) or one (N,) vector for every row;
+h is (mb, N) or a 0-d tensor (scalar H); x' is returned only when asked
+(`want_x`). Each wrapper call is one launch: sel is read as the bool
+tensor it is and σ from the device, so nothing else runs on the card.
 """
 from __future__ import annotations
 
@@ -35,45 +41,65 @@ def _lib():
     lib = _build.load("fedgia_update")
     fn = lib.fedgia_update_launch
     if fn.argtypes is None:  # without them ctypes would pass 32-bit ints
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_longlong, p]
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, i64, p, p, p, ctypes.c_int, p, p, p, p, p,
+                       ctypes.c_float, ctypes.c_int, i64, i64, p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _check_forms(name, xbar, gbar, pi, h):
+    """Raise unless the operands have forms the kernel takes (any device)."""
+    if gbar.dim() != 2 or pi.shape != gbar.shape:
+        raise ValueError(f"{name}: ḡ and π must be (mb, N), got "
+                         f"{tuple(gbar.shape)} and {tuple(pi.shape)}")
+    mb, n = gbar.shape
+    if tuple(xbar.shape) not in ((n,), (mb, n)):
+        raise ValueError(f"{name}: the anchor must be ({n},) or ({mb}, {n}),"
+                         f" got {tuple(xbar.shape)}")
+    if tuple(h.shape) not in ((), (mb, n)):
+        raise ValueError(f"{name}: h must be 0-d (scalar H) or ({mb}, {n}), "
+                         f"got {tuple(h.shape)}")
+
+
 def _launch(name, xbar, gbar, pi, h, outs, sel, sigma, m, k0):
-    """Validate and launch one kernel over (mb, N) buffers `xbar, gbar,
-    pi, h` into `outs` = (x', pi', z'), which may be the inputs."""
-    dev = xbar.device
-    shape = xbar.shape
+    """Validate and launch one kernel into `outs` = (x' or None, π', z'),
+    (mb, N) buffers that may be the inputs."""
+    _check_forms(name, xbar, gbar, pi, h)
+    dev = gbar.device
+    mb, n = gbar.shape
+    sel = torch.as_tensor(sel, device=dev)
+    if sel.dtype != torch.bool or sel.numel() != mb or \
+            not sel.is_contiguous():
+        raise ValueError(f"{name}: sel must be a contiguous bool tensor of "
+                         f"{mb} entries, got {sel.dtype} {tuple(sel.shape)}")
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
-    if len(shape) != 2 or shape[1] % LANES:
-        raise ValueError(f"{name}: want (m, N) with N % {LANES} == 0, "
-                         f"got {tuple(shape)}")
-    for t in (xbar, gbar, pi, h, *outs):
-        if t.device != dev or t.dtype != torch.float32 or t.shape != shape:
-            raise ValueError(f"{name}: every buffer must be float32 "
-                             f"{tuple(shape)} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+    if n % LANES:
+        raise ValueError(f"{name}: want N % {LANES} == 0, got {n}")
+    for t in (xbar, gbar, pi, h, *(o for o in outs if o is not None)):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name}: every buffer must be float32 on {dev}"
+                             f", got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or (t.dim() and t.data_ptr() % 16):
             raise ValueError(f"{name}: buffers must be contiguous and "
-                             "16-byte aligned (materialise broadcast views)")
-    sel = torch.as_tensor(sel, device=dev).reshape(-1).to(torch.int32)
-    if sel.shape != (shape[0],):
-        raise ValueError(f"{name}: sel must have {shape[0]} entries, "
-                         f"got {tuple(sel.shape)}")
+                             "16-byte aligned (materialise strided views)")
+    for o in outs:
+        if o is not None and o.shape != gbar.shape:
+            raise ValueError(f"{name}: outputs must be {tuple(gbar.shape)}, "
+                             f"got {tuple(o.shape)}")
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
     if sigma.numel() != 1:
         raise ValueError(f"{name}: sigma must be a scalar")
-    sigma = sigma.reshape(()).contiguous()
+    x_out, pi_out, z_out = outs
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib()(xbar.data_ptr(), gbar.data_ptr(), pi.data_ptr(),
-                     h.data_ptr(), *(o.data_ptr() for o in outs),
-                     sel.data_ptr(), sigma.data_ptr(), float(1.0 / m), k0,
-                     shape[0], shape[1], stream)
+        err = _lib()(xbar.data_ptr(), 0 if xbar.dim() == 1 else n,
+                     gbar.data_ptr(), pi.data_ptr(), h.data_ptr(),
+                     int(h.dim() == 0),
+                     None if x_out is None else x_out.data_ptr(),
+                     pi_out.data_ptr(), z_out.data_ptr(), sel.data_ptr(),
+                     sigma.data_ptr(), float(1.0 / m), k0, mb, n, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
     launches[name] += 1
@@ -81,21 +107,35 @@ def _launch(name, xbar, gbar, pi, h, outs, sel, sigma, m, k0):
 
 
 def _plain(xbar, gbar, pi, h, sel, sigma, m, k0):
-    sel = torch.as_tensor(sel, device=xbar.device)
-    sel = sel.reshape(sel.shape + (1,) * (xbar.dim() - sel.dim()))
+    sel = torch.as_tensor(sel, device=gbar.device)
+    sel = sel.reshape(sel.shape + (1,) * (gbar.dim() - sel.dim()))
     return fedgia_update_collapsed(xbar, gbar, pi, h, sel, sigma,
                                    float(1.0 / m), k0=k0)
+
+
+def _update(name, xbar, gbar, pi, h, sel, sigma, m, k0, outs):
+    """The update into `outs` (see `_launch`): the plain version on a CPU
+    tensor, the kernel on a CUDA one. Returns `outs`."""
+    if gbar.device.type != "cpu":
+        return _launch(name, xbar, gbar, pi, h, outs, sel, sigma, m, k0)
+    _check_forms(name, xbar, gbar, pi, h)
+    for o, v in zip(outs, _plain(xbar, gbar, pi, h, sel, sigma, m, k0)):
+        if o is not None:
+            o.copy_(v)
+    return outs
+
+
+def _fresh(like, want_x=True):
+    return (torch.empty_like(like) if want_x else None, torch.empty_like(like),
+            torch.empty_like(like))
 
 
 def fedgia_update_batched(xbar, gbar, pi, h, sel, sigma, m, *, k0: int):
     """Port of `fedgia_update_batched_kernel`: all inputs (mb, N), N % 128
     == 0; sel (mb,) bool; sigma () float32; m the global client count.
     Returns fresh (x', pi', z')."""
-    if xbar.device.type == "cpu":
-        return _plain(xbar, gbar, pi, h, sel, sigma, m, k0)
-    outs = tuple(torch.empty_like(xbar) for _ in range(3))
-    return _launch("fedgia_update_batched", xbar, gbar, pi, h, outs, sel,
-                   sigma, m, k0)
+    return _update("fedgia_update_batched", xbar, gbar, pi, h, sel, sigma, m,
+                   k0, _fresh(gbar))
 
 
 def fedgia_update_batched_donated(xbar, gbar, pi, h, sel, sigma, m, *,
@@ -104,34 +144,31 @@ def fedgia_update_batched_donated(xbar, gbar, pi, h, sel, sigma, m, *,
     place — x' into `xbar`, pi' into `pi`, z' into `gbar` (h is only
     read). The caller must treat those three as consumed. Returns
     (xbar, pi, gbar), now holding (x', pi', z')."""
-    outs = (xbar, pi, gbar)
-    if xbar.device.type == "cpu":
-        for o, v in zip(outs, _plain(xbar, gbar, pi, h, sel, sigma, m, k0)):
-            o.copy_(v)
-        return outs
-    return _launch("fedgia_update_batched_donated", xbar, gbar, pi, h, outs,
-                   sel, sigma, m, k0)
+    return _update("fedgia_update_batched_donated", xbar, gbar, pi, h, sel,
+                   sigma, m, k0, (xbar, pi, gbar))
 
 
 def fedgia_update_single(xbar, gbar, pi, h, sel, sigma, m, *, k0: int):
     """Port of `fedgia_update_kernel`: one client, all inputs (N,) with
-    N % 128 == 0, sel a scalar bool. The m = 1 launch of the kernel."""
-    if xbar.device.type == "cpu":
-        return _plain(xbar, gbar, pi, h, sel, sigma, m, k0)
-    outs = tuple(torch.empty_like(xbar)[None] for _ in range(3))
-    x, p, z = _launch("fedgia_update_single", xbar[None], gbar[None],
-                      pi[None], h[None], outs, sel, sigma, m, k0)
+    N % 128 == 0 (h may be 0-d), sel a scalar bool. The m = 1 launch of
+    the kernel."""
+    row = lambda t: t if t.dim() == 0 else t[None]  # noqa: E731
+    x, p, z = _update("fedgia_update_single", xbar, row(gbar), row(pi),
+                      row(h), sel, sigma, m, k0, _fresh(row(gbar)))
     return x[0], p[0], z[0]
 
 
 def _pad_lanes(ts, n):
+    """Pad the operands whose last axis is N to the lane width (0-d ones,
+    a scalar h, pass through)."""
     pad = (-n) % LANES
-    return [F.pad(t, (0, pad)) for t in ts] if pad else list(ts)
+    return [F.pad(t, (0, pad)) if pad and t.dim() else t for t in ts]
 
 
 def fedgia_update(xbar, gbar, pi, h, sel, sigma, m, *, k0: int):
-    """Flattened-vector round update of one client. All arrays (N), any N:
-    pads to the lane width, runs the single-client kernel, slices back."""
+    """Flattened-vector round update of one client. All arrays (N), any N
+    (h may be 0-d): pads to the lane width, runs the single-client kernel,
+    slices back."""
     n = xbar.shape[0]
     x, p, z = fedgia_update_single(*_pad_lanes((xbar, gbar, pi, h), n), sel,
                                    sigma, m, k0=k0)
@@ -139,15 +176,20 @@ def fedgia_update(xbar, gbar, pi, h, sel, sigma, m, *, k0: int):
 
 
 def fedgia_update_flat(xbar_c, gbar, pi, h, sel, sigma, m, *, k0: int,
-                       donate: bool = False):
+                       donate: bool = False, want_x: bool = True):
     """Batched flat-buffer round update of the whole (mb, N) client state.
 
-    `xbar_c` is the per-client anchor and `sel` the (mb,) branch select.
-    The kernel takes contiguous buffers: a broadcast view must be
-    materialised by the caller. `donate=True` writes the result into
-    xbar_c / pi / gbar (see `fedgia_update_batched_donated`); a ragged N
-    needs a padded copy, which defeats the alias, so it then runs the
-    undonated kernel.
+    ḡ and π are (mb, N); the anchor `xbar_c` is (mb, N) or the round's
+    (N,) x̄, which the kernel reads for every row (no broadcast copy); h
+    is (mb, N) or 0-d (the scalar policy's r); `sel` is the (mb,) bool
+    branch select. Returns (x', π', z'), with None for x' when
+    `want_x=False` (the kernel then does not write it).
+
+    `donate=True` writes π' into `pi`, z' into `gbar` and, for an (mb, N)
+    anchor, x' into `xbar_c` (see `fedgia_update_batched_donated`); an
+    (N,) anchor is never written, and a wanted x' then comes back in a
+    fresh buffer. A ragged N needs padded copies, which defeat the
+    aliases, so it then runs the undonated kernel.
 
     A one-client buffer (mb == 1) runs the single-client launch
     (`fedgia_update_single`) and never donates: its results come back in
@@ -155,14 +197,22 @@ def fedgia_update_flat(xbar_c, gbar, pi, h, sel, sigma, m, *, k0: int,
     reference's `fedgia_update_flat`, which runs the batched kernel (or
     its donated form) for one client too; the values are the same.
     """
-    mb, n = xbar_c.shape
+    _check_forms("fedgia_update_flat", xbar_c, gbar, pi, h)
+    mb, n = gbar.shape
     if mb == 1:
-        out = fedgia_update(xbar_c[0], gbar[0], pi[0], h[0], sel.reshape(()),
-                            sigma, m, k0=k0)
-        return tuple(t[None] for t in out)
-    if donate and n % LANES == 0:
-        return fedgia_update_batched_donated(xbar_c, gbar, pi, h, sel, sigma,
-                                             m, k0=k0)
-    x, p, z = fedgia_update_batched(*_pad_lanes((xbar_c, gbar, pi, h), n),
-                                    sel, sigma, m, k0=k0)
-    return x[:, :n], p[:, :n], z[:, :n]
+        name, donate = "fedgia_update_single", False
+    elif donate and n % LANES == 0:
+        name = "fedgia_update_batched_donated"
+    else:
+        name, donate = "fedgia_update_batched", False
+    if donate:
+        x_out = None
+        if want_x:
+            x_out = xbar_c if xbar_c.dim() == 2 else torch.empty_like(gbar)
+        return _update(name, xbar_c, gbar, pi, h, sel, sigma, m, k0,
+                       (x_out, pi, gbar))
+    ins = _pad_lanes((xbar_c, gbar, pi, h), n)
+    x, p, z = _update(name, *ins, sel, sigma, m, k0, _fresh(ins[1], want_x))
+    if ins[1].shape[1] != n:
+        x, p, z = (None if t is None else t[:, :n] for t in (x, p, z))
+    return x, p, z

@@ -29,8 +29,12 @@ def int_pow(a: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def fedgia_update_collapsed(xbar, gbar, pi, h, sel, sigma, inv_m, *, k0: int):
-    """The kernel's closed form. `sel` broadcasts against the (…, N)
-    operands (bool); `inv_m` is the float32 1/m as a Python float."""
+    """The kernel's closed form. Every operand broadcasts against the
+    (…, N) ḡ, which gives the kernel's forms: an (N,) anchor `xbar` read
+    for every row, a 0-d `h` (scalar H), and `sel` (bool). The results
+    are those of the materialised (…, N) operands bit for bit: each
+    element takes the same operations on the same values. `inv_m` is the
+    float32 1/m as a Python float."""
     xbar32, g = xbar.float(), gbar.float()
     d = torch.reciprocal(h.float() * inv_m + sigma)
     a = 1.0 - sigma * d

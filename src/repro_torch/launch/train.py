@@ -7,6 +7,12 @@ Runs on the CUDA device unless `--device cpu` is given, in which case the
 plain PyTorch versions stand in for the CUDA kernels. Same flags and
 defaults as the main-path subset of `repro.launch.train`, and the same
 closing `done:` line.
+
+Rounds run in chunks (`core/engine.py`): on the card each chunk length is
+captured once as a CUDA graph and replayed, with the eq. (35) stop
+checked on the device and read by the host once a chunk. `--chunk N`
+sets the rounds a chunk (0: the reference's sizing); `--no-scan` runs the
+legacy per-round loop instead.
 """
 from __future__ import annotations
 
@@ -70,7 +76,8 @@ def train(args) -> dict:
     algo = FedGiA(fed, loss_fn, model=model)
     state = algo.init(params0, make_generator(args.seed + 1),
                       init_batch=batch)
-    res = run_rounds(algo, state, batch, args.rounds, tol=args.tol)
+    res = run_rounds(algo, state, batch, args.rounds, tol=args.tol,
+                     scan=not args.no_scan, chunk_size=args.chunk)
     history = [
         {"round": r, "f": float(res.history["f_xbar"][r]),
          "err": float(res.history["grad_sq_norm"][r])}
@@ -91,11 +98,15 @@ def train(args) -> dict:
         "final_f": history[-1]["f"],
         "final_err": history[-1]["err"],
         "wall_s": res.wall_s,
+        "capture_s": res.capture_s,
         "history": history,
         "algorithm": algo,
         "batch": batch,
         "state": res.state,
     }
+    if not args.no_scan:
+        log.info("chunked driver: warm-up and capture %.3fs (outside the "
+                 "rounds' time)", res.capture_s)
     log.info(
         "done: %d rounds (CR=%d) in %.2fs  f=%.6f err=%.2e",
         result["rounds"], result["cr"], res.wall_s, result["final_f"],
@@ -120,6 +131,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dim", type=int, default=100)
     ap.add_argument("--samples", type=int, default=12800)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-scan", action="store_true",
+                    help="legacy per-round loop (one host read a round "
+                         "when --tol > 0)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="rounds a chunk, one CUDA-graph replay each on "
+                         "the card (0 = the whole run when --tol <= 0, "
+                         "else 32)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 

@@ -233,8 +233,10 @@ def test_donated_round_consumes_the_input_pi(raw):
 def test_kernel_args_are_what_round_flat_updates_with(raw, policy):
     """`round_inputs` + `kernel_args` hand out the fused update's
     arguments for the next round (the kernel check on the card takes its
-    inputs from them): the update on them is round_flat's, bitwise, and
-    the buffers are contiguous (m, N) float32."""
+    inputs from them): the update on them is round_flat's, bitwise. ḡ and
+    π are contiguous (m, N) float32; the anchor is the round's (N,) x̄,
+    not a broadcast copy; h is the (m, N) buffer under diag_ema and the
+    0-d r under the scalar policy; round_flat asks for no x'."""
     from repro_torch.kernels.fedgia_update import fedgia_update_flat
 
     _, _, _, algo, state, batch = _pair(raw, **POLICIES[policy])
@@ -244,10 +246,14 @@ def test_kernel_args_are_what_round_flat_updates_with(raw, policy):
     xbar, sel, _, _, gbar = algo.round_inputs(probe, batch, spec)
     *args, k0 = algo.kernel_args(probe, xbar, gbar, sel)
     assert k0 == algo.fed.k0 and args[6] == M
-    for t in args[:4]:
-        assert t.shape == (M, spec.padded_size) and t.is_contiguous()
+    N = spec.padded_size
+    h_shape = (M, N) if policy == "diag_ema" else ()
+    for t, shape in zip(args[:4], ((N,), (M, N), (M, N), h_shape)):
+        assert t.shape == shape and t.is_contiguous()
         assert t.dtype == torch.float32
-    _, pi_new, z_new = fedgia_update_flat(*args, k0=k0)
+    assert args[0] is xbar and sel.dtype == torch.bool
+    x_new, pi_new, z_new = fedgia_update_flat(*args, k0=k0, want_x=False)
+    assert x_new is None
     new, _ = algo.round_flat(dict(ts, rng=selection.copy_generator(
         state["rng"])), batch, spec)
     assert torch.equal(new["pi"], pi_new) and torch.equal(new["z"], z_new)

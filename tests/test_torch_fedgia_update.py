@@ -211,3 +211,120 @@ def test_int_pow_order_matches_lax_integer_pow(k):
     want = np.asarray(jax.jit(lambda v: jax.lax.integer_pow(v, k))(a))
     got = ref.int_pow(torch.from_numpy(a), k).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------- the round's operand forms
+def _round_forms(seed, m, n, scalar_h):
+    """Inputs in the forms round_flat passes: one (N,) anchor for every
+    row, and h the 0-d r (scalar H) or an (m, N) buffer (diag_ema)."""
+    xbar, g, pi, h, sel = _inputs(seed, (m, n))
+    h = np.float32(1.7) if scalar_h else h
+    return [torch.from_numpy(np.array(a)) for a in (xbar[0], g, pi, h, sel)]
+
+
+def _full(t, shape):
+    return t.expand(shape).contiguous()
+
+
+@pytest.mark.parametrize("want_x", [True, False])
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("scalar_h", [False, True])
+@pytest.mark.parametrize("n", [2 * LANES, 2 * LANES + 5])
+def test_round_forms_equal_materialised_forms_bitwise(n, scalar_h, donate,
+                                                      want_x):
+    """The (N,) anchor, the 0-d h and want_x=False give the values of the
+    materialised (m, N) operands bit for bit (CPU plain version); donated,
+    π' and z' land in π and ḡ, and the anchor is never written."""
+    m = 6
+    anchor, g, pi, h, sel = _round_forms(n + scalar_h, m, n, scalar_h)
+    sigma = torch.tensor(SIGMA)
+    want = ops.fedgia_update_flat(_full(anchor, (m, n)), g.clone(),
+                                  pi.clone(), _full(h, (m, n)), sel, sigma,
+                                  m, k0=3)
+    a0 = anchor.clone()
+    gb, pb = g.clone(), pi.clone()
+    x, p, z = ops.fedgia_update_flat(anchor, gb, pb, h, sel, sigma, m, k0=3,
+                                     donate=donate, want_x=want_x)
+    if want_x:
+        assert torch.equal(x, want[0]) and x.shape == (m, n)
+    else:
+        assert x is None
+    assert torch.equal(p, want[1]) and torch.equal(z, want[2])
+    assert torch.equal(anchor, a0)
+    if donate and n % LANES == 0:
+        assert p.data_ptr() == pb.data_ptr() and z.data_ptr() == gb.data_ptr()
+    else:
+        assert torch.equal(pb, pi) and torch.equal(gb, g)
+
+
+@pytest.mark.parametrize("k0", [1, 5])
+@pytest.mark.parametrize("scalar_h", [False, True])
+def test_round_forms_match_pallas_kernel(k0, scalar_h):
+    """The round's forms against the Pallas kernel in interpret mode on
+    the materialised operands, at the file's kernel tolerances."""
+    m, n = 6, 2 * LANES
+    anchor, g, pi, h, sel = _round_forms(k0, m, n, scalar_h)
+    jargs = [jnp.asarray(_full(t, (m, n)).numpy()) for t in (anchor, g, pi, h)]
+    want = fedgia_update_batched_kernel(*jargs, jnp.asarray(sel.numpy()),
+                                        jnp.float32(SIGMA), m, k0=k0,
+                                        interpret=True)
+    x, p, z = ops.fedgia_update_flat(anchor, g, pi, h, sel,
+                                     torch.tensor(SIGMA), m, k0=k0,
+                                     want_x=False)
+    assert x is None
+    _close((p, z), want[1:], RTOL, ATOL, f"round forms k0={k0}")
+
+
+def test_single_takes_a_scalar_h():
+    """The one-client launch reads a 0-d h as the (N,) one."""
+    n = 2 * LANES
+    xbar, g, pi, _, _ = _inputs(13, (1, n))
+    tx = _torch(xbar[0], g[0], pi[0])
+    sigma = torch.tensor(SIGMA)
+    r = torch.tensor(np.float32(0.9))
+    for s in (True, False):
+        got = ops.fedgia_update_single(*tx, r, torch.tensor(s), sigma, 4,
+                                       k0=3)
+        want = ops.fedgia_update_single(*tx, _full(r, (n,)), torch.tensor(s),
+                                        sigma, 4, k0=3)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("wrapper", ["fedgia_update_flat",
+                                     "fedgia_update_batched"])
+@pytest.mark.parametrize("bad", ["anchor (N+1,)", "anchor (1, N)",
+                                 "anchor (m, N, 1)", "h (N,)", "h (1, N)",
+                                 "h (m, 2N)", "h (1,)"])
+def test_wrappers_raise_on_a_wrongly_shaped_anchor_or_h(device, wrapper,
+                                                        bad):
+    """A shape the kernel does not take raises on any device, before the
+    device is looked at (meta tensors reach the kernel path's checks), so
+    nothing broadcasts it quietly."""
+    m, n = 4, LANES
+    shapes = {"anchor (N+1,)": (n + 1,), "anchor (1, N)": (1, n),
+              "anchor (m, N, 1)": (m, n, 1), "h (N,)": (n,),
+              "h (1, N)": (1, n), "h (m, 2N)": (m, 2 * n), "h (1,)": (1,)}
+    what = bad.split()[0]
+    t = lambda shape: torch.zeros(shape, device=device)  # noqa: E731
+    anchor = t(shapes[bad] if what == "anchor" else (n,))
+    h = t(shapes[bad] if what == "h" else ())
+    sel = torch.ones(m, dtype=torch.bool, device=device)
+    with pytest.raises(ValueError, match="anchor" if what == "anchor"
+                       else "h must"):
+        getattr(ops, wrapper)(anchor, t((m, n)), t((m, n)), h, sel,
+                              torch.tensor(SIGMA), m, k0=2)
+    assert all(v == 0 for v in ops.launches.values())
+
+
+def test_kernel_path_refuses_a_non_bool_sel():
+    """The kernel reads sel as the bool tensor it is (one byte a row, no
+    cast kernel): another dtype is refused before anything launches."""
+    m, n = 4, LANES
+    t = torch.zeros((m, n), device="meta")
+    sel = torch.ones(m, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="sel must be"):
+        ops.fedgia_update_batched(t, t, t, t, sel, torch.tensor(SIGMA), m,
+                                  k0=2)
+    assert all(v == 0 for v in ops.launches.values())

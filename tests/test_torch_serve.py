@@ -137,12 +137,12 @@ def test_registry_holds_the_ported_architectures():
 
 def test_every_kernel_source_is_built():
     """The build compiles the serving path's two kernels beside slice 1's
-    (all in parallel, at first use), each into a library named by its
-    source."""
+    and the round driver's conditional graph nodes (all in parallel, at
+    first use), each into a library named by its source."""
     from repro_torch.kernels import _build
 
     assert set(_build.SOURCES) == {"fedgia_update", "flash_attention",
-                                   "rwkv6_scan"}
+                                   "rwkv6_scan", "graph_if"}
     for name, src in _build.SOURCES.items():
         assert src.is_file() and src.suffix == ".cu"
         assert _build.library_path(name).name.startswith(name + "-")
