@@ -27,6 +27,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    Launches under replay are those the card executed: the donated kernel
    once a paper round, the batched one 20 times, the single one 5 times.
    Per-round times, replayed and eager, and the capture time apart.
+2b. The paper's comparison baselines (FedAvg, FedProx, FedPD, SCAFFOLD),
+   with counts reset just before each run and read just after:
+   * each at the paper run's size (`--algo X --lr a` with a from the
+     runners' ALGO_HPARAMS, up to 500 rounds, tol 1e-7), replayed against
+     eager `--no-scan` (the same rounds, a final state bitwise equal) and
+     on the card against the CPU (the same rounds under the rule above, f
+     at rel 1e-5); no hand-written kernel is launched;
+   * each at the population size (20 rounds, tol 0, on the population
+     run's own data, through `engine.run_rounds`), replayed against
+     eager, the bit patterns of the final states compared (a value that
+     is not finite is reported, not hidden); beside phase 2's FedGiA run,
+     the device cost of k0 or k0*inner_steps gradients a round against
+     FedGiA's one (paper Table I);
+   * Table IV's linreg rows at k0 = 5 (six algorithms, one trial) through
+     `repro_torch.benchmarks.table4`, printed as CSV, and the quickstart's
+     two lines (`repro_torch.examples.quickstart`): the FedGiA_D rows
+     launch `fedgia_update_batched` once a round that ran, and nothing
+     else launches a kernel.
+   Per-round times, replayed and eager, and the phase's own time.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each):
@@ -101,6 +120,8 @@ REPS, WARMUP = 25, 3
 STATE_RTOL, STATE_ATOL = 1e-5, 1e-6
 
 PAPER = ["--rounds", "500"]
+PAPER_TOL = 1e-7  # the CLI's default --tol
+BASELINES = ("fedavg", "fedprox", "fedpd", "scaffold")
 POPULATION = ["--clients", "16384", "--dim", "1024", "--samples", "262144",
               "--rounds", "20", "--tol", "0", "--h-policy", "diag_ema"]
 # sigma_t = 6 is the theory's guaranteed regime (sigma >= 6 r / m, Lemma
@@ -396,6 +417,54 @@ def hold_and_time(name, args, ops, ref, *, round_form):
             else None, "shape": shape, "nbytes": nbytes, "form": form}
 
 
+def card_vs_cpu_run(gpu, cpu, what):
+    """The same CLI run on the card and on the CPU: the same rounds (or one
+    apart where the stop metric lies within 1 % of tol, float32 noise in
+    the eq. (35) test), and f at rel 1e-5 at the last round both ran."""
+    r_gpu, r_cpu = gpu["rounds"], cpu["rounds"]
+    if r_gpu != r_cpu:
+        short, long_ = (gpu, cpu) if r_gpu < r_cpu else (cpu, gpu)
+        err_at = long_["history"][short["rounds"] - 1]["err"]
+        if abs(r_gpu - r_cpu) > 1 or \
+                abs(err_at - PAPER_TOL) > 1e-2 * PAPER_TOL:
+            raise SystemExit(f"{what}: {r_gpu} rounds on the card, "
+                             f"{r_cpu} on the CPU")
+    r = min(r_gpu, r_cpu) - 1
+    f_gpu, f_cpu = gpu["history"][r]["f"], cpu["history"][r]["f"]
+    if abs(f_gpu - f_cpu) > 1e-5 * abs(f_cpu):
+        raise SystemExit(f"{what}: f {f_gpu!r} (cuda) vs {f_cpu!r} (cpu)")
+    say(f"{what} parity: rounds {r_gpu} (cuda) vs {r_cpu} (cpu), "
+        f"f {f_gpu!r} vs {f_cpu!r}")
+
+
+def per_round_ms(res):
+    return res["wall_s"] / res["rounds"] * 1e3
+
+
+def hold_replayed_to_eager(a, b, what):
+    """Hold the final state of a replayed run to the eager run's: every
+    model-shaped entry, compared by bit pattern (so that a NaN or an inf
+    is compared too); bitwise is expected, and otherwise the states are
+    held to STATE_RTOL / STATE_ATOL."""
+    diffs, finite = {}, True
+    for k, tree in a.items():
+        if not isinstance(tree, dict):
+            continue
+        for leaf in tree:
+            x, y = tree[leaf], b[k][leaf]
+            diffs[f"{k}.{leaf}"] = int(
+                (x.view(torch.int32) != y.view(torch.int32)).sum())
+            finite = finite and bool(torch.isfinite(x).all())
+            torch.testing.assert_close(
+                x, y, rtol=STATE_RTOL, atol=STATE_ATOL, equal_nan=True,
+                msg=lambda m: f"{what}: replayed vs eager {k}: {m}")
+    bitwise = not any(diffs.values())
+    say(f"  replayed vs eager final state: "
+        f"{'bitwise equal' if bitwise else 'NOT bitwise'} (differing bit "
+        f"patterns {diffs}; held to rtol {STATE_RTOL}, atol {STATE_ATOL} "
+        f"otherwise); every value finite: {finite}")
+
+
 def run_pair(train, counters, argv, what):
     """The run `argv` with the default (CUDA-graph chunk) driver, then with
     the eager `--no-scan` loop, launch counts of each read apart: the same
@@ -412,21 +481,7 @@ def run_pair(train, counters, argv, what):
         raise SystemExit(f"{what}: {graph_res['rounds']} rounds, launches "
                          f"{n_graph} replayed; {eager_res['rounds']} rounds, "
                          f"launches {n_eager} eager")
-    a, b = graph_res["state"], eager_res["state"]
-    diffs = {}
-    for k in ("x", "z", "pi", "h"):
-        if k in a:
-            for leaf in a[k]:
-                x, y = a[k][leaf], b[k][leaf]
-                diffs[f"{k}.{leaf}"] = int((x != y).sum())
-                torch.testing.assert_close(
-                    x, y, rtol=STATE_RTOL, atol=STATE_ATOL,
-                    msg=lambda m: f"{what}: replayed vs eager {k}: {m}")
-    bitwise = not any(diffs.values())
-    say(f"  replayed vs eager final state: "
-        f"{'bitwise equal' if bitwise else 'NOT bitwise'} (differing "
-        f"elements {diffs}; held to rtol {STATE_RTOL}, atol {STATE_ATOL} "
-        f"otherwise)")
+    hold_replayed_to_eager(graph_res["state"], eager_res["state"], what)
     for tag, res in (("replayed", graph_res), ("eager", eager_res)):
         say(f"  per-round time {tag}: {res['wall_s'] / res['rounds'] * 1e3!r}"
             f" ms ({res['rounds']} rounds in {res['wall_s']!r} s)")
@@ -516,6 +571,18 @@ def profile_round(res, modules, engine, selection, pt):
         for fn in reversed(undo):
             fn()
     return device_split(prof), statistics.median(walls[1:])
+
+
+def baseline_gradient_ms(algo, state, batch, engine, pt, baselines_common):
+    """CUDA-event time (median of REPS) of one stacked gradient evaluation
+    of a baseline's local step, on the (m, N) trajectory buffer of its
+    first round (x̄ broadcast, materialised as the later steps' is)."""
+    spec = pt.ravel_spec(state["x"])
+    flat = engine.flatten_state(algo, state, spec)
+    x = flat["x"].expand((algo.fed.num_clients,) + flat["x"].shape)
+    x = x.contiguous()
+    fvg = baselines_common.flat_value_and_grad(algo._vg_stacked, spec)
+    return median_ms(lambda: fvg(x, batch))
 
 
 def replay_busy(run):
@@ -673,11 +740,16 @@ def main():
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke: {SRC / 'repro_torch'} not found")
     sys.path.insert(0, str(SRC))
+    from repro_torch.benchmarks import common as bench_common
+    from repro_torch.benchmarks import table4
+    from repro_torch.config import FedConfig
     from repro_torch.configs import get_config
     from repro_torch.core import api as api_mod
     from repro_torch.core import engine, selection
     from repro_torch.core import fedgia as fedgia_mod
     from repro_torch.core import hparams as hparams_mod
+    from repro_torch.core.baselines import common as baselines_common
+    from repro_torch.examples import quickstart
     from repro_torch.kernels import _build
     from repro_torch.kernels.fedgia_update import ops, ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -706,7 +778,7 @@ def main():
     # the default driver replays CUDA-graph chunks; each run is also made
     # with the eager --no-scan loop, launches read apart from the main path
     launches = {k: 0 for k in read_counts(counters)}
-    paper, n, _, _ = run_pair(train, counters, PAPER, "paper run")
+    paper, n, paper_eager, _ = run_pair(train, counters, PAPER, "paper run")
     if not paper["stopped_early"]:
         raise SystemExit("paper run did not stop early")
     if n["fedgia_update_batched_donated"] != paper["rounds"] or \
@@ -723,7 +795,8 @@ def main():
         raise SystemExit("population run: non-finite f")
     for k in launches:
         launches[k] += n[k]
-    del pop_eager["batch"], pop_eager["state"]
+    for res in (paper_eager, pop_eager):
+        del res["batch"], res["state"]
 
     one, n = run_main_path(train, counters, ONE_CLIENT)
     say(done_line("one-client run (cuda, CUDA-graph chunks)", one))
@@ -735,20 +808,7 @@ def main():
 
     cpu = train.main(PAPER + ["--device", "cpu"])
     say(done_line("paper run (cpu, plain versions)", cpu))
-    r_gpu, r_cpu = paper["rounds"], cpu["rounds"]
-    if r_gpu != r_cpu:
-        short, long_ = (paper, cpu) if r_gpu < r_cpu else (cpu, paper)
-        err_at = long_["history"][short["rounds"] - 1]["err"]
-        tol = 1e-7
-        if abs(r_gpu - r_cpu) > 1 or abs(err_at - tol) > 1e-2 * tol:
-            raise SystemExit(f"paper run: {r_gpu} rounds on the card, "
-                             f"{r_cpu} on the CPU")
-    r = min(r_gpu, r_cpu) - 1
-    f_gpu, f_cpu = paper["history"][r]["f"], cpu["history"][r]["f"]
-    if abs(f_gpu - f_cpu) > 1e-5 * abs(f_cpu):
-        raise SystemExit(f"paper run: f {f_gpu!r} (cuda) vs {f_cpu!r} (cpu)")
-    say(f"paper run parity: rounds {r_gpu} (cuda) vs {r_cpu} (cpu), "
-        f"f {f_gpu!r} vs {f_cpu!r}")
+    card_vs_cpu_run(paper, cpu, "paper run")
     paper_in, pop_in, one_in = (round_inputs(res, engine, selection, pt)
                                 for res in (paper, pop, one))
     # the split of a round (phase 6) goes on from these runs' states
@@ -757,6 +817,107 @@ def main():
                                         ("population", pop, POPULATION))}
     for res in (one, cpu):
         del res["batch"], res["state"]
+
+    # 2b. the paper's comparison baselines -------------------------------
+    t_phase = time.perf_counter()
+    say(f"baselines at the paper size, replayed, eager and on the CPU, on "
+        f"{card}:")
+    per_round = {}
+    for name in BASELINES:
+        argv = ["--algo", name, "--lr",
+                str(bench_common.ALGO_HPARAMS[name]["lr"])] + PAPER
+        got, n, eager, _ = run_pair(train, counters, argv,
+                                    f"{name} paper run")
+        if sum(n.values()):
+            raise SystemExit(f"{name} paper run launched kernels: {n}")
+        cpu = train.main(argv + ["--device", "cpu"])
+        say(done_line(f"{name} paper run (cpu)", cpu))
+        card_vs_cpu_run(got, cpu, f"{name} paper run")
+        per_round[name] = [per_round_ms(got), per_round_ms(eager)]
+        for res in (got, eager, cpu):
+            del res["batch"], res["state"]
+    per_round["fedgia"] = [per_round_ms(paper), per_round_ms(paper_eager)]
+    say("  paper size, ms a round (replayed, eager): " + ", ".join(
+        f"{k} {v[0]!r} / {v[1]!r}" for k, v in per_round.items()))
+
+    say(f"all five algorithms at the population size, replayed against "
+        f"eager, on {card} (paper Table I: gradients a round):")
+    per_round = {"fedgia": [per_round_ms(pop), per_round_ms(pop_eager), 1]}
+    # the population run's own client data and model, not made again
+    model, batch = pop["algorithm"].model, pop["batch"]
+    rounds = int(POPULATION[POPULATION.index("--rounds") + 1])
+    for name in BASELINES:
+        fed = FedConfig(algorithm=name, num_clients=batch["A"].shape[0],
+                        **bench_common.ALGO_HPARAMS[name])
+        algo = api_mod.make_algorithm(fed, model.loss, model=model)
+        state = algo.init(model.init(batch["A"].device),
+                          selection.make_generator(1), init_batch=batch)
+        out = {}
+        for tag, scan in (("replayed", True), ("eager", False)):
+            reset_counts(counters)
+            res = engine.run_rounds(algo, state, batch, rounds, scan=scan)
+            n = read_counts(counters)
+            f = float(res.history["f_xbar"][-1])
+            say(f"{name} population run ({tag}): {res.rounds_run} rounds "
+                f"in {res.wall_s!r} s, {res.wall_s / res.rounds_run * 1e3!r}"
+                f" ms a round (capture {res.capture_s!r} s apart), f={f!r}; "
+                f"launches {n}")
+            if res.rounds_run != rounds or sum(n.values()):
+                raise SystemExit(f"{name} population run ({tag}): "
+                                 f"{res.rounds_run} rounds, launches {n}")
+            out[tag] = res
+        hold_replayed_to_eager(out["replayed"].state, out["eager"].state,
+                               f"{name} population run")
+        grads = int(fed.k0 * (fed.inner_steps if name in ("fedprox", "fedpd")
+                              else 1))
+        per_round[name] = [r.wall_s / r.rounds_run * 1e3
+                           for r in out.values()] + [grads]
+        t_grad = baseline_gradient_ms(algo, state, batch, engine, pt,
+                                      baselines_common)
+        say(f"  {name}: one gradient evaluation {t_grad!r} ms (CUDA events, "
+            f"median of {REPS}); {grads} a round = {grads * t_grad!r} ms of "
+            f"the replayed round's {per_round[name][0]!r} ms, the rest "
+            f"{per_round[name][0] - grads * t_grad!r} ms")
+        del out, state
+    say("  population size, ms a round (replayed, eager; gradients a "
+        "round): " + ", ".join(f"{k} {v[0]!r} / {v[1]!r} ({v[2]})"
+                               for k, v in per_round.items()))
+
+    say(f"Table IV, linreg, k0 = 5, one trial, on {card} (CSV):")
+    reset_counts(counters)
+    rows = table4.run(problems=["linreg"], trials=1, k0s=[5],
+                      device="cuda")
+    n = read_counts(counters)
+    for line in table4.csv_lines(rows):
+        say(line)
+    d_rounds = int(next(r["cr"] for r in rows if r["algo"] == "fedgia_d")
+                   // 2)
+    say(f"  launches: {n} (FedGiA_D ran {d_rounds} rounds)")
+    if n["fedgia_update_batched"] != d_rounds or sum(n.values()) != d_rounds:
+        raise SystemExit(f"Table IV: launches {n}, want {d_rounds} "
+                         f"fedgia_update_batched launches and no other")
+    for r in rows:
+        if not math.isfinite(r["obj"]) or (
+                r["algo"].startswith("fedgia") and r["conv_frac"] != 1.0):
+            raise SystemExit(f"Table IV: bad row {r}")
+    launches["fedgia_update_batched"] += n["fedgia_update_batched"]
+
+    say(f"quickstart (m={quickstart.M}, n={quickstart.N}, "
+        f"d={quickstart.D}, k0={quickstart.K0}) on {card}:")
+    reset_counts(counters)
+    lines, results = quickstart.run("cuda")
+    n = read_counts(counters)
+    for line in lines:
+        say(line)
+    say(f"  launches: {n}")
+    gia = results[0]
+    if not gia.stopped_early or n["fedgia_update_batched"] != \
+            gia.rounds_run or sum(n.values()) != gia.rounds_run:
+        raise SystemExit(f"quickstart: FedGiA ran {gia.rounds_run} rounds "
+                         f"(stopped {gia.stopped_early}), launches {n}")
+    launches["fedgia_update_batched"] += n["fedgia_update_batched"]
+    del lines, results, gia
+    say(f"phase 2b took {time.perf_counter() - t_phase!r} s")
 
     # 3. serving path, full width -------------------------------------------
     served = {}

@@ -1,1 +1,1 @@
-from repro_torch.config.base import FedConfig, ModelConfig
+from repro_torch.config.base import ALGORITHMS, FedConfig, ModelConfig

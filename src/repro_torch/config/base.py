@@ -1,12 +1,13 @@
 """The port's configs: `ModelConfig` for the serving path and the
-`FedConfig` fields that the flat FedGiA round reads (counterparts of
-`repro/config/base.py::ModelConfig` and `::FedConfig`, same fields and
-defaults)."""
+`FedConfig` fields that the flat rounds of the five algorithms read
+(counterparts of `repro/config/base.py::ModelConfig` and `::FedConfig`,
+same fields and defaults)."""
 from __future__ import annotations
 
 import dataclasses
 
 H_POLICIES = ("scalar", "diag_ema", "gram")
+ALGORITHMS = ("fedgia", "fedavg", "fedprox", "fedpd", "scaffold")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,8 +165,10 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    """FedGiA hyper-parameters (paper §V.B)."""
+    """Federated-algorithm selection, FedGiA hyper-parameters (paper §V.B)
+    and the baselines' (§V.D)."""
 
+    algorithm: str = "fedgia"  # fedgia | fedavg | fedprox | fedpd | scaffold
     num_clients: int = 16
     k0: int = 5  # local steps between communications
     alpha: float = 0.5  # |C| / m, client-selection fraction
@@ -174,12 +177,23 @@ class FedConfig:
     auto_lipschitz: bool = False
     h_policy: str = "diag_ema"  # diag_ema | scalar | gram (linear models only)
     collapsed: bool = True  # closed-form k0-step round (the kernel's form)
+    # baseline hyper-parameters (paper §V.D)
+    lr: float = 0.01
+    prox_mu: float = 1e-4
+    inner_steps: int = 5  # FedProx/FedPD inner GD steps
+    fedpd_eta: float = 1.0
     state_dtype: str = "float32"
 
     def __post_init__(self):
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(
+                f"unknown algorithm {self.algorithm!r}: {ALGORITHMS}")
         if self.h_policy not in H_POLICIES:
             raise ValueError(f"unknown h_policy {self.h_policy!r}: {H_POLICIES}")
         if self.k0 < 1:
             raise ValueError(f"k0 must be >= 1, got {self.k0}")
         if self.num_clients < 1:
             raise ValueError(f"num_clients must be >= 1, got {self.num_clients}")
+        if self.inner_steps < 1:
+            raise ValueError(
+                f"inner_steps must be >= 1, got {self.inner_steps}")

@@ -1,0 +1,101 @@
+"""Shared pieces for the paper's comparison baselines (§V.D).
+
+Counterpart of `repro/core/baselines/common.py`. All baselines use the
+paper's learning-rate schedule
+    gamma_k(a) = a / log2(k + 2)
+with k the GLOBAL inner-iteration counter `state["step"]`. The paper's
+comparison protocol is full participation (`mask=None`: every client
+updates every round); with a per-round (m,) mask only masked-in clients
+are aggregated, and the per-client state of the others is frozen.
+
+`step` and `round` are Python ints in the state a caller sees and 0-d
+integer tensors on the run's device inside the chunked driver
+(`core/engine.py`), so that a replayed CUDA graph reads each round's
+own counter; every function here takes either.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import api
+
+
+class FlatBaseline:
+    """What the four baselines share: the flat state layout (x̄ an (N,)
+    buffer; per-client state, where there is any, one (m, N) buffer
+    each), the stacked per-client gradient, the initial state and the
+    end of a round. A subclass adds its `round_flat`."""
+
+    flat_client_keys = ()
+    flat_global_keys = ("x",)
+
+    def __init__(self, fed, loss_fn: api.LossFn, model=None):
+        self.fed = fed
+        self.loss_fn = loss_fn
+        self.model = model
+        self._vg_stacked = api.per_client_value_and_grad_stacked(loss_fn)
+
+    def init(self, params0, gen: torch.Generator, init_batch=None):
+        """x̄ = params0 in the state dtype, both counters 0, and the run's
+        generator (which no baseline draws from)."""
+        sdt = getattr(torch, self.fed.state_dtype)
+        return {"x": {k: v.to(sdt) for k, v in params0.items()},
+                "round": 0, "step": 0, "rng": gen}
+
+    def _result(self, state, aggregate, grad_evals, **updates):
+        """(new state, metrics) of a round from the outputs of
+        `api.flat_round_aggregate` (x̄', |grad|^2, f, participants): both
+        counters advanced (`step` by the k0 local steps), `updates` (the
+        per-client state) stored, `grad_evals` gradients a client."""
+        x_new, gsq, f_mean, n_sel = aggregate
+        new_state = dict(state, x=x_new, round=state["round"] + 1,
+                         step=state["step"] + self.fed.k0, **updates)
+        metrics = round_metrics_flat(gsq, f_mean, n_sel, state["round"])
+        metrics["local_grad_evals"] = float(grad_evals)
+        return new_state, metrics
+
+
+def zeros_stacked(x, m: int):
+    """(m, ...) zeros for every leaf of `x` (per-client duals, variates)."""
+    return {k: v.new_zeros((m,) + tuple(v.shape)) for k, v in x.items()}
+
+
+def lr_schedule(a: float, k, device=None) -> torch.Tensor:
+    """gamma_k(a) = a / log2(k + 2) as a 0-d float32 tensor; `k` is an int
+    (made on `device`) or a 0-d integer tensor."""
+    if torch.is_tensor(k):
+        kf = k.to(torch.float32)
+    else:
+        kf = torch.full((), float(k), dtype=torch.float32, device=device)
+    return torch.full_like(kf, a) / torch.log2(kf + 2.0)
+
+
+def flat_value_and_grad(vg_stacked, spec):
+    """Route a stacked value-and-grad through the flat (m, N) view: each
+    gradient evaluation unravels the buffer, evaluates, and ravels the
+    gradients back (the only dict boundary of the local loops)."""
+
+    def fvg(x_flat, batch):
+        losses, grads = vg_stacked(spec.unravel_stacked(x_flat), batch)
+        return losses, spec.ravel_stacked(grads)
+
+    return fvg
+
+
+def participation_vec(losses: torch.Tensor, mask=None) -> torch.Tensor:
+    """The (m,) `selected`-metric indicator: 1 for participants, 0 for
+    masked-out clients."""
+    ones = torch.ones_like(losses)
+    return ones if mask is None else torch.where(mask, ones, 0.0)
+
+
+def round_metrics_flat(gsq, f_mean, n_sel, round_idx):
+    """The round's metrics from the outputs of `api.flat_round_aggregate`:
+    f and |grad|^2 are all-client diagnostics whatever the participation,
+    `selected` the participant count, `cr` two communications a round."""
+    return {
+        "f_xbar": f_mean,
+        "grad_sq_norm": gsq,
+        "selected": n_sel,
+        "cr": 2.0 * (round_idx + 1),
+    }

@@ -1,0 +1,60 @@
+"""FedPD [Zhang et al. 2021], oracle choice I / option I per paper §V.D:
+primal-dual with inexact local solves.
+
+Counterpart of `repro/core/baselines/fedpd.py`, flat dense path. Each
+local step, every client approximately solves
+    x_i ≈ argmin f_i(x) + <lam_i, x − x̄_i> + 1/(2 eta) ||x − x̄_i||²
+with `inner_steps` GD iterations (lr = gamma_k), then
+    lam_i += (x_i − x̄_i)/eta ;   x̄_i ← x_i + eta*lam_i.
+Aggregation every k0 steps: x̄ = mean_i x̄_i. The duals `lam` are one
+(m, N) buffer in the flat state.
+"""
+from __future__ import annotations
+
+from repro_torch.core import api
+from repro_torch.core.baselines.common import (
+    FlatBaseline,
+    flat_value_and_grad,
+    lr_schedule,
+    participation_vec,
+    zeros_stacked,
+)
+
+
+class FedPD(FlatBaseline):
+    name = "fedpd"
+    flat_client_keys = ("lam",)
+
+    def init(self, params0, gen, init_batch=None):
+        state = super().init(params0, gen)
+        state["lam"] = zeros_stacked(state["x"], self.fed.num_clients)
+        return state
+
+    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+        """One round on the flat state (`lam` an (m, N) buffer): k0
+        primal-dual steps per client from the broadcast x̄, then eq. (11)
+        over the clients' anchors. Under `mask`, a masked-out client keeps
+        its duals and is not aggregated. The metrics read the first inner
+        iteration of the first step (see `FedAvg.round_flat`)."""
+        fed = self.fed
+        eta = fed.fedpd_eta
+        anchor = api.broadcast_clients(state["x"], fed.num_clients)
+        lam = state["lam"]
+        fvg = flat_value_and_grad(self._vg_stacked, spec)
+        for j in range(fed.k0):
+            lr = lr_schedule(fed.lr, state["step"] + j, anchor.device)
+            xi = anchor
+            for t in range(fed.inner_steps):
+                losses, grads = fvg(xi, batch)
+                if j == 0 and t == 0:
+                    losses0, grads0 = losses, grads
+                g = grads + lam + (xi - anchor) / eta
+                xi = xi - lr * g.to(xi.dtype)
+            lam = lam + (xi - anchor) / eta
+            anchor = xi + eta * lam
+        if mask is not None:
+            lam = api.masked_update(mask, lam, state["lam"])
+        agg = api.flat_round_aggregate(
+            anchor, grads0, losses0, participation_vec(losses0, mask), spec,
+            mask=mask)
+        return self._result(state, agg, fed.k0 * fed.inner_steps, lam=lam)

@@ -1,0 +1,63 @@
+"""SCAFFOLD [Karimireddy et al. 2020]: controlled averaging with client
+and server control variates (paper Table I comparison set).
+
+Counterpart of `repro/core/baselines/scaffold.py`, flat dense path:
+  local:   y ← y − lr_j (∇f_i(y) − c_i + c), k0 steps;
+  control: c_i⁺ = c_i − c + (x̄ − y)/(k0·lr)   (option II);
+  server:  x̄ = mean(y);  c += mean(c_i⁺ − c_i).
+The client variates `ci` are one (m, N) buffer, the server's `c` one
+(N,) vector, in the flat state.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import api
+from repro_torch.core.baselines.common import (
+    FlatBaseline,
+    flat_value_and_grad,
+    lr_schedule,
+    participation_vec,
+    zeros_stacked,
+)
+
+
+class Scaffold(FlatBaseline):
+    name = "scaffold"
+    flat_client_keys = ("ci",)
+    flat_global_keys = ("x", "c")
+
+    def init(self, params0, gen, init_batch=None):
+        state = super().init(params0, gen)
+        state["c"] = {k: torch.zeros_like(v) for k, v in state["x"].items()}
+        state["ci"] = zeros_stacked(state["x"], self.fed.num_clients)
+        return state
+
+    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+        """One round on the flat state: k0 corrected GD steps from the
+        broadcast x̄, the option-II control update with
+        denom = k0 · lr_schedule(step), then eq. (11) over the
+        trajectories with the variates' delta mean riding the same
+        aggregate (`extra_mean`). Under `mask`, a masked-out client keeps
+        its variate (a zero delta: c moves by |S|/m of the participants'
+        mean) and is not aggregated. Metrics as `FedAvg.round_flat`."""
+        fed = self.fed
+        c, ci = state["c"], state["ci"]
+        xc = api.broadcast_clients(state["x"], fed.num_clients)
+        fvg = flat_value_and_grad(self._vg_stacked, spec)
+        lr = lr_schedule(fed.lr, state["step"], xc.device)
+        y = xc
+        for j in range(fed.k0):
+            losses, grads = fvg(y, batch)
+            if j == 0:
+                losses0, grads0 = losses, grads
+            lr_j = lr_schedule(fed.lr, state["step"] + j, y.device)
+            y = y - lr_j * (grads + c[None] - ci).to(y.dtype)
+        denom = fed.k0 * lr
+        ci_new = ci - c[None] + (xc - y) / denom
+        if mask is not None:
+            ci_new = api.masked_update(mask, ci_new, ci)
+        *agg, dci = api.flat_round_aggregate(
+            y, grads0, losses0, participation_vec(losses0, mask), spec,
+            mask=mask, extra_mean=ci_new - ci)
+        return self._result(state, agg, fed.k0, c=c + dci, ci=ci_new)

@@ -8,8 +8,9 @@ of eq. (35): stop after the first round whose metric is < tol, and that
 round counts.
 
 * Chunked (`scan=True`, the default; the reference's scan driver). The
-  rounds run in chunks on static buffers: the host draws a chunk's
-  selection masks before it and reads one flag and one round counter
+  rounds run in chunks on static buffers: for an algorithm that selects
+  clients in the round (FedGiA's ADMM/GD split) the host draws a chunk's
+  selection masks before it, and it reads one flag and one round counter
   after it. On a CUDA device each chunk length is captured once, before
   the timed window, as a CUDA graph of that many rounds, and a chunk is
   one replay. With tol > 0 each round of a chunk is the body of a
@@ -19,6 +20,10 @@ round counts.
   same chunk program runs eagerly.
 * Legacy (`scan=False`): one Python loop of `algo.round_flat`, which
   reads the stop metric back to the host every round when tol > 0.
+
+Any of the five algorithms runs through either driver. The baselines
+take no mask (the paper's full participation): neither driver draws for
+them, and their generator is never advanced.
 """
 from __future__ import annotations
 
@@ -157,9 +162,14 @@ class _Chunked:
     and one chunk program per chunk length, captured as a CUDA graph on
     the card.
 
-    The round number is carried on the device (`state["round"]` is a 0-d
-    int64 tensor inside, an int outside), so `round` and the `cr` metric
-    advance inside a replayed graph as in the legacy loop.
+    Every integer counter of the state (`round`; the baselines' `step`,
+    which their learning-rate schedule reads) is carried on the device,
+    a 0-d int64 tensor inside and an int outside, so the counters, the
+    `cr` metric and the learning rates advance inside a replayed graph
+    as in the legacy loop (an int would be baked into the capture).
+
+    Masks are drawn and uploaded only for an algorithm that selects in
+    the round (`algo.selects_in_round`); the others get `mask=None`.
 
     Launch counts: a capture makes no launch, so the counts that the
     wrappers add while a chunk is captured are taken back, and each
@@ -173,11 +183,16 @@ class _Chunked:
         self.st = {k: v for k, v in flat.items() if k != "rng"}
         dev = self.device = self.st["x"].device
         self.cuda = dev.type == "cuda"
-        self.st["round"] = torch.tensor(flat["round"], device=dev)
-        m = algo.fed.num_clients
-        self.masks = torch.ones((chunk, m), dtype=torch.bool, device=dev)
-        self.host_masks = torch.ones((chunk, m), dtype=torch.bool,
-                                     pin_memory=self.cuda)
+        self.counters = tuple(k for k, v in flat.items()
+                              if isinstance(v, int))
+        for k in self.counters:
+            self.st[k] = torch.tensor(flat[k], device=dev)
+        self.selects = getattr(algo, "selects_in_round", False)
+        if self.selects:
+            m = algo.fed.num_clients
+            self.masks = torch.ones((chunk, m), dtype=torch.bool, device=dev)
+            self.host_masks = torch.ones((chunk, m), dtype=torch.bool,
+                                         pin_memory=self.cuda)
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.hist = {}
@@ -189,8 +204,9 @@ class _Chunked:
 
     # ---------------------------------------------------------- the chunk
     def _round(self, st, i):
-        st, met = self.algo.round_flat(st, self.batch, self.spec,
-                                       mask=self.masks[i], donate_kernel=True)
+        mask = self.masks[i] if self.selects else None
+        st, met = self.algo.round_flat(st, self.batch, self.spec, mask=mask,
+                                       donate_kernel=True)
         for k, v in met.items():
             if torch.is_tensor(v):
                 self.hist[k][i].copy_(v)
@@ -254,18 +270,19 @@ class _Chunked:
         return out
 
     def _warm_up(self):
-        """One round on copies of the state, with every client selected
-        (no draw), eagerly: it sizes the history buffers from the metrics
-        and, on the card, runs on the capture streams before any capture
-        (cuBLAS handles and workspaces, the kernel libraries), outside the
-        timed window and the launch counts."""
+        """One round on copies of the state, eagerly, with every client
+        selected (no draw) where the algorithm selects: it sizes the
+        history buffers from the metrics and, on the card, runs on the
+        capture streams before any capture (cuBLAS handles and
+        workspaces, the kernel libraries), outside the timed window and
+        the launch counts."""
         counts = _counts()
 
         def warm():
             copies = {k: v.clone() for k, v in self.st.items()}
+            mask = torch.ones_like(self.masks[0]) if self.selects else None
             return self.algo.round_flat(copies, self.batch, self.spec,
-                                        mask=torch.ones_like(self.masks[0]),
-                                        donate_kernel=True)[1]
+                                        mask=mask, donate_kernel=True)[1]
 
         met = self._on_capture_streams(warm) if self.cuda else warm()
         _set_counts(counts)
@@ -319,7 +336,8 @@ class _Chunked:
         t0 = time.perf_counter()
         while rounds_run < num_rounds and not stopped:
             length = min(self.chunk, num_rounds - rounds_run)
-            states = self._upload_masks(length)
+            if self.selects:
+                states = self._upload_masks(length)
             if self.cuda:
                 tc = time.perf_counter()
                 fresh = length not in self.graphs
@@ -340,7 +358,7 @@ class _Chunked:
                     _add_counts(d)
             chunks.append({k: v[:live].clone() for k, v in self.hist.items()})
             rounds_run += live
-            if stopped:
+            if stopped and self.selects:
                 self.gen.set_state(states[live])
         if self.cuda:
             torch.cuda.synchronize(self.device)
@@ -348,6 +366,8 @@ class _Chunked:
 
         history = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()
                    for k in self.hist}
-        flat = dict(self.st, rng=self.gen, round=int(self.st["round"]))
+        flat = dict(self.st, rng=self.gen)
+        for k in self.counters:
+            flat[k] = int(self.st[k])
         return RoundResult(unflatten_state(self.algo, flat, self.spec),
                            history, rounds_run, stopped, wall, capture)

@@ -31,6 +31,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 class FedGiA:
     name = "fedgia"
+    # the ADMM/GD split is drawn every round (`round_flat(mask=...)`)
+    selects_in_round = True
     # model-shaped state the engine ravels into (m, N) / (N,) buffers
     # (gram_chol is client-stacked but not model-shaped)
     flat_client_keys = ("z", "pi", "h")
@@ -94,8 +96,14 @@ class FedGiA:
         m, sigma = self.fed.num_clients, state["sigma"]
         if self.fed.h_policy == "gram":
             n = spec.size  # gram is restricted to single-leaf linear models
-            out = torch.cholesky_solve(v[:, :n, None], state["gram_chol"],
-                                       upper=True)[..., 0]
+            # cho_solve as its two triangular solves: on the card they are
+            # cuBLAS's batched trsm, which a CUDA graph can capture, where
+            # torch.cholesky_solve calls MAGMA, which a capture refuses
+            # (on the CPU both are LAPACK's trsm, bit for bit the same)
+            u = state["gram_chol"]
+            y = torch.linalg.solve_triangular(u.transpose(-1, -2),
+                                              v[:, :n, None], upper=False)
+            out = torch.linalg.solve_triangular(u, y, upper=True)[..., 0]
             pad = v.shape[1] - n
             return torch.nn.functional.pad(out, (0, pad)) if pad else out
         h = state.get("h")

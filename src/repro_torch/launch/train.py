@@ -1,12 +1,16 @@
-"""Federated training driver for the port: FedGiA on the paper's problems.
+"""Federated training driver for the port: FedGiA and the paper's four
+comparison baselines on the paper's problems.
 
   PYTHONPATH=src python -m repro_torch.launch.train --problem linreg \
       --algo fedgia --clients 128 --k0 5 --rounds 200 --tol 1e-7
+  PYTHONPATH=src python -m repro_torch.launch.train --algo fedprox --lr 0.002
 
 Runs on the CUDA device unless `--device cpu` is given, in which case the
 plain PyTorch versions stand in for the CUDA kernels. Same flags and
 defaults as the main-path subset of `repro.launch.train`, and the same
-closing `done:` line.
+closing `done:` line. `--alpha` is FedGiA's ADMM/GD split; the baselines
+run with every client, as the reference's do without a participation
+policy.
 
 Rounds run in chunks (`core/engine.py`): on the card each chunk length is
 captured once as a CUDA graph and replayed, with the eq. (35) stop
@@ -20,9 +24,9 @@ import argparse
 import logging
 import sys
 
-from repro_torch.config import FedConfig
+from repro_torch.config import ALGORITHMS, FedConfig
+from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.fedgia import FedGiA
 from repro_torch.core.selection import make_generator
 from repro_torch.data import linreg_noniid, logreg_data, to_torch
 from repro_torch.device import resolve_device
@@ -66,14 +70,15 @@ def build_problem(args, device):
 
 
 def train(args) -> dict:
-    """Run one training job. Returns the summary, plus the run's FedGiA
+    """Run one training job. Returns the summary, plus the run's algorithm
     object, client batch and final state (`algorithm`, `batch`, `state`)
     for callers that go on from it."""
     device = resolve_device(args.device)
     model, loss_fn, params0, batch = build_problem(args, device)
-    fed = FedConfig(num_clients=args.clients, k0=args.k0, alpha=args.alpha,
-                    sigma_t=args.sigma_t, h_policy=args.h_policy)
-    algo = FedGiA(fed, loss_fn, model=model)
+    fed = FedConfig(algorithm=args.algo, num_clients=args.clients, k0=args.k0,
+                    alpha=args.alpha, sigma_t=args.sigma_t,
+                    h_policy=args.h_policy, lr=args.lr)
+    algo = make_algorithm(fed, loss_fn, model=model)
     state = algo.init(params0, make_generator(args.seed + 1),
                       init_batch=batch)
     res = run_rounds(algo, state, batch, args.rounds, tol=args.tol,
@@ -119,7 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--problem", default="linreg",
                     choices=["linreg", "logreg", "ncvx_logreg"])
-    ap.add_argument("--algo", default="fedgia", choices=["fedgia"])
+    ap.add_argument("--algo", default="fedgia", choices=list(ALGORITHMS))
     ap.add_argument("--clients", type=int, default=128)
     ap.add_argument("--k0", type=int, default=5)
     ap.add_argument("--alpha", type=float, default=0.5)
@@ -131,6 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dim", type=int, default=100)
     ap.add_argument("--samples", type=int, default=12800)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=0.01,
+                    help="the baselines' learning rate a (gamma_k = "
+                         "a / log2(k + 2))")
     ap.add_argument("--no-scan", action="store_true",
                     help="legacy per-round loop (one host read a round "
                          "when --tol > 0)")
