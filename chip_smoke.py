@@ -46,6 +46,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      launch `fedgia_update_batched` once a round that ran, and nothing
      else launches a kernel.
    Per-round times, replayed and eager, and the phase's own time.
+2c. The rest of the paper's §V, counts reset just before each run and
+   read just after:
+   * Fig. 3 (`repro_torch.benchmarks.fig3_alpha`: FedGiA_D, k0 = 10, the
+     engine's uniform policy at alpha 0.1-1.0) on the card and on the
+     CPU, which draw the same masks: the same rounds under the rule
+     above, f at rel 1e-5, `fedgia_update_batched` once a round that
+     ran, and the runner's max CR <= 3·min CR;
+   * the paper run under `--participation uniform --alpha 0.25` (the
+     donated kernel once a round), card against CPU;
+   * FedGiA_D at the population size (20 rounds, tol 0, on the
+     population run's own data) under the uniform (0.1), weighted
+     (weights 1 + i mod 4), cyclic (0.25), straggler (0.2) and periodic
+     policies, and SCAFFOLD under uniform 0.25: each replayed against
+     eager, final states bitwise equal, 20 launches for FedGiA and none
+     for SCAFFOLD; the replayed time a round with the host's mask draws
+     apart;
+   * the population run with `chunk_size="auto"`: the chosen length, and
+     a final state bitwise equal to the one-chunk run's, with the peak
+     device memory of each;
+   * Table IV's logreg and ncvx_logreg rows at k0 in {1, 5, 10}, one
+     trial, as CSV (FedGiA_D launches once a round), and the FedGiA_D
+     and FedGiA_G rows at k0 = 5 held against the CPU;
+   * the paper run with `--unrolled`: no launch, and the collapsed run's
+     rounds and f (rel 1e-5);
+   * `repro_torch.benchmarks.kernels_bench` (CUDA-event times).
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each):
@@ -79,7 +104,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 6. A `torch.profiler` split of one eager paper round and one eager
    population round (gradient, eq. (11), update kernel, H refresh,
    metrics, copies, other; idle against the unprofiled round time), and
-   the device's busy share in the replayed runs.
+   the device's busy share in the replayed runs; a session that lost the
+   round's kernels is run again, at most three times, each printed.
 7. Print one `{"kernels": [...]}` line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
@@ -113,6 +139,7 @@ FP32_FLOPS = 67e12  # fp32 peak outside the tensor cores, H100 SXM
 # check allows 2 float32 ulps
 RTOL = 2.4e-7
 REPS, WARMUP = 25, 3
+ATTEMPTS = 3  # profiler sessions for one split or busy time, at most
 # replayed vs eager rounds on the card: the same kernels in the same
 # order, so bitwise is expected; were cuBLAS to pick another algorithm
 # inside a graph, the states would be held to the port's per-round fp32
@@ -417,35 +444,47 @@ def hold_and_time(name, args, ops, ref, *, round_form):
             else None, "shape": shape, "nbytes": nbytes, "form": form}
 
 
-def card_vs_cpu_run(gpu, cpu, what):
-    """The same CLI run on the card and on the CPU: the same rounds (or one
-    apart where the stop metric lies within 1 % of tol, float32 noise in
-    the eq. (35) test), and f at rel 1e-5 at the last round both ran."""
-    r_gpu, r_cpu = gpu["rounds"], cpu["rounds"]
+def hold_card_to_cpu(gpu, cpu, tol, what, sides=("cuda", "cpu")):
+    """The same run on the card and on the CPU (or two runs that `sides`
+    names), each a per-round list of (f, stop metric): the same rounds (or
+    one apart where the stop metric lies within 1 % of tol, float32 noise
+    in the eq. (35) test), and f at rel 1e-5 at the last round both
+    ran."""
+    r_gpu, r_cpu = len(gpu), len(cpu)
     if r_gpu != r_cpu:
-        short, long_ = (gpu, cpu) if r_gpu < r_cpu else (cpu, gpu)
-        err_at = long_["history"][short["rounds"] - 1]["err"]
-        if abs(r_gpu - r_cpu) > 1 or \
-                abs(err_at - PAPER_TOL) > 1e-2 * PAPER_TOL:
-            raise SystemExit(f"{what}: {r_gpu} rounds on the card, "
-                             f"{r_cpu} on the CPU")
+        long_ = cpu if r_gpu < r_cpu else gpu
+        err_at = long_[min(r_gpu, r_cpu) - 1][1]
+        if abs(r_gpu - r_cpu) > 1 or abs(err_at - tol) > 1e-2 * tol:
+            raise SystemExit(f"{what}: {r_gpu} rounds ({sides[0]}), "
+                             f"{r_cpu} ({sides[1]})")
     r = min(r_gpu, r_cpu) - 1
-    f_gpu, f_cpu = gpu["history"][r]["f"], cpu["history"][r]["f"]
+    f_gpu, f_cpu = gpu[r][0], cpu[r][0]
     if abs(f_gpu - f_cpu) > 1e-5 * abs(f_cpu):
-        raise SystemExit(f"{what}: f {f_gpu!r} (cuda) vs {f_cpu!r} (cpu)")
-    say(f"{what} parity: rounds {r_gpu} (cuda) vs {r_cpu} (cpu), "
-        f"f {f_gpu!r} vs {f_cpu!r}")
+        raise SystemExit(f"{what}: f {f_gpu!r} ({sides[0]}) vs {f_cpu!r} "
+                         f"({sides[1]})")
+    say(f"{what} parity: rounds {r_gpu} ({sides[0]}) vs {r_cpu} "
+        f"({sides[1]}), f {f_gpu!r} vs {f_cpu!r}")
+
+
+def cli_history(res):
+    return [(h["f"], h["err"]) for h in res["history"]]
+
+
+def card_vs_cpu_run(gpu, cpu, what, tol=PAPER_TOL):
+    """The same CLI run on the card and on the CPU, held as
+    `hold_card_to_cpu` holds runs."""
+    hold_card_to_cpu(cli_history(gpu), cli_history(cpu), tol, what)
 
 
 def per_round_ms(res):
     return res["wall_s"] / res["rounds"] * 1e3
 
 
-def hold_replayed_to_eager(a, b, what):
+def hold_replayed_to_eager(a, b, what, bitwise_only=False):
     """Hold the final state of a replayed run to the eager run's: every
     model-shaped entry, compared by bit pattern (so that a NaN or an inf
     is compared too); bitwise is expected, and otherwise the states are
-    held to STATE_RTOL / STATE_ATOL."""
+    held to STATE_RTOL / STATE_ATOL, or fail with `bitwise_only`."""
     diffs, finite = {}, True
     for k, tree in a.items():
         if not isinstance(tree, dict):
@@ -463,6 +502,8 @@ def hold_replayed_to_eager(a, b, what):
         f"{'bitwise equal' if bitwise else 'NOT bitwise'} (differing bit "
         f"patterns {diffs}; held to rtol {STATE_RTOL}, atol {STATE_ATOL} "
         f"otherwise); every value finite: {finite}")
+    if bitwise_only and not bitwise:
+        raise SystemExit(f"{what}: final states not bitwise equal: {diffs}")
 
 
 def run_pair(train, counters, argv, what):
@@ -485,7 +526,36 @@ def run_pair(train, counters, argv, what):
     for tag, res in (("replayed", graph_res), ("eager", eager_res)):
         say(f"  per-round time {tag}: {res['wall_s'] / res['rounds'] * 1e3!r}"
             f" ms ({res['rounds']} rounds in {res['wall_s']!r} s)")
+    say(f"  of the replayed run's time, the host's mask draws before its "
+        f"chunks: {graph_res['draw_s']!r} s")
     return graph_res, n_graph, eager_res, n_eager
+
+
+def engine_pair(engine, counters, algo, state, batch, rounds, what, **kw):
+    """`engine.run_rounds` replayed (CUDA-graph chunks) and eager
+    (`scan=False`), launch counts of each read apart: every round run, the
+    same launches, final states bitwise equal. Returns (replayed result,
+    its launches, eager result)."""
+    out = {}
+    for tag, scan in (("replayed", True), ("eager", False)):
+        reset_counts(counters)
+        res = engine.run_rounds(algo, state, batch, rounds, scan=scan, **kw)
+        n = read_counts(counters)
+        say(f"  {what} ({tag}): {res.rounds_run} rounds, "
+            f"{res.wall_s / res.rounds_run * 1e3!r} ms a round "
+            f"(capture {res.capture_s!r} s apart), mask draws "
+            f"{res.draw_s!r} s on the host, f="
+            f"{float(res.history['f_xbar'][-1])!r}; launches {n}")
+        if res.rounds_run != rounds:
+            raise SystemExit(f"{what} ({tag}): {res.rounds_run} rounds")
+        out[tag] = res, n
+    (graph_res, n_graph), (eager_res, n_eager) = out["replayed"], out["eager"]
+    if n_graph != n_eager:
+        raise SystemExit(f"{what}: launches {n_graph} replayed, {n_eager} "
+                         f"eager")
+    hold_replayed_to_eager(graph_res.state, eager_res.state, what,
+                           bitwise_only=True)
+    return graph_res, n_graph, eager_res
 
 
 LABELS = ("gradient", "eq. (11)", "update kernel", "H refresh", "metrics")
@@ -603,6 +673,20 @@ def replay_busy(run):
                if e.device_type != torch.autograd.DeviceType.CPU
                and e.time_range.start >= min(starts))
     return busy, res
+
+
+def replayed_busy_us(res, argv, engine, selection):
+    """Device busy time a round (us, profiled) of the CLI run `argv` again
+    through `engine.run_rounds`, replayed, from the state a fresh run
+    starts from. Returns (busy us a round, rounds run)."""
+    algo, batch = res["algorithm"], res["batch"]
+    state = algo.init(algo.model.init(batch["A"].device),
+                      selection.make_generator(1), init_batch=batch)
+    rounds = int(argv[argv.index("--rounds") + 1])
+    tol = float(argv[argv.index("--tol") + 1]) if "--tol" in argv else 1e-7
+    busy, rr = replay_busy(lambda: engine.run_rounds(algo, state, batch,
+                                                     rounds, tol=tol))
+    return busy / rr.rounds_run, rr.rounds_run
 
 
 def visible_pairs(S, causal=True, window=None):
@@ -741,7 +825,7 @@ def main():
         raise SystemExit(f"chip_smoke: {SRC / 'repro_torch'} not found")
     sys.path.insert(0, str(SRC))
     from repro_torch.benchmarks import common as bench_common
-    from repro_torch.benchmarks import table4
+    from repro_torch.benchmarks import fig3_alpha, kernels_bench, table4
     from repro_torch.config import FedConfig
     from repro_torch.configs import get_config
     from repro_torch.core import api as api_mod
@@ -919,6 +1003,159 @@ def main():
     del lines, results, gia
     say(f"phase 2b took {time.perf_counter() - t_phase!r} s")
 
+    # 2c. the rest of §V ---------------------------------------------------
+    t_phase = time.perf_counter()
+    say(f"Fig. 3 (FedGiA_D, k0 = {fig3_alpha.K0}, the engine's uniform "
+        f"policy, m={bench_common.M_CLIENTS}), on {card} and on the CPU "
+        f"(the same masks):")
+    reset_counts(counters)
+    rows = fig3_alpha.run("cuda", collect_history=True)
+    n = read_counts(counters)
+    cpu_rows = fig3_alpha.run("cpu", collect_history=True)
+    _, _, fig3_tol = bench_common.make_problem("linreg", 0, "cpu")
+    say("alpha,CR,time_s,obj,CR_cpu,obj_cpu")
+    for r, c in zip(rows, cpu_rows):
+        say(f"{r['alpha']},{r['cr']},{r['time_s']!r},{r['obj']!r},"
+            f"{c['cr']},{c['obj']!r}")
+        hold_card_to_cpu(r["history"], c["history"], fig3_tol,
+                         f"Fig. 3 alpha {r['alpha']}")
+        if not r["converged"]:
+            raise SystemExit(f"Fig. 3: alpha {r['alpha']} did not converge")
+    ran = sum(r["rounds"] for r in rows)
+    say(f"  launches: {n} ({ran} rounds ran)")
+    if n["fedgia_update_batched"] != ran or sum(n.values()) != ran:
+        raise SystemExit(f"Fig. 3: launches {n}, want {ran} "
+                         f"fedgia_update_batched launches and no other")
+    fig3_alpha.check(rows)
+    launches["fedgia_update_batched"] += n["fedgia_update_batched"]
+    del rows, cpu_rows
+
+    argv = PAPER + ["--participation", "uniform", "--alpha", "0.25"]
+    got, n = run_main_path(train, counters, argv)
+    say(done_line("paper run, uniform policy alpha 0.25 (cuda)", got))
+    say(f"  launches: {n}; mask draws {got['draw_s']!r} s on the host")
+    if n["fedgia_update_batched_donated"] != got["rounds"] or \
+            sum(n.values()) != got["rounds"]:
+        raise SystemExit(f"paper run under a policy: launches {n} != "
+                         f"{got['rounds']} rounds")
+    launches["fedgia_update_batched_donated"] += got["rounds"]
+    cpu = train.main(argv + ["--device", "cpu"])
+    card_vs_cpu_run(got, cpu, "paper run under the uniform policy")
+    del got, cpu
+
+    m = pop["batch"]["A"].shape[0]
+    rounds = int(POPULATION[POPULATION.index("--rounds") + 1])
+    say(f"FedGiA_D at the population size (m={m}) under each policy, "
+        f"{rounds} rounds, tol 0, replayed against eager, on {card}:")
+    model, batch, algo = pop["algorithm"].model, pop["batch"], \
+        pop["algorithm"]
+    state = algo.init(model.init(batch["A"].device),
+                      selection.make_generator(1), init_batch=batch)
+    policies = {
+        "uniform 0.1": selection.make_policy("uniform", m, 0.1),
+        "weighted 0.5": selection.make_policy(
+            "weighted", m, 0.5, weights=1 + torch.arange(m) % 4),
+        "cyclic 0.25": selection.make_policy("cyclic", m, 0.25),
+        "straggler 0.2": selection.make_policy("straggler", m,
+                                               drop_prob=0.2,
+                                               horizon=rounds),
+        "periodic": selection.make_policy("periodic", m, horizon=rounds),
+    }
+    for what, pol in policies.items():
+        got, n, _ = engine_pair(engine, counters, algo, state, batch, rounds,
+                                f"{what} policy", participation=pol)
+        if n["fedgia_update_batched"] != rounds or sum(n.values()) != rounds:
+            raise SystemExit(f"{what} policy: launches {n} != {rounds}")
+        sel = got.history["selected"]
+        say(f"  {what}: selected a round {int(sel.min())}..{int(sel.max())}; "
+            f"replayed {got.wall_s / rounds * 1e3!r} ms a round, of which "
+            f"the host's mask draws {got.draw_s / rounds * 1e3!r} ms "
+            f"({got.draw_s!r} s for the one {got.chunk_size}-round chunk)")
+        launches["fedgia_update_batched"] += rounds
+
+    fed = FedConfig(algorithm="scaffold", num_clients=m,
+                    **bench_common.ALGO_HPARAMS["scaffold"])
+    scaffold = api_mod.make_algorithm(fed, model.loss, model=model)
+    s_state = scaffold.init(model.init(batch["A"].device),
+                            selection.make_generator(1), init_batch=batch)
+    got, n, _ = engine_pair(
+        engine, counters, scaffold, s_state, batch, rounds,
+        "SCAFFOLD, uniform policy 0.25",
+        participation=selection.make_policy("uniform", m, 0.25))
+    if sum(n.values()):
+        raise SystemExit(f"SCAFFOLD under a policy launched kernels: {n}")
+    del got, s_state, scaffold
+
+    def peak_above_start(run):
+        """(result, peak device bytes allocated above those at the start)"""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        res = run()
+        return res, torch.cuda.max_memory_allocated() - start
+
+    reset_counts(counters)
+    auto, peak_auto = peak_above_start(lambda: engine.run_rounds(
+        algo, state, batch, rounds, chunk_size="auto"))
+    n = read_counts(counters)
+    fixed, peak_fixed = peak_above_start(lambda: engine.run_rounds(
+        algo, state, batch, rounds))
+    say(f"population run, --chunk auto: chose {auto.chunk_size} rounds a "
+        f"chunk; {auto.wall_s / rounds * 1e3!r} ms a round (capture "
+        f"{auto.capture_s!r} s apart) against {fixed.wall_s / rounds * 1e3!r}"
+        f" ms with one {fixed.chunk_size}-round chunk; peak device memory "
+        f"above the run's start {peak_auto} against {peak_fixed} bytes; "
+        f"launches {n}")
+    if n["fedgia_update_batched"] != rounds or sum(n.values()) != rounds:
+        raise SystemExit(f"--chunk auto: launches {n} != {rounds}")
+    hold_replayed_to_eager(auto.state, fixed.state, "--chunk auto against "
+                           "a fixed chunk", bitwise_only=True)
+    launches["fedgia_update_batched"] += rounds
+    del auto, fixed, state
+
+    say(f"Table IV, logreg and ncvx_logreg, k0 in {{1, 5, 10}}, one trial, "
+        f"on {card} (CSV):")
+    reset_counts(counters)
+    rows = table4.run(problems=["logreg", "ncvx_logreg"], trials=1,
+                      k0s=[1, 5, 10], device="cuda")
+    n = read_counts(counters)
+    for line in table4.csv_lines(rows):
+        say(line)
+    d_rounds = int(sum(r["cr"] for r in rows if r["algo"] == "fedgia_d")
+                   // 2)
+    say(f"  launches: {n} (the FedGiA_D rows ran {d_rounds} rounds)")
+    if n["fedgia_update_batched"] != d_rounds or sum(n.values()) != d_rounds:
+        raise SystemExit(f"Table IV logistic: launches {n}, want {d_rounds} "
+                         f"fedgia_update_batched launches and no other")
+    for r in rows:
+        if not math.isfinite(r["obj"]) or (
+                r["algo"].startswith("fedgia") and r["conv_frac"] != 1.0):
+            raise SystemExit(f"Table IV logistic: bad row {r}")
+    launches["fedgia_update_batched"] += n["fedgia_update_batched"]
+    for problem in ("logreg", "ncvx_logreg"):
+        _, _, tol = bench_common.make_problem(problem, 0, "cpu")
+        for algo_key in ("fedgia_d", "fedgia_g"):
+            got, want = (bench_common.run_algorithm(
+                algo_key, problem, 5, collect_history=True, device=dev)
+                for dev in ("cuda", "cpu"))
+            hold_card_to_cpu(got["history"], want["history"], tol,
+                             f"Table IV {problem} {algo_key} k0=5")
+    del rows
+
+    got, n = run_main_path(train, counters, PAPER + ["--unrolled"])
+    say(done_line("paper run, --unrolled (cuda)", got))
+    say(f"  launches: {n}; {per_round_ms(got)!r} ms a replayed round "
+        f"against the collapsed run's {per_round_ms(paper)!r}")
+    if sum(n.values()):
+        raise SystemExit(f"--unrolled launched kernels: {n}")
+    hold_card_to_cpu(cli_history(got), cli_history(paper), PAPER_TOL,
+                     "paper run on the card", sides=("unrolled", "collapsed"))
+    del got
+
+    say(f"kernels_bench (parts 1-2) on {card}:")
+    kernels_bench.main([])
+    say(f"phase 2c took {time.perf_counter() - t_phase!r} s")
+
     # 3. serving path, full width -------------------------------------------
     served = {}
     for argv, mod, name, layers in (
@@ -1080,28 +1317,36 @@ def main():
         f"device us per step) and the device's busy share in a replayed "
         f"run, on {card}:")
     modules = (fedgia_mod, hparams_mod, api_mod)
+    # a torch.profiler session after others in one process can lose
+    # kernels (PERF.md, open questions): a split without the round's
+    # gradient or update kernel, or a replayed busy time under half the
+    # eager round's device work, is profiled again, at most ATTEMPTS
+    # times, every attempt printed
     for what, (res, argv, replayed_us) in profiled.items():
-        split, wall_us = profile_round(res, modules, engine, selection, pt)
-        busy = sum(split.values())
+        for attempt in range(1, ATTEMPTS + 1):
+            split, wall_us = profile_round(res, modules, engine, selection,
+                                           pt)
+            busy = sum(split.values())
+            whole = split["gradient"] > 0 and split["update kernel"] > 0
+            say(f"  {what} round, eager (session {attempt}): " + " ".join(
+                f"{k}={v:.1f}" for k, v in split.items()) +
+                f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, median "
+                f"of 5) idle_share={1 - busy / wall_us:.4f}"
+                + ("" if whole else " [kernels lost by the profiler]"))
+            if whole:
+                break
         if busy <= 0:
             raise SystemExit(f"{what}: the profiler recorded no device time")
-        say(f"  {what} round, eager: " + " ".join(
-            f"{k}={v:.1f}" for k, v in split.items()) +
-            f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, median of 5)"
-            f" idle_share={1 - busy / wall_us:.4f}")
-        algo, batch = res["algorithm"], res["batch"]
-        state = algo.init(algo.model.init(batch["A"].device),
-                          selection.make_generator(1), init_batch=batch)
-        rounds = int(argv[argv.index("--rounds") + 1])
-        tol = float(argv[argv.index("--tol") + 1]) if "--tol" in argv \
-            else 1e-7
-        busy, rr = replay_busy(lambda: engine.run_rounds(
-            algo, state, batch, rounds, tol=tol))
-        per_round = busy / rr.rounds_run
-        say(f"  {what} run, replayed: {rr.rounds_run} rounds, device busy "
-            f"{per_round:.1f} us a round (profiled), against "
-            f"{replayed_us:.1f} us a round unprofiled (phase 2): "
-            f"busy_share={per_round / replayed_us:.4f}")
+        for attempt in range(1, ATTEMPTS + 1):
+            per_round, rr = replayed_busy_us(res, argv, engine, selection)
+            whole = per_round >= 0.5 * busy
+            say(f"  {what} run, replayed (session {attempt}): {rr} rounds, "
+                f"device busy {per_round:.1f} us a round (profiled), against "
+                f"{replayed_us:.1f} us a round unprofiled (phase 2): "
+                f"busy_share={per_round / replayed_us:.4f}"
+                + ("" if whole else " [kernels lost by the profiler]"))
+            if whole:
+                break
         del res["batch"], res["state"]
 
     # 7. result ------------------------------------------------------------

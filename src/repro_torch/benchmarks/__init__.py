@@ -1,2 +1,3 @@
 """The paper's experiment runners on the port (counterparts of the
-top-level `benchmarks/` package's Table IV and Fig. 1-2 runners)."""
+top-level `benchmarks/` package's Table IV, Fig. 1-3, participation and
+kernel runners)."""

@@ -8,9 +8,9 @@ of eq. (35): stop after the first round whose metric is < tol, and that
 round counts.
 
 * Chunked (`scan=True`, the default; the reference's scan driver). The
-  rounds run in chunks on static buffers: for an algorithm that selects
-  clients in the round (FedGiA's ADMM/GD split) the host draws a chunk's
-  selection masks before it, and it reads one flag and one round counter
+  rounds run in chunks on static buffers: where the rounds take a mask
+  (a participation policy, or FedGiA's own ADMM/GD split) the host draws
+  a chunk's masks before it, and it reads one flag and one round counter
   after it. On a CUDA device each chunk length is captured once, before
   the timed window, as a CUDA graph of that many rounds, and a chunk is
   one replay. With tol > 0 each round of a chunk is the body of a
@@ -21,9 +21,21 @@ round counts.
 * Legacy (`scan=False`): one Python loop of `algo.round_flat`, which
   reads the stop metric back to the host every round when tol > 0.
 
-Any of the five algorithms runs through either driver. The baselines
-take no mask (the paper's full participation): neither driver draws for
-them, and their generator is never advanced.
+Any of the five algorithms runs through either driver. Without a
+participation policy the baselines take no mask (the paper's full
+participation): neither driver draws for them, and their generator is
+never advanced. With a policy (`core/selection.py`), both drivers draw
+one mask a round from the policy, from its `init()` state, with the
+rounds of the call counted from 0, and pass it to every algorithm:
+FedGiA's ADMM/GD split (its own generator is then left alone), the
+baselines' participants.
+
+`chunk_size="auto"` tunes the chunk length on the live run, as the
+reference does: the first chunks run the lengths of
+`AUTO_CHUNK_CANDIDATES` in turn (each clipped to the rounds left), each
+is timed, and the fastest per round drives the rest. The rounds executed
+do not depend on the timings, so with tol <= 0 the final state is the
+fixed-chunk run's, bit for bit.
 """
 from __future__ import annotations
 
@@ -53,6 +65,14 @@ class RoundResult:
     # warm-up and CUDA-graph capture of the chunked driver, kept out of
     # wall_s (the reference compiles its chunks before its timed window)
     capture_s: float = 0.0
+    # rounds a chunk of the chunked driver (the fastest candidate under
+    # chunk_size="auto"); 0 for the legacy loop
+    chunk_size: int = 0
+    # host time spent drawing the participation masks, part of wall_s
+    draw_s: float = 0.0
+    # the participation policy's state after the last round that ran
+    # (None without a policy)
+    policy_state: Any = None
 
 
 def flatten_state(algo, state, spec):
@@ -85,16 +105,23 @@ def _stack(values):
     return np.asarray(values, np.float32)
 
 
+AUTO_CHUNK_CANDIDATES = (8, 32, 128)
+
+
 def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                tol_metric: str = "grad_sq_norm", scan: bool = True,
-               chunk_size: int = 0) -> RoundResult:
+               chunk_size=0, participation=None) -> RoundResult:
     """Run up to `num_rounds` communication rounds of `algo`.
 
     tol > 0 enables the paper's stopping rule (eq. 35). `scan=True` runs
     the chunked driver with chunks of `chunk_size` rounds (0: the whole
-    run when tol <= 0, else min(num_rounds, 32), as the reference);
+    run when tol <= 0, else min(num_rounds, 32), as the reference;
+    "auto": timed on the live run, see the module docstring);
     `scan=False` the legacy per-round loop. Both give the same state,
-    history, `rounds_run` and returned generator state.
+    history, `rounds_run`, returned generator state and policy state.
+
+    `participation`: a `core.selection.ParticipationPolicy` whose mask
+    every round takes (None: no mask; FedGiA draws its own split).
 
     The caller's `state` is left as it was: its tensors are copied into
     fresh flat buffers at entry and its generator is copied, so every
@@ -102,28 +129,70 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     off the CPU backend; on the CPU the donated plain version writes in
     place too.
     """
+    auto = isinstance(chunk_size, str)
+    if auto and chunk_size != "auto":
+        raise ValueError(
+            f"chunk_size must be an int or 'auto', got {chunk_size!r}")
+    if auto and not scan:
+        raise ValueError("chunk_size='auto' tunes the chunk length — the "
+                         "legacy per-round loop (scan=False) has no chunks")
     spec = ravel_spec(state["x"])
     flat = flatten_state(algo, state, spec)
     flat["rng"] = copy_generator(state["rng"])
     if num_rounds <= 0:
+        pstate = participation.init() if participation is not None else None
         return RoundResult(unflatten_state(algo, flat, spec), {}, 0, False,
-                           0.0)
+                           0.0, policy_state=pstate)
     if not scan:
         return _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol,
-                                tol_metric)
-    if chunk_size <= 0:
-        chunk_size = num_rounds if tol <= 0 else min(num_rounds, 32)
-    return _Chunked(algo, flat, batch, spec, tol, tol_metric,
-                    min(chunk_size, num_rounds)).run(num_rounds)
+                                tol_metric, participation)
+    plan = []
+    if auto:
+        rest = num_rounds
+        for cand in AUTO_CHUNK_CANDIDATES:
+            if rest <= 0:
+                break
+            plan.append(min(cand, rest))
+            rest -= plan[-1]
+        lengths = set(plan)
+        if tol <= 0 and rest > 0:
+            # whichever candidate wins, the rest runs whole chunks of it
+            # and one partial chunk
+            for cand in set(plan):
+                lengths.add(min(cand, rest))
+                if rest % cand:
+                    lengths.add(rest % cand)
+        chunk = plan[0]
+    else:
+        if chunk_size <= 0:
+            chunk_size = num_rounds if tol <= 0 else min(num_rounds, 32)
+        chunk = min(chunk_size, num_rounds)
+        lengths = {chunk}
+        if tol <= 0 and num_rounds % chunk:
+            # with tol > 0 a converging run may never reach the remainder:
+            # it is captured on use
+            lengths.add(num_rounds % chunk)
+    return _Chunked(algo, flat, batch, spec, tol, tol_metric, max(lengths),
+                    participation).run(num_rounds, chunk, plan, lengths)
 
 
-def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric):
+def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
+                     participation):
     device = flat["x"].device
+    pstate = participation.init() if participation is not None else None
     hist = []
     stopped = False
+    draw = 0.0
     t0 = time.perf_counter()
-    for _ in range(num_rounds):
-        flat, met = algo.round_flat(flat, batch, spec, donate_kernel=True)
+    for i in range(num_rounds):
+        mask = None
+        if participation is not None:
+            td = time.perf_counter()
+            mask, pstate = participation.mask(pstate, i)
+            draw += time.perf_counter() - td
+            mask = mask.to(device)
+        flat, met = algo.round_flat(flat, batch, spec, mask=mask,
+                                    donate_kernel=True)
         hist.append(met)
         if tol > 0 and float(met[tol_metric]) < tol:
             stopped = True
@@ -133,7 +202,7 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric):
     wall = time.perf_counter() - t0
     history = {k: _stack([h[k] for h in hist]) for k in hist[0]}
     return RoundResult(unflatten_state(algo, flat, spec), history, len(hist),
-                       stopped, wall)
+                       stopped, wall, draw_s=draw, policy_state=pstate)
 
 
 def _counts():
@@ -168,18 +237,26 @@ class _Chunked:
     `cr` metric and the learning rates advance inside a replayed graph
     as in the legacy loop (an int would be baked into the capture).
 
-    Masks are drawn and uploaded only for an algorithm that selects in
-    the round (`algo.selects_in_round`); the others get `mask=None`.
+    Masks are drawn and uploaded for every algorithm under a
+    participation policy, and otherwise only for an algorithm that
+    selects in the round (`algo.selects_in_round`, from its own
+    generator); the others get `mask=None`.
 
     Launch counts: a capture makes no launch, so the counts that the
     wrappers add while a chunk is captured are taken back, and each
     replay adds the launches recorded by the rounds that ran in it.
     """
 
-    def __init__(self, algo, flat, batch, spec, tol, tol_metric, chunk):
+    def __init__(self, algo, flat, batch, spec, tol, tol_metric, longest,
+                 participation):
+        """`longest`: the most rounds a chunk of this run can have, which
+        sizes the static mask and history buffers."""
         self.algo, self.batch, self.spec = algo, batch, spec
-        self.tol, self.tol_metric, self.chunk = tol, tol_metric, chunk
+        self.tol, self.tol_metric, self.longest = tol, tol_metric, longest
         self.gen = flat["rng"]
+        self.policy = participation
+        self.pstate = (participation.init() if participation is not None
+                       else None)
         self.st = {k: v for k, v in flat.items() if k != "rng"}
         dev = self.device = self.st["x"].device
         self.cuda = dev.type == "cuda"
@@ -187,11 +264,13 @@ class _Chunked:
                               if isinstance(v, int))
         for k in self.counters:
             self.st[k] = torch.tensor(flat[k], device=dev)
-        self.selects = getattr(algo, "selects_in_round", False)
+        self.selects = (participation is not None
+                        or getattr(algo, "selects_in_round", False))
         if self.selects:
             m = algo.fed.num_clients
-            self.masks = torch.ones((chunk, m), dtype=torch.bool, device=dev)
-            self.host_masks = torch.ones((chunk, m), dtype=torch.bool,
+            self.masks = torch.ones((longest, m), dtype=torch.bool,
+                                    device=dev)
+            self.host_masks = torch.ones((longest, m), dtype=torch.bool,
                                          pin_memory=self.cuda)
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
@@ -288,7 +367,7 @@ class _Chunked:
         _set_counts(counts)
         for k, v in met.items():
             dt = v.dtype if torch.is_tensor(v) else torch.float32
-            self.hist[k] = torch.zeros((self.chunk,), dtype=dt,
+            self.hist[k] = torch.zeros((self.longest,), dtype=dt,
                                        device=self.device)
 
     def _graph(self, length):
@@ -302,50 +381,67 @@ class _Chunked:
         return self.graphs[length]
 
     # ---------------------------------------------------------- the run
-    def _upload_masks(self, length):
-        """Draw the chunk's masks from the run's generator and send them to
-        the static buffer. Returns the generator state before each draw
-        and after the last, so a stop can put back the state at it."""
+    def _upload_masks(self, length, first_round):
+        """Draw the chunk's masks, from the policy (its rounds counted from
+        `first_round`) or else from the run's generator, and send them to
+        the static buffer. Returns the draw state before each round and
+        after the last, so a stop can put back the state at it, and the
+        host seconds the draws took."""
         if self.cuda:
             self.uploaded.synchronize()  # the last upload has left
         m, alpha = self.masks.shape[1], self.algo.fed.alpha
+        t0 = time.perf_counter()
         states = []
         for i in range(length):
-            states.append(self.gen.get_state())
-            self.host_masks[i] = selection.selection_mask(self.gen, m, alpha)
-        states.append(self.gen.get_state())
+            if self.policy is None:
+                states.append(self.gen.get_state())
+                self.host_masks[i] = selection.selection_mask(self.gen, m,
+                                                              alpha)
+            else:
+                states.append(self.pstate)
+                self.host_masks[i], self.pstate = self.policy.mask(
+                    self.pstate, first_round + i)
+        states.append(self.gen.get_state() if self.policy is None
+                      else self.pstate)
+        draw = time.perf_counter() - t0
         self.masks[:length].copy_(self.host_masks[:length],
                                   non_blocking=self.cuda)
         if self.cuda:
             self.uploaded.record()
-        return states
+        return states, draw
 
-    def run(self, num_rounds):
+    def run(self, num_rounds, chunk, plan, lengths):
+        """Run the rounds in chunks of `chunk`, after the timed chunks of
+        `plan` (chunk_size="auto": the fastest per round among them then
+        sets `chunk`). On the card each length of `lengths` is captured
+        before the timed window."""
         t0 = time.perf_counter()
         self._warm_up()
         if self.cuda:
-            lengths = {self.chunk}
-            if self.tol <= 0 and num_rounds % self.chunk:
-                lengths.add(num_rounds % self.chunk)
-            for length in lengths:  # a chunk that tol > 0 may never reach
-                self._graph(length)  # (the remainder) is captured on use
+            for length in lengths:  # others (a remainder that tol > 0 may
+                self._graph(length)  # never reach) are captured on use
             torch.cuda.synchronize(self.device)
         capture = time.perf_counter() - t0
 
-        chunks, rounds_run, stopped = [], 0, False
+        plan, timings = list(plan), []
+        chunks, rounds_run, stopped, draw = [], 0, False, 0.0
         t0 = time.perf_counter()
         while rounds_run < num_rounds and not stopped:
-            length = min(self.chunk, num_rounds - rounds_run)
+            timed = bool(plan)
+            length = plan.pop(0) if timed else min(chunk,
+                                                   num_rounds - rounds_run)
+            tc = time.perf_counter()
             if self.selects:
-                states = self._upload_masks(length)
+                states, dt = self._upload_masks(length, rounds_run)
+                draw += dt
             if self.cuda:
-                tc = time.perf_counter()
+                tg = time.perf_counter()
                 fresh = length not in self.graphs
                 graph, per_round = self._graph(length)
                 if fresh:
                     torch.cuda.synchronize(self.device)
-                    capture += time.perf_counter() - tc
-                    t0 += time.perf_counter() - tc
+                    capture += time.perf_counter() - tg
+                    t0 += time.perf_counter() - tg
                 graph.replay()
             else:
                 per_round = self._program(length, self._eager_unless_done)
@@ -353,13 +449,21 @@ class _Chunked:
             if self.tol > 0:  # the chunk's one read back to the host
                 live = int(self.count) - rounds_run
                 stopped = bool(self.done)
+            if timed:
+                if self.cuda:
+                    torch.cuda.synchronize(self.device)
+                timings.append(((time.perf_counter() - tc) / length, length))
+                chunk = min(timings)[1]
             if self.cuda:
                 for d in per_round[:live]:
                     _add_counts(d)
             chunks.append({k: v[:live].clone() for k, v in self.hist.items()})
             rounds_run += live
             if stopped and self.selects:
-                self.gen.set_state(states[live])
+                if self.policy is None:
+                    self.gen.set_state(states[live])
+                else:
+                    self.pstate = states[live]
         if self.cuda:
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -370,4 +474,6 @@ class _Chunked:
         for k in self.counters:
             flat[k] = int(self.st[k])
         return RoundResult(unflatten_state(self.algo, flat, self.spec),
-                           history, rounds_run, stopped, wall, capture)
+                           history, rounds_run, stopped, wall, capture,
+                           chunk_size=chunk, draw_s=draw,
+                           policy_state=self.pstate)

@@ -1,15 +1,33 @@
-"""Client selection: which clients take the inexact-ADMM branch each round.
+"""Client participation: who runs which branch each communication round.
 
-Counterpart of `num_selected` / `selection_mask` in
-`repro/core/selection.py`. The paper draws |C| = alpha*m clients uniformly
-without replacement each round (§V.B). JAX's threefry stream cannot be
-reproduced in torch, so the draw comes from a CPU `torch.Generator`
-seeded by the run's seed: the card and the CPU pick the same clients
-every round, and the mask is moved to the run's device once per round.
+Counterpart of `repro/core/selection.py`. The paper draws |C| = alpha*m
+clients uniformly without replacement each round (§V.B). JAX's threefry
+stream cannot be reproduced in torch, so draws come from CPU
+`torch.Generator`s seeded by the run's seed: the card and the CPU pick
+the same clients every round.
+
+Two sources of masks:
+
+* `selection_mask`: FedGiA's own ADMM/GD split, drawn in the round from
+  the state's generator when the engine passes no mask.
+* A `ParticipationPolicy`, passed to `core/engine.py::run_rounds`: the
+  engine draws a fresh (m,) mask on the host every round and hands it to
+  every algorithm's `round_flat(mask=...)` (FedGiA's split; the
+  baselines freeze masked-out clients). `init()` gives the policy's
+  state and `mask(state, round_idx)` the round's mask and the next
+  state; `mask` never changes its argument, so the engine can put back
+  the state of any round (the eq. (35) stop). Cyclic and availability
+  policies are pure functions of `round_idx`; the straggler and periodic
+  traces are the reference's bit for bit (numpy draws).
 """
 from __future__ import annotations
 
+from typing import Any, Optional, Tuple
+
+import numpy as np
 import torch
+
+MaskAndState = Tuple[torch.Tensor, Any]
 
 
 def make_generator(seed: int) -> torch.Generator:
@@ -38,3 +56,196 @@ def selection_mask(gen: torch.Generator, m: int, alpha: float,
         return torch.ones((m,), dtype=torch.bool, device=device)
     ranks = torch.randperm(m, generator=gen)
     return (ranks < n_sel).to(device)
+
+
+def _generator_at(state: torch.Tensor) -> torch.Generator:
+    gen = torch.Generator()
+    gen.set_state(state)
+    return gen
+
+
+class ParticipationPolicy:
+    """Base: full participation (a mask of ones), stateless. Masks are
+    (m,) bool CPU tensors."""
+
+    name = "full"
+
+    def __init__(self, m: int, alpha: float = 1.0):
+        if m < 1:
+            raise ValueError("need at least one client")
+        self.m = m
+        self.alpha = alpha
+
+    @property
+    def n_selected(self) -> int:
+        return num_selected(self.m, self.alpha)
+
+    @property
+    def active_capacity(self) -> int:
+        """Static upper bound on a round's participant count: n_selected
+        for the fixed-cardinality policies (uniform, weighted, cyclic), m
+        for the others."""
+        return self.m
+
+    def init(self) -> Any:
+        return ()
+
+    def mask(self, pstate, round_idx: int) -> MaskAndState:
+        return torch.ones((self.m,), dtype=torch.bool), pstate
+
+
+class UniformParticipation(ParticipationPolicy):
+    """Paper §V.B: alpha*m clients uniformly without replacement a round.
+    The state is the state of a CPU generator seeded from `seed`, so the
+    mask sequence is a function of `seed` alone."""
+
+    name = "uniform"
+
+    def __init__(self, m: int, alpha: float, seed: int = 0):
+        super().__init__(m, alpha)
+        self.seed = seed
+
+    @property
+    def active_capacity(self) -> int:
+        return self.n_selected
+
+    def init(self):
+        return make_generator(self.seed).get_state()
+
+    def mask(self, pstate, round_idx):
+        gen = _generator_at(pstate)
+        return selection_mask(gen, self.m, self.alpha), gen.get_state()
+
+
+class WeightedParticipation(ParticipationPolicy):
+    """Weighted sampling without replacement (Gumbel top-k): Gumbel noise
+    on the log-weights, the top |C| kept. `weights` are per-client
+    sampling weights (e.g. local sample counts)."""
+
+    name = "weighted"
+
+    def __init__(self, m: int, alpha: float, weights, seed: int = 0):
+        super().__init__(m, alpha)
+        w = torch.as_tensor(np.asarray(weights, np.float32))
+        if w.shape != (m,):
+            raise ValueError(f"weights must be (m,)={m}, got "
+                             f"{tuple(w.shape)}")
+        self.log_w = torch.log(torch.clamp_min(w, 1e-30))
+        self.seed = seed
+
+    @property
+    def active_capacity(self) -> int:
+        return self.n_selected
+
+    def init(self):
+        return make_generator(self.seed).get_state()
+
+    def mask(self, pstate, round_idx):
+        n_sel = self.n_selected
+        if n_sel == self.m:
+            return torch.ones((self.m,), dtype=torch.bool), pstate
+        gen = _generator_at(pstate)
+        # u in [tiny, 1), as jax.random.gumbel draws it: u = 0 would give
+        # an infinite key
+        u = torch.rand((self.m,), generator=gen).clamp_min_(
+            torch.finfo(torch.float32).tiny)
+        z = self.log_w - torch.log(-torch.log(u))
+        # the n_sel-th largest key (the reference's top_k(z, n_sel)[0][-1]);
+        # kthvalue finds it a few times faster than a top-k sort
+        kth = torch.kthvalue(z, self.m - n_sel + 1).values
+        return z >= kth, gen.get_state()
+
+
+class CyclicParticipation(ParticipationPolicy):
+    """Round-robin blocks of |C| clients: round t selects clients
+    [t*|C|, t*|C| + |C|) mod m, so every client runs once a
+    ceil(m/|C|)-round cycle (up to the wrap-around overlap)."""
+
+    name = "cyclic"
+
+    @property
+    def active_capacity(self) -> int:
+        return self.n_selected
+
+    def mask(self, pstate, round_idx):
+        n_sel, m = self.n_selected, self.m
+        start = (int(round_idx) * n_sel) % m
+        mask = torch.zeros((m,), dtype=torch.bool)
+        mask[start:start + n_sel] = True
+        mask[:max(0, start + n_sel - m)] = True  # the wrap-around
+        return mask, pstate
+
+
+class AvailabilityParticipation(ParticipationPolicy):
+    """Replay a (T, m) bool availability trace: round t uses row t mod T.
+    A row with no client falls back to every client, so the aggregation
+    never divides by zero. `alpha` is not used."""
+
+    name = "availability"
+
+    def __init__(self, m: int, trace):
+        super().__init__(m, alpha=1.0)
+        tr = torch.as_tensor(np.asarray(trace, bool))
+        if tr.dim() != 2 or tr.shape[1] != m:
+            raise ValueError(f"trace must be (T, m={m}), got "
+                             f"{tuple(tr.shape)}")
+        self.trace = tr
+
+    @classmethod
+    def from_dropout(cls, m: int, drop_prob: float, horizon: int,
+                     seed: int = 0) -> "AvailabilityParticipation":
+        """i.i.d. stragglers: each client unavailable with probability
+        `drop_prob` each round, frozen into a trace (the reference's numpy
+        draw, so the same trace)."""
+        rng = np.random.default_rng(seed)
+        return cls(m, rng.random((horizon, m)) >= drop_prob)
+
+    @classmethod
+    def from_periods(cls, m: int, periods, horizon: int = 256
+                     ) -> "AvailabilityParticipation":
+        """Deterministic heterogeneous-speed arrivals: client i takes part
+        every `periods[i]` rounds, first at round 0. `horizon` must cover
+        the run (the trace replays modulo its length)."""
+        p = np.asarray(periods, np.int64)
+        if p.shape != (m,):
+            raise ValueError(f"periods must be (m={m},), got {p.shape}")
+        if not (p >= 1).all():
+            raise ValueError(f"periods must be >= 1, got {p}")
+        t = np.arange(horizon)[:, None]
+        return cls(m, (t % p[None, :]) == 0)
+
+    def mask(self, pstate, round_idx):
+        row = self.trace[int(round_idx) % self.trace.shape[0]]
+        if not bool(row.any()):
+            row = torch.ones_like(row)
+        return row.clone(), pstate
+
+
+POLICIES = ("full", "uniform", "weighted", "cyclic", "straggler", "periodic")
+
+
+def make_policy(kind: str, m: int, alpha: float = 1.0, *, seed: int = 0,
+                weights=None, drop_prob: float = 0.2, horizon: int = 256,
+                periods=None) -> Optional[ParticipationPolicy]:
+    """CLI-level factory. `kind="full"` returns None: the engine then
+    passes no mask (FedGiA draws its own split, the baselines run every
+    client). `weighted` defaults to equal weights, `periodic` to periods
+    cycling 1..4 over the clients."""
+    if kind == "full":
+        return None
+    if kind == "uniform":
+        return UniformParticipation(m, alpha, seed=seed)
+    if kind == "weighted":
+        if weights is None:
+            weights = np.ones((m,), np.float32)
+        return WeightedParticipation(m, alpha, weights, seed=seed)
+    if kind == "cyclic":
+        return CyclicParticipation(m, alpha)
+    if kind == "straggler":
+        return AvailabilityParticipation.from_dropout(m, drop_prob, horizon,
+                                                      seed=seed)
+    if kind == "periodic":
+        if periods is None:
+            periods = 1 + (np.arange(m) % 4)
+        return AvailabilityParticipation.from_periods(m, periods, horizon)
+    raise KeyError(f"unknown participation policy {kind!r}: {POLICIES}")

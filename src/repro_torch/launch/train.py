@@ -15,8 +15,15 @@ policy.
 Rounds run in chunks (`core/engine.py`): on the card each chunk length is
 captured once as a CUDA graph and replayed, with the eq. (35) stop
 checked on the device and read by the host once a chunk. `--chunk N`
-sets the rounds a chunk (0: the reference's sizing); `--no-scan` runs the
-legacy per-round loop instead.
+sets the rounds a chunk (0: the reference's sizing; `auto` times the
+candidate lengths 8, 32 and 128 on the live run and keeps the fastest);
+`--no-scan` runs the legacy per-round loop instead.
+
+`--participation` moves client selection into the engine: a policy of
+`core/selection.py` draws a mask every round on the host and every
+algorithm takes it (FedGiA as its ADMM/GD split, the baselines as the
+round's participants). `--unrolled` runs FedGiA's k0-step ADMM loop
+instead of the closed form, and so launches no kernel.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import sys
 from repro_torch.config import ALGORITHMS, FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import make_generator
+from repro_torch.core.selection import POLICIES, make_generator, make_policy
 from repro_torch.data import linreg_noniid, logreg_data, to_torch
 from repro_torch.device import resolve_device
 from repro_torch.models import (
@@ -69,20 +76,82 @@ def build_problem(args, device):
     return model, model.loss, model.init(device), to_torch(raw, device)
 
 
+def _parse_csv(value: str, n: int, flag: str, cast):
+    try:
+        items = [cast(v) for v in value.split(",")]
+    except ValueError as e:
+        raise SystemExit(f"{flag}: {e}")
+    if len(items) != n:
+        raise SystemExit(f"{flag} needs {n} values, got {len(items)}")
+    return items
+
+
+def validate_flags(args) -> dict:
+    """Cross-flag checks of the engine flags, with the reference's errors
+    (SystemExit): a `--chunk` that is neither an int nor "auto", `--chunk
+    auto` with `--no-scan`, `--client-weights` without `--participation
+    weighted`, `--arrival-periods` without `--participation periodic`,
+    and a per-client list whose length is not `--clients`. Returns the
+    chunk size (int or "auto") and the parsed lists (or None)."""
+    chunk = args.chunk
+    if chunk != "auto":
+        try:
+            chunk = int(chunk)
+        except ValueError:
+            raise SystemExit(
+                f"--chunk must be an integer or 'auto', got {chunk!r}")
+    elif args.no_scan:
+        raise SystemExit("--chunk auto tunes the scan chunk length and "
+                         "cannot be combined with --no-scan")
+    weights = periods = None
+    if args.client_weights:
+        if args.participation != "weighted":
+            raise SystemExit(
+                "--client-weights requires --participation weighted")
+        weights = _parse_csv(args.client_weights, args.clients,
+                             "--client-weights", float)
+    if args.arrival_periods:
+        if args.participation != "periodic":
+            raise SystemExit(
+                "--arrival-periods requires --participation periodic")
+        periods = _parse_csv(args.arrival_periods, args.clients,
+                             "--arrival-periods", int)
+    return {"chunk": chunk, "weights": weights, "periods": periods}
+
+
 def train(args) -> dict:
     """Run one training job. Returns the summary, plus the run's algorithm
     object, client batch and final state (`algorithm`, `batch`, `state`)
     for callers that go on from it."""
+    parsed = validate_flags(args)
     device = resolve_device(args.device)
     model, loss_fn, params0, batch = build_problem(args, device)
     fed = FedConfig(algorithm=args.algo, num_clients=args.clients, k0=args.k0,
                     alpha=args.alpha, sigma_t=args.sigma_t,
-                    h_policy=args.h_policy, lr=args.lr)
+                    h_policy=args.h_policy, collapsed=not args.unrolled,
+                    lr=args.lr)
     algo = make_algorithm(fed, loss_fn, model=model)
     state = algo.init(params0, make_generator(args.seed + 1),
                       init_batch=batch)
+    if args.unrolled and args.algo == "fedgia":
+        log.info("unrolled FedGiA round: the k0-step ADMM loop in torch "
+                 "(no fused update kernel)")
+    policy = make_policy(args.participation, args.clients, args.alpha,
+                         seed=args.seed, weights=parsed["weights"],
+                         drop_prob=args.drop_prob,
+                         horizon=max(args.rounds, 1),
+                         periods=parsed["periods"])
+    if policy is not None:
+        if args.participation in ("straggler", "periodic"):
+            log.info("participation: %s policy (per-round varying |C|), "
+                     "m=%d", args.participation, args.clients)
+        else:
+            log.info("participation: %s policy, alpha=%.2f (|C|=%d of "
+                     "m=%d)", args.participation, args.alpha,
+                     policy.n_selected, args.clients)
     res = run_rounds(algo, state, batch, args.rounds, tol=args.tol,
-                     scan=not args.no_scan, chunk_size=args.chunk)
+                     scan=not args.no_scan, chunk_size=parsed["chunk"],
+                     participation=policy)
     history = [
         {"round": r, "f": float(res.history["f_xbar"][r]),
          "err": float(res.history["grad_sq_norm"][r])}
@@ -104,14 +173,21 @@ def train(args) -> dict:
         "final_err": history[-1]["err"],
         "wall_s": res.wall_s,
         "capture_s": res.capture_s,
+        "chunk_size": res.chunk_size,
+        "draw_s": res.draw_s,
         "history": history,
         "algorithm": algo,
         "batch": batch,
         "state": res.state,
     }
     if not args.no_scan:
-        log.info("chunked driver: warm-up and capture %.3fs (outside the "
-                 "rounds' time)", res.capture_s)
+        log.info("chunked driver: %d rounds a chunk%s; warm-up and capture "
+                 "%.3fs (outside the rounds' time)", res.chunk_size,
+                 " (auto)" if parsed["chunk"] == "auto" else "",
+                 res.capture_s)
+    if policy is not None:
+        log.info("mask draws on the host: %.3fs of the rounds' time",
+                 res.draw_s)
     log.info(
         "done: %d rounds (CR=%d) in %.2fs  f=%.6f err=%.2e",
         result["rounds"], result["cr"], res.wall_s, result["final_f"],
@@ -142,10 +218,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-scan", action="store_true",
                     help="legacy per-round loop (one host read a round "
                          "when --tol > 0)")
-    ap.add_argument("--chunk", type=int, default=0,
+    ap.add_argument("--chunk", default="0",
                     help="rounds a chunk, one CUDA-graph replay each on "
                          "the card (0 = the whole run when --tol <= 0, "
-                         "else 32)")
+                         "else 32), or 'auto' to time the candidate "
+                         "lengths (8/32/128) on the live run and keep the "
+                         "fastest")
+    ap.add_argument("--unrolled", action="store_true",
+                    help="FedGiA's k0-step ADMM loop instead of the "
+                         "closed-form round (no kernel)")
+    ap.add_argument("--participation", default="full", choices=POLICIES,
+                    help="engine-level participation policy (full = no "
+                         "engine mask: FedGiA draws its own split, the "
+                         "baselines run every client)")
+    ap.add_argument("--client-weights", default="",
+                    help="comma-separated per-client sampling weights "
+                         "(--participation weighted)")
+    ap.add_argument("--drop-prob", type=float, default=0.2,
+                    help="per-round dropout probability "
+                         "(--participation straggler)")
+    ap.add_argument("--arrival-periods", default="",
+                    help="comma-separated per-client arrival periods in "
+                         "rounds (--participation periodic)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
