@@ -71,6 +71,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    * the paper run with `--unrolled`: no launch, and the collapsed run's
      rounds and f (rel 1e-5);
    * `repro_torch.benchmarks.kernels_bench` (CUDA-event times).
+2d. The client stores, counts reset just before each run and read just
+   after:
+   * all five algorithms at the population size (20 rounds, tol 0, on the
+     population run's own data) under uniform alpha 0.1 (a 1638-row
+     tile), FedPD at lr 0.001 (it diverges at 0.05 there):
+     `store="active"` against `store="dense"` in the chunked driver,
+     final states compared by bit pattern (held to STATE_RTOL where cuBLAS
+     picks another algorithm for the tile's batch, and said so); FedGiA
+     launches `fedgia_update_batched` once a round under each store;
+     `store="offload"` for FedPD, SCAFFOLD and FedGiA, bitwise the active
+     run, with its host copy time and extras; `aggregate="packed"`
+     against the dense aggregate for FedAvg and SCAFFOLD (normwise
+     PACKED_RTOL: another order of the sum);
+     the ms a round of each store with the host's draws and packs apart;
+   * the paper run under `--participation uniform --alpha 0.25 --store
+     active` for FedGiA (the donated kernel once a round) and SCAFFOLD,
+     card against CPU;
+   * `repro_torch.benchmarks.engine_bench` at m = 10^6, alpha = 10^-4:
+     FedAvg active and FedPD offload + packed rounds/s, and the offload
+     tile round's device peak below the 512 MB (m, N) lambda buffer.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each):
@@ -155,6 +175,16 @@ POPULATION = ["--clients", "16384", "--dim", "1024", "--samples", "262144",
 # IV.1); at the default 0.15 a lone client diverges
 ONE_CLIENT = ["--clients", "1", "--dim", "1024", "--samples", "4096",
               "--sigma-t", "6", "--rounds", "5", "--tol", "0"]
+
+# phase 2d: the client stores at the population size under uniform alpha
+# 0.1 (1638 of 16384 clients a round). FedPD's lr: its population run
+# diverges at the runners' 0.05 (ROADMAP queue 3 k: lr·L_max must stay
+# below 2, and the clients' L reach about 1250), so it takes 0.001 here
+STORE_ALPHA = 0.1
+STORE_FEDPD_LR = 0.001
+# packed against dense aggregate: the sum of 1638 rows in another order,
+# about sqrt(1638)·eps = 5e-6 a round, over 20 rounds
+PACKED_RTOL = 1e-4
 
 # full width; the warm-up run before each takes the same prefill, gen 2
 TINYLLAMA = ["--arch", "tinyllama-1.1b", "--batch", "4", "--prompt-len",
@@ -480,11 +510,13 @@ def per_round_ms(res):
     return res["wall_s"] / res["rounds"] * 1e3
 
 
-def hold_replayed_to_eager(a, b, what, bitwise_only=False):
-    """Hold the final state of a replayed run to the eager run's: every
-    model-shaped entry, compared by bit pattern (so that a NaN or an inf
-    is compared too); bitwise is expected, and otherwise the states are
-    held to STATE_RTOL / STATE_ATOL, or fail with `bitwise_only`."""
+def hold_replayed_to_eager(a, b, what, bitwise_only=False,
+                           label="replayed vs eager"):
+    """Hold the final state of a replayed run to the eager run's (or of
+    the two runs that `label` names): every model-shaped entry, compared
+    by bit pattern (so that a NaN or an inf is compared too); bitwise is
+    expected, and otherwise the states are held to STATE_RTOL /
+    STATE_ATOL, or fail with `bitwise_only`."""
     diffs, finite = {}, True
     for k, tree in a.items():
         if not isinstance(tree, dict):
@@ -496,9 +528,9 @@ def hold_replayed_to_eager(a, b, what, bitwise_only=False):
             finite = finite and bool(torch.isfinite(x).all())
             torch.testing.assert_close(
                 x, y, rtol=STATE_RTOL, atol=STATE_ATOL, equal_nan=True,
-                msg=lambda m: f"{what}: replayed vs eager {k}: {m}")
+                msg=lambda m: f"{what}: {label} {k}: {m}")
     bitwise = not any(diffs.values())
-    say(f"  replayed vs eager final state: "
+    say(f"  {label} final state: "
         f"{'bitwise equal' if bitwise else 'NOT bitwise'} (differing bit "
         f"patterns {diffs}; held to rtol {STATE_RTOL}, atol {STATE_ATOL} "
         f"otherwise); every value finite: {finite}")
@@ -816,6 +848,153 @@ def card_vs_cpu(serve, Transformer, get_config, arch, counters):
     say(f"  {cfg.name} fp32: tokens equal ({want['tokens'][0].tolist()}), "
         f"logits max_abs_err={err!r} (tolerance rtol=atol={PARITY_TOL}); "
         f"card launches {n}")
+
+
+def client_store_phase(pop, train, counters, launches, card):
+    """Phase 2d: the client stores at the population size on the
+    population run's data (`pop`), the paper run under `--store active`
+    against the CPU, and engine_bench's million-client rows. Adds the
+    launches of its runs to `launches`."""
+    from repro_torch.benchmarks import common as bench_common
+    from repro_torch.benchmarks import engine_bench
+    from repro_torch.config import FedConfig
+    from repro_torch.core import api as api_mod
+    from repro_torch.core import engine, selection
+
+    t_phase = time.perf_counter()
+    m = pop["batch"]["A"].shape[0]
+    rounds = int(POPULATION[POPULATION.index("--rounds") + 1])
+    model, batch = pop["algorithm"].model, pop["batch"]
+    say(f"client stores at the population size (m={m}), uniform alpha "
+        f"{STORE_ALPHA}, {rounds} rounds, tol 0, replayed (offload: its "
+        f"host loop), on {card}; FedPD at lr {STORE_FEDPD_LR}:")
+    per_round = {}
+    for name in ("fedgia",) + BASELINES:
+        if name == "fedgia":
+            algo = pop["algorithm"]  # diag_ema H
+        else:
+            hp = dict(bench_common.ALGO_HPARAMS[name])
+            if name == "fedpd":
+                hp["lr"] = STORE_FEDPD_LR
+            algo = api_mod.make_algorithm(
+                FedConfig(algorithm=name, num_clients=m, **hp), model.loss,
+                model=model)
+        state = algo.init(model.init(batch["A"].device),
+                          selection.make_generator(1), init_batch=batch)
+        cap = selection.make_policy("uniform", m, STORE_ALPHA).active_capacity
+        stores = ["dense", "active"]
+        if name in ("fedgia", "fedpd", "scaffold"):
+            stores.append("offload")
+        out = {}
+        for store in stores:
+            reset_counts(counters)
+            res = engine.run_rounds(
+                algo, state, batch, rounds, store=store,
+                participation=selection.make_policy("uniform", m,
+                                                    STORE_ALPHA))
+            n = read_counts(counters)
+            extra = ""
+            if store == "offload":
+                extra = (f"; tile copies on the host {res.extras['copy_s']!r}"
+                         f" s, extras {res.extras}")
+            say(f"  {name} store={store}: {res.rounds_run} rounds, "
+                f"{res.wall_s / rounds * 1e3!r} ms a round (capture "
+                f"{res.capture_s!r} s apart), of which the host's mask "
+                f"draws{'' if store == 'dense' else ' and packs'} "
+                f"{res.draw_s / rounds * 1e3!r} ms; f="
+                f"{float(res.history['f_xbar'][-1])!r}; launches {n}{extra}")
+            want = rounds if name == "fedgia" else 0
+            if res.rounds_run != rounds or sum(n.values()) != want or (
+                    want and n["fedgia_update_batched"] != want):
+                raise SystemExit(f"{name} store={store}: {res.rounds_run} "
+                                 f"rounds, launches {n}, want {want}")
+            launches["fedgia_update_batched"] += n["fedgia_update_batched"]
+            out[store] = res
+        sel = out["active"].history["selected"]
+        if not (sel == cap).all():
+            raise SystemExit(f"{name}: selected {sel}, want {cap} a round")
+        # cuBLAS may pick another algorithm for a (capacity, ...) batch
+        # than for an (m, ...) one: then the states are held to
+        # STATE_RTOL, and the line says so
+        hold_replayed_to_eager(out["active"].state, out["dense"].state,
+                               f"{name} active vs dense",
+                               label="active vs dense")
+        if "offload" in out:
+            hold_replayed_to_eager(out["offload"].state, out["active"].state,
+                                   f"{name} offload vs active",
+                                   bitwise_only=True,
+                                   label="offload vs active")
+        per_round[name] = [out[k].wall_s / rounds * 1e3 for k in stores]
+        if name in ("fedavg", "scaffold"):
+            packed = engine.run_rounds(
+                algo, state, batch, rounds, store="active",
+                aggregate="packed",
+                participation=selection.make_policy("uniform", m,
+                                                    STORE_ALPHA))
+            # another order of the eq. (11) sum, and the server variate's
+            # mean cancels: each final state is held normwise
+            errs = {}
+            for k, tree in out["active"].state.items():
+                if isinstance(tree, dict):
+                    for leaf, want in tree.items():
+                        d = packed.state[k][leaf] - want
+                        rel = float(d.norm() / want.norm().clamp_min(1e-30))
+                        errs[f"{k}.{leaf}"] = (rel, float(d.abs().max()))
+                        if not rel <= PACKED_RTOL:
+                            raise SystemExit(
+                                f"{name} packed vs dense aggregate "
+                                f"{k}.{leaf}: normwise {rel!r} > "
+                                f"{PACKED_RTOL}")
+            say(f"  {name} aggregate=packed: "
+                f"{packed.wall_s / rounds * 1e3!r} ms a round; final state "
+                f"against the dense aggregate's, (normwise relative, "
+                f"largest absolute) difference {errs}, held to normwise "
+                f"{PACKED_RTOL}")
+            del packed
+        del out, state
+    say("  ms a round (dense, active[, offload]): " + ", ".join(
+        f"{k} " + " / ".join(repr(t) for t in v)
+        for k, v in per_round.items()))
+
+    for name in ("fedgia", "scaffold"):
+        argv = PAPER + ["--participation", "uniform", "--alpha", "0.25",
+                        "--store", "active"]
+        if name == "scaffold":
+            argv += ["--algo", "scaffold", "--lr",
+                     str(bench_common.ALGO_HPARAMS["scaffold"]["lr"])]
+        got, n = run_main_path(train, counters, argv)
+        say(done_line(f"{name} paper run, uniform 0.25, --store active "
+                      f"(cuda)", got))
+        say(f"  launches: {n}; mask draws and packs {got['draw_s']!r} s on "
+            f"the host")
+        want = got["rounds"] if name == "fedgia" else 0
+        if sum(n.values()) != want or (
+                want and n["fedgia_update_batched_donated"] != want):
+            raise SystemExit(f"{name} paper run, --store active: launches "
+                             f"{n}, want {want}")
+        launches["fedgia_update_batched_donated"] += \
+            n["fedgia_update_batched_donated"]
+        cpu = train.main(argv + ["--device", "cpu"])
+        card_vs_cpu_run(got, cpu, f"{name} paper run under --store active")
+        del got, cpu
+
+    say(f"engine_bench at m = {engine_bench.M_1M}, alpha "
+        f"{engine_bench.ALPHA_1M}, n = {engine_bench.N_FEATURES}, "
+        f"{engine_bench.ROUNDS_1M} rounds, on {card}:")
+    reset_counts(counters)
+    rows = {"active_1m": engine_bench.run_active_1m("cuda"),
+            "offload_1m": engine_bench.run_offload_1m("cuda")}
+    n = read_counts(counters)
+    for key, row in rows.items():
+        say(f"  {key}: {json.dumps(row)}")
+    if sum(n.values()):
+        raise SystemExit(f"engine_bench launched kernels: {n}")
+    off = rows["offload_1m"]
+    say(f"  offload_1m: {off['rounds_per_s']!r} rounds/s; the tile round's "
+        f"device peak {off['peak_device_bytes']} bytes, below the "
+        f"{off['dense_resident_bytes']} bytes of the dense store's lambda "
+        f"buffer; {off['host_resident_bytes']} bytes in host memory")
+    say(f"phase 2d took {time.perf_counter() - t_phase!r} s")
 
 
 def main():
@@ -1155,6 +1334,9 @@ def main():
     say(f"kernels_bench (parts 1-2) on {card}:")
     kernels_bench.main([])
     say(f"phase 2c took {time.perf_counter() - t_phase!r} s")
+
+    # 2d. client stores ---------------------------------------------------
+    client_store_phase(pop, train, counters, launches, card)
 
     # 3. serving path, full width -------------------------------------------
     served = {}

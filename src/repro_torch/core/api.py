@@ -3,6 +3,8 @@ single-device subset of `repro/core/api.py`).
 
 Client-stacked tensors carry the client index on axis 0. The reference's
 sharded reductions (psum over a mesh axis) have no counterpart here yet.
+The `_active` twins reduce a round's packed participant tile
+(`store="active"` / `"offload"`, `utils.pytree.ActiveSet`).
 """
 from __future__ import annotations
 
@@ -56,16 +58,21 @@ def masked_update(mask: torch.Tensor, new: torch.Tensor,
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
-def flat_grad_sq_norm(grads_flat: torch.Tensor, spec) -> torch.Tensor:
-    """The `grad_sq_norm` diagnostic ||(1/m) Σ_i ∇f_i||² over the flat
-    (m, N) gradient buffer: leaf by leaf over the unraveled mean, as the
-    reference accumulates it."""
-    leaves = spec.unravel(client_mean(grads_flat))
-    total = torch.zeros((), dtype=torch.float32, device=grads_flat.device)
+def _flat_sq_norm(vec: torch.Tensor, spec) -> torch.Tensor:
+    """||v||² of a flat (N,) vector, leaf by leaf over its unraveled
+    dict, as the reference accumulates it."""
+    leaves = spec.unravel(vec)
+    total = torch.zeros((), dtype=torch.float32, device=vec.device)
     for k in spec.keys:
         v = leaves[k].reshape(-1)
         total = total + torch.dot(v, v)
     return total
+
+
+def flat_grad_sq_norm(grads_flat: torch.Tensor, spec) -> torch.Tensor:
+    """The `grad_sq_norm` diagnostic ||(1/m) Σ_i ∇f_i||² over the flat
+    (m, N) gradient buffer."""
+    return _flat_sq_norm(client_mean(grads_flat), spec)
 
 
 def flat_round_aggregate(contrib: torch.Tensor, grads: torch.Tensor,
@@ -84,6 +91,64 @@ def flat_round_aggregate(contrib: torch.Tensor, grads: torch.Tensor,
            torch.mean(losses), torch.sum(sel_vec))
     if extra_mean is not None:
         out = out + (torch.mean(extra_mean, dim=0),)
+    return out
+
+
+def flat_grad_sq_norm_active(grads_tile: torch.Tensor, active,
+                             spec) -> torch.Tensor:
+    """The participant-gradient diagnostic ||(1/|C|) Σ_{i∈C} ∇f_i||² over
+    the packed (capacity, N) gradient tile (`utils.pytree.ActiveSet`).
+    This is the active store's `grad_sq_norm`: the server never contacted
+    the frozen clients this round, so the eq. (35) stop gates on the
+    participants' mean gradient. Padding rows are zeroed."""
+    g = active.zero_invalid(grads_tile)
+    return _flat_sq_norm(torch.sum(g, dim=0) / active.count.to(g.dtype),
+                         spec)
+
+
+def flat_round_aggregate_active(contrib_tile: torch.Tensor,
+                                grads_tile: torch.Tensor,
+                                losses_tile: torch.Tensor, active, spec,
+                                extra_mean_tile: Optional[torch.Tensor] = None):
+    """Eq. (11) and the diagnostics over the PACKED participant tile, the
+    active-store twin of :func:`flat_round_aggregate` (every tile
+    (capacity, ...) in `active.idx` row order).
+
+    By default the tile is first SCATTERED back into a zero (m, N)
+    buffer, and the dense masked expression (`client_mean(mask=...)`)
+    runs on it: the same input bits through the same reduction, so the
+    aggregate and the `extra` rider are BITWISE the dense store's. The
+    active store's saving is then the per-client work (trajectories and
+    gradients over capacity rows, not m), not the one (m, N) reduction.
+    With `active.packed` (`run_rounds(aggregate="packed")`) the tile is
+    summed directly, O(capacity·N) with no (m, N) buffer, at fp
+    tolerance (another order of the sum).
+
+    The diagnostics are participant means by construction: `f_mean` the
+    participants' loss mean, `grad_sq_norm` their gradient's
+    (:func:`flat_grad_sq_norm_active`). `extra_mean_tile` is a plain
+    all-client mean (SCAFFOLD's control-variate delta, exact zeros on
+    frozen clients): its sum over m. Returns
+    ``(agg, grad_sq_norm, f_mean, n_sel[, extra])``."""
+    gsq = flat_grad_sq_norm_active(grads_tile, active, spec)
+    n_sel = active.count
+    f_mean = torch.sum(active.zero_invalid(losses_tile)) / n_sel
+    m = active.num_clients
+    if active.packed:
+        agg = (torch.sum(active.zero_invalid(contrib_tile), dim=0)
+               / n_sel.to(contrib_tile.dtype))
+        out = (agg, gsq, f_mean, n_sel)
+        if extra_mean_tile is not None:
+            out = out + (torch.sum(active.zero_invalid(extra_mean_tile),
+                                   dim=0) / m,)
+        return out
+    dense = contrib_tile.new_zeros((m,) + tuple(contrib_tile.shape[1:]))
+    out = (client_mean(active.scatter(dense, contrib_tile), mask=active.mask),
+           gsq, f_mean, n_sel)
+    if extra_mean_tile is not None:
+        extra = torch.zeros_like(dense)
+        out = out + (torch.mean(active.scatter(extra, extra_mean_tile),
+                                dim=0),)
     return out
 
 

@@ -28,6 +28,9 @@ class FlatBaseline:
 
     flat_client_keys = ()
     flat_global_keys = ("x",)
+    # store="active": frozen clients are never read or written, so a
+    # round runs on the participants' packed tile (`round_flat_active`)
+    active_tile = "participants"
 
     def __init__(self, fed, loss_fn: api.LossFn, model=None):
         self.fed = fed
@@ -44,7 +47,8 @@ class FlatBaseline:
 
     def _result(self, state, aggregate, grad_evals, **updates):
         """(new state, metrics) of a round from the outputs of
-        `api.flat_round_aggregate` (x̄', |grad|^2, f, participants): both
+        `api.flat_round_aggregate` or its `_active` twin (x̄', |grad|^2,
+        f, participants): both
         counters advanced (`step` by the k0 local steps), `updates` (the
         per-client state) stored, `grad_evals` gradients a client."""
         x_new, gsq, f_mean, n_sel = aggregate

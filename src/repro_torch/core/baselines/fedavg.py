@@ -1,11 +1,12 @@
 """FedAvg [McMahan et al. 2017], the paper's §V.D non-stochastic version:
 every client runs k0 full-batch GD steps between aggregations.
 
-Counterpart of `repro/core/baselines/fedavg.py`, flat dense path. Per
-round, k0 gradient evaluations per client (FedGiA's: one), the
-computational comparison of paper Table I. No hand-written kernel: the
-local steps are the gradients' batched products (cuBLAS) and elementwise
-updates, as the reference's plain XLA ops.
+Counterpart of `repro/core/baselines/fedavg.py`, flat path: the dense
+round and the active-set round. Per round, k0 gradient evaluations per
+client (FedGiA's: one), the computational comparison of paper Table I.
+No hand-written kernel: the local steps are the gradients' batched
+products (cuBLAS) and elementwise updates, as the reference's plain XLA
+ops.
 """
 from __future__ import annotations
 
@@ -21,22 +22,42 @@ from repro_torch.core.baselines.common import (
 class FedAvg(FlatBaseline):
     name = "fedavg"
 
+    def _local(self, state, batch, spec, x):
+        """k0 GD steps from the clients' rows `x`. Returns the final rows
+        and the first step's losses and gradients (at x̄)."""
+        fvg = flat_value_and_grad(self._vg_stacked, spec)
+        for j in range(self.fed.k0):
+            losses, grads = fvg(x, batch)
+            if j == 0:
+                losses0, grads0 = losses, grads
+            lr = lr_schedule(self.fed.lr, state["step"] + j, x.device)
+            x = x - lr * grads.to(x.dtype)
+        return x, losses0, grads0
+
     def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
         """One round on the flat state (`state["x"]` an (N,) buffer): k0 GD
         steps from the broadcast x̄ on the (m, N) trajectory buffer, then
         eq. (11) and the diagnostics in `api.flat_round_aggregate`. The
         metrics read the first step's losses and gradients (at x̄).
         `donate_kernel` is accepted for uniformity and ignored."""
-        fed = self.fed
-        x = api.broadcast_clients(state["x"], fed.num_clients)
-        fvg = flat_value_and_grad(self._vg_stacked, spec)
-        for j in range(fed.k0):
-            losses, grads = fvg(x, batch)
-            if j == 0:
-                losses0, grads0 = losses, grads
-            lr = lr_schedule(fed.lr, state["step"] + j, x.device)
-            x = x - lr * grads.to(x.dtype)
+        x, losses0, grads0 = self._local(
+            state, batch, spec,
+            api.broadcast_clients(state["x"], self.fed.num_clients))
         agg = api.flat_round_aggregate(
             x, grads0, losses0, participation_vec(losses0, mask), spec,
             mask=mask)
-        return self._result(state, agg, fed.k0)
+        return self._result(state, agg, self.fed.k0)
+
+    def round_flat_active(self, state, batch, spec, active,
+                          donate_kernel=False):
+        """`round_flat` on the packed participant tile (store="active"):
+        the k0 trajectories exist only for the (capacity,) gathered
+        clients. FedAvg has no per-client state, so nothing is scattered
+        back. The state is bitwise the dense masked round's; the loss and
+        gradient diagnostics are participant means."""
+        x, losses0, grads0 = self._local(
+            state, active.gather_tree(batch), spec,
+            api.broadcast_clients(state["x"], active.capacity))
+        agg = api.flat_round_aggregate_active(x, grads0, losses0, active,
+                                              spec)
+        return self._result(state, agg, self.fed.k0)

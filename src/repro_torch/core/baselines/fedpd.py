@@ -1,8 +1,9 @@
 """FedPD [Zhang et al. 2021], oracle choice I / option I per paper §V.D:
 primal-dual with inexact local solves.
 
-Counterpart of `repro/core/baselines/fedpd.py`, flat dense path. Each
-local step, every client approximately solves
+Counterpart of `repro/core/baselines/fedpd.py`, flat path: the dense
+round and the active-set round. Each local step, every client
+approximately solves
     x_i ≈ argmin f_i(x) + <lam_i, x − x̄_i> + 1/(2 eta) ||x − x̄_i||²
 with `inner_steps` GD iterations (lr = gamma_k), then
     lam_i += (x_i − x̄_i)/eta ;   x̄_i ← x_i + eta*lam_i.
@@ -30,16 +31,12 @@ class FedPD(FlatBaseline):
         state["lam"] = zeros_stacked(state["x"], self.fed.num_clients)
         return state
 
-    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
-        """One round on the flat state (`lam` an (m, N) buffer): k0
-        primal-dual steps per client from the broadcast x̄, then eq. (11)
-        over the clients' anchors. Under `mask`, a masked-out client keeps
-        its duals and is not aggregated. The metrics read the first inner
-        iteration of the first step (see `FedAvg.round_flat`)."""
+    def _local(self, state, batch, spec, anchor, lam):
+        """k0 primal-dual steps of the clients' rows from their anchors
+        and duals. Returns the final anchors and duals and the first
+        inner iteration's losses and gradients."""
         fed = self.fed
         eta = fed.fedpd_eta
-        anchor = api.broadcast_clients(state["x"], fed.num_clients)
-        lam = state["lam"]
         fvg = flat_value_and_grad(self._vg_stacked, spec)
         for j in range(fed.k0):
             lr = lr_schedule(fed.lr, state["step"] + j, anchor.device)
@@ -52,9 +49,39 @@ class FedPD(FlatBaseline):
                 xi = xi - lr * g.to(xi.dtype)
             lam = lam + (xi - anchor) / eta
             anchor = xi + eta * lam
+        return anchor, lam, losses0, grads0
+
+    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+        """One round on the flat state (`lam` an (m, N) buffer): k0
+        primal-dual steps per client from the broadcast x̄, then eq. (11)
+        over the clients' anchors. Under `mask`, a masked-out client keeps
+        its duals and is not aggregated. The metrics read the first inner
+        iteration of the first step (see `FedAvg.round_flat`)."""
+        fed = self.fed
+        anchor, lam, losses0, grads0 = self._local(
+            state, batch, spec,
+            api.broadcast_clients(state["x"], fed.num_clients), state["lam"])
         if mask is not None:
             lam = api.masked_update(mask, lam, state["lam"])
         agg = api.flat_round_aggregate(
             anchor, grads0, losses0, participation_vec(losses0, mask), spec,
             mask=mask)
+        return self._result(state, agg, fed.k0 * fed.inner_steps, lam=lam)
+
+    def round_flat_active(self, state, batch, spec, active,
+                          donate_kernel=False):
+        """`round_flat` on the packed participant tile (store="active"):
+        the participants' duals are GATHERED from the resident (m, N)
+        `lam`, advanced on the (capacity, N) tile and SCATTERED back in
+        place; frozen clients' rows are never touched (the dense round's
+        `masked_update`, row for row), and the padding rows' writes are
+        dropped."""
+        fed = self.fed
+        anchor, lam_t, losses0, grads0 = self._local(
+            state, active.gather_tree(batch), spec,
+            api.broadcast_clients(state["x"], active.capacity),
+            active.gather_state(state["lam"]))
+        lam = active.scatter_state(state["lam"], lam_t)
+        agg = api.flat_round_aggregate_active(anchor, grads0, losses0,
+                                              active, spec)
         return self._result(state, agg, fed.k0 * fed.inner_steps, lam=lam)

@@ -2,7 +2,8 @@
 proximal objective  f_i(x) + (mu/2)||x − x̄||²  with GD, k0 steps between
 aggregations and `inner_steps` GD iterations a step.
 
-Counterpart of `repro/core/baselines/fedprox.py`, flat dense path.
+Counterpart of `repro/core/baselines/fedprox.py`, flat path: the dense
+round and the active-set round.
 """
 from __future__ import annotations
 
@@ -18,13 +19,11 @@ from repro_torch.core.baselines.common import (
 class FedProx(FlatBaseline):
     name = "fedprox"
 
-    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
-        """One round on the flat state: k0 steps of `inner_steps` proximal
-        GD iterations toward the broadcast x̄, then eq. (11) and the
-        diagnostics (see `FedAvg.round_flat`). The metrics read the first
-        iteration's losses and gradients."""
+    def _local(self, state, batch, spec, xc):
+        """k0 steps of `inner_steps` proximal GD iterations from and
+        toward the clients' rows `xc`. Returns the final rows and the
+        first iteration's losses and gradients."""
         fed = self.fed
-        xc = api.broadcast_clients(state["x"], fed.num_clients)
         fvg = flat_value_and_grad(self._vg_stacked, spec)
         x = xc
         for j in range(fed.k0):
@@ -35,7 +34,31 @@ class FedProx(FlatBaseline):
                     losses0, grads0 = losses, grads
                 g = grads + fed.prox_mu * (x - xc)
                 x = x - lr * g.to(x.dtype)
+        return x, losses0, grads0
+
+    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+        """One round on the flat state: k0 steps of `inner_steps` proximal
+        GD iterations toward the broadcast x̄, then eq. (11) and the
+        diagnostics (see `FedAvg.round_flat`). The metrics read the first
+        iteration's losses and gradients."""
+        x, losses0, grads0 = self._local(
+            state, batch, spec,
+            api.broadcast_clients(state["x"], self.fed.num_clients))
         agg = api.flat_round_aggregate(
             x, grads0, losses0, participation_vec(losses0, mask), spec,
             mask=mask)
-        return self._result(state, agg, fed.k0 * fed.inner_steps)
+        return self._result(state, agg,
+                            self.fed.k0 * self.fed.inner_steps)
+
+    def round_flat_active(self, state, batch, spec, active,
+                          donate_kernel=False):
+        """`round_flat` on the packed participant tile (store="active"):
+        the proximal trajectories exist only for the gathered clients.
+        See `FedAvg.round_flat_active`."""
+        x, losses0, grads0 = self._local(
+            state, active.gather_tree(batch), spec,
+            api.broadcast_clients(state["x"], active.capacity))
+        agg = api.flat_round_aggregate_active(x, grads0, losses0, active,
+                                              spec)
+        return self._result(state, agg,
+                            self.fed.k0 * self.fed.inner_steps)

@@ -1,7 +1,8 @@
 """SCAFFOLD [Karimireddy et al. 2020]: controlled averaging with client
 and server control variates (paper Table I comparison set).
 
-Counterpart of `repro/core/baselines/scaffold.py`, flat dense path:
+Counterpart of `repro/core/baselines/scaffold.py`, flat path (the dense
+round and the active-set round):
   local:   y ← y − lr_j (∇f_i(y) − c_i + c), k0 steps;
   control: c_i⁺ = c_i − c + (x̄ − y)/(k0·lr)   (option II);
   server:  x̄ = mean(y);  c += mean(c_i⁺ − c_i).
@@ -33,17 +34,13 @@ class Scaffold(FlatBaseline):
         state["ci"] = zeros_stacked(state["x"], self.fed.num_clients)
         return state
 
-    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
-        """One round on the flat state: k0 corrected GD steps from the
-        broadcast x̄, the option-II control update with
-        denom = k0 · lr_schedule(step), then eq. (11) over the
-        trajectories with the variates' delta mean riding the same
-        aggregate (`extra_mean`). Under `mask`, a masked-out client keeps
-        its variate (a zero delta: c moves by |S|/m of the participants'
-        mean) and is not aggregated. Metrics as `FedAvg.round_flat`."""
+    def _local(self, state, batch, spec, xc, ci):
+        """k0 corrected GD steps of the clients' rows from `xc` with their
+        variates `ci`, then the option-II control update with
+        denom = k0 · lr_schedule(step). Returns the final rows, the new
+        variates and the first step's losses and gradients."""
         fed = self.fed
-        c, ci = state["c"], state["ci"]
-        xc = api.broadcast_clients(state["x"], fed.num_clients)
+        c = state["c"]
         fvg = flat_value_and_grad(self._vg_stacked, spec)
         lr = lr_schedule(fed.lr, state["step"], xc.device)
         y = xc
@@ -54,10 +51,43 @@ class Scaffold(FlatBaseline):
             lr_j = lr_schedule(fed.lr, state["step"] + j, y.device)
             y = y - lr_j * (grads + c[None] - ci).to(y.dtype)
         denom = fed.k0 * lr
-        ci_new = ci - c[None] + (xc - y) / denom
+        return y, ci - c[None] + (xc - y) / denom, losses0, grads0
+
+    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+        """One round on the flat state: the local steps and control update
+        from the broadcast x̄ (`_local`), then eq. (11) over the
+        trajectories with the variates' delta mean riding the same
+        aggregate (`extra_mean`). Under `mask`, a masked-out client keeps
+        its variate (a zero delta: c moves by |S|/m of the participants'
+        mean) and is not aggregated. Metrics as `FedAvg.round_flat`."""
+        ci = state["ci"]
+        y, ci_new, losses0, grads0 = self._local(
+            state, batch, spec,
+            api.broadcast_clients(state["x"], self.fed.num_clients), ci)
         if mask is not None:
             ci_new = api.masked_update(mask, ci_new, ci)
         *agg, dci = api.flat_round_aggregate(
             y, grads0, losses0, participation_vec(losses0, mask), spec,
             mask=mask, extra_mean=ci_new - ci)
-        return self._result(state, agg, fed.k0, c=c + dci, ci=ci_new)
+        return self._result(state, agg, self.fed.k0, c=state["c"] + dci,
+                            ci=ci_new)
+
+    def round_flat_active(self, state, batch, spec, active,
+                          donate_kernel=False):
+        """`round_flat` on the packed participant tile (store="active"):
+        the participants' variates are GATHERED from the resident (m, N)
+        `ci`, advanced on the (capacity, N) tile and SCATTERED back in
+        place (frozen rows untouched). The server variate keeps the
+        all-client 1/m: frozen clients' deltas are exact zeros, so the
+        tile's delta summed over m (`extra_mean_tile`) is the dense
+        round's mean, bit for bit."""
+        ci_t = active.gather_state(state["ci"])
+        y, ci_new_t, losses0, grads0 = self._local(
+            state, active.gather_tree(batch), spec,
+            api.broadcast_clients(state["x"], active.capacity), ci_t)
+        ci = active.scatter_state(state["ci"], ci_new_t)
+        *agg, dci = api.flat_round_aggregate_active(
+            y, grads0, losses0, active, spec,
+            extra_mean_tile=ci_new_t - ci_t)
+        return self._result(state, agg, self.fed.k0, c=state["c"] + dci,
+                            ci=ci)

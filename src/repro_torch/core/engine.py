@@ -30,6 +30,17 @@ rounds of the call counted from 0, and pass it to every algorithm:
 FedGiA's ADMM/GD split (its own generator is then left alone), the
 baselines' participants.
 
+`store` picks where the per-client state lives and how a round touches
+it (the reference's `store=`): "dense" runs every round on the (m, N)
+client buffers; "active" packs each round down to its participants (a
+`utils.pytree.ActiveSet` built from the policy's mask: the ids are
+packed on the host beside the mask and uploaded with it, so a captured
+round builds the set without a sync), gathers their (capacity, N) tile,
+runs `algo.round_flat_active` on it and scatters the per-client state
+back, in either driver; "offload" keeps the resident client buffers in
+host memory (`_run_offload_loop`). `aggregate="packed"` sums the tile
+directly in eq. (11) instead of scattering it back to the dense layout.
+
 `chunk_size="auto"` tunes the chunk length on the live run, as the
 reference does: the first chunks run the lengths of
 `AUTO_CHUNK_CANDIDATES` in turn (each clipped to the rounds left), each
@@ -50,6 +61,7 @@ import torch
 from repro_torch.core import graphs, selection
 from repro_torch.core.selection import copy_generator
 from repro_torch.kernels import launch_counters
+from repro_torch.utils import pytree as pt
 from repro_torch.utils.pytree import ravel_spec
 
 
@@ -73,6 +85,9 @@ class RoundResult:
     # the participation policy's state after the last round that ran
     # (None without a policy)
     policy_state: Any = None
+    # store="offload": host_resident_bytes, device_peak_bytes (None off
+    # the card) and copy_s; empty for the dense and active stores
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def flatten_state(algo, state, spec):
@@ -110,7 +125,8 @@ AUTO_CHUNK_CANDIDATES = (8, 32, 128)
 
 def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                tol_metric: str = "grad_sq_norm", scan: bool = True,
-               chunk_size=0, participation=None) -> RoundResult:
+               chunk_size=0, participation=None, store: str = "dense",
+               aggregate: str = "dense") -> RoundResult:
     """Run up to `num_rounds` communication rounds of `algo`.
 
     tol > 0 enables the paper's stopping rule (eq. 35). `scan=True` runs
@@ -122,6 +138,18 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
 
     `participation`: a `core.selection.ParticipationPolicy` whose mask
     every round takes (None: no mask; FedGiA draws its own split).
+
+    `store`: "dense" (default), "active" or "offload" (see the module
+    docstring); the last two need a participation policy, whose
+    `active_capacity` sizes the tile. The states are bitwise equal
+    between stores, and so are `selected`, `cr` and `local_grad_evals`;
+    `f_xbar` and `grad_sq_norm` become PARTICIPANT means (the server never
+    contacts the others), except for FedGiA (`active_tile =
+    "population"`: its active round is its dense round). "offload" runs
+    its own host-driven loop whatever `scan` says, is bitwise "active",
+    and fills `RoundResult.extras`. `aggregate`: "dense" (default) or
+    "packed" (active and offload only: eq. (11) sums the participant
+    tile directly, at fp tolerance).
 
     The caller's `state` is left as it was: its tensors are copied into
     fresh flat buffers at entry and its generator is copied, so every
@@ -136,6 +164,8 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     if auto and not scan:
         raise ValueError("chunk_size='auto' tunes the chunk length — the "
                          "legacy per-round loop (scan=False) has no chunks")
+    cap = _check_store(algo, store, aggregate, participation, auto)
+    packed = aggregate == "packed"
     spec = ravel_spec(state["x"])
     flat = flatten_state(algo, state, spec)
     flat["rng"] = copy_generator(state["rng"])
@@ -143,9 +173,12 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
         pstate = participation.init() if participation is not None else None
         return RoundResult(unflatten_state(algo, flat, spec), {}, 0, False,
                            0.0, policy_state=pstate)
+    if store == "offload":
+        return _run_offload_loop(algo, flat, batch, spec, num_rounds, tol,
+                                 tol_metric, participation, cap, packed)
     if not scan:
         return _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol,
-                                tol_metric, participation)
+                                tol_metric, participation, cap, packed)
     plan = []
     if auto:
         rest = num_rounds
@@ -173,11 +206,54 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
             # it is captured on use
             lengths.add(num_rounds % chunk)
     return _Chunked(algo, flat, batch, spec, tol, tol_metric, max(lengths),
-                    participation).run(num_rounds, chunk, plan, lengths)
+                    participation, cap, packed).run(num_rounds, chunk, plan,
+                                                    lengths)
+
+
+def _check_store(algo, store, aggregate, participation, auto):
+    """The reference's checks of `store` and `aggregate`, with its
+    messages. Returns the tile's capacity (None for the dense store)."""
+    if store not in ("dense", "active", "offload"):
+        raise ValueError(
+            f"unknown store {store!r}: ('dense', 'active', 'offload')")
+    cap = None
+    if store in ("active", "offload"):
+        if participation is None:
+            raise ValueError(
+                f"store={store!r} needs a per-round participant set to pack "
+                "the tile from — pass participation= (core.selection)")
+        if not hasattr(algo, "round_flat_active"):
+            raise ValueError(
+                f"algorithm {getattr(algo, 'name', algo)!r} does not "
+                "implement round_flat_active")
+        cap = participation.active_capacity
+    if store == "offload" and auto:
+        raise ValueError(
+            "chunk_size='auto' tunes the scan chunk length — the "
+            "host-driven offload loop (store='offload') has no chunks")
+    if aggregate not in ("dense", "packed"):
+        raise ValueError(
+            f"unknown aggregate {aggregate!r}: ('dense', 'packed')")
+    if aggregate == "packed" and store == "dense":
+        raise ValueError(
+            "aggregate='packed' sums the packed participant tile — it "
+            "requires store='active' or store='offload'")
+    return cap
+
+
+def _round(algo, st, batch, spec, mask, slots, cap, packed):
+    """One round of the dense store (`cap` None) or, on the round's
+    `ActiveSet` of (mask, slots), of the active store."""
+    if cap is None:
+        return algo.round_flat(st, batch, spec, mask=mask,
+                               donate_kernel=True)
+    return algo.round_flat_active(
+        st, batch, spec, pt.active_set(mask, slots, cap, packed=packed),
+        donate_kernel=True)
 
 
 def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
-                     participation):
+                     participation, cap, packed):
     device = flat["x"].device
     pstate = participation.init() if participation is not None else None
     hist = []
@@ -185,14 +261,15 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     draw = 0.0
     t0 = time.perf_counter()
     for i in range(num_rounds):
-        mask = None
+        mask = slots = None
         if participation is not None:
             td = time.perf_counter()
             mask, pstate = participation.mask(pstate, i)
+            if cap is not None:
+                slots = pt.pack_slots(mask, cap).to(device)
             draw += time.perf_counter() - td
             mask = mask.to(device)
-        flat, met = algo.round_flat(flat, batch, spec, mask=mask,
-                                    donate_kernel=True)
+        flat, met = _round(algo, flat, batch, spec, mask, slots, cap, packed)
         hist.append(met)
         if tol > 0 and float(met[tol_metric]) < tol:
             stopped = True
@@ -248,10 +325,13 @@ class _Chunked:
     """
 
     def __init__(self, algo, flat, batch, spec, tol, tol_metric, longest,
-                 participation):
+                 participation, cap=None, packed=False):
         """`longest`: the most rounds a chunk of this run can have, which
-        sizes the static mask and history buffers."""
+        sizes the static mask and history buffers. `cap`: the active
+        store's tile capacity (None: the dense store); the chunk's packed
+        ids (`ActiveSet.slots`) then ride beside its masks."""
         self.algo, self.batch, self.spec = algo, batch, spec
+        self.cap, self.packed = cap, packed
         self.tol, self.tol_metric, self.longest = tol, tol_metric, longest
         self.gen = flat["rng"]
         self.policy = participation
@@ -272,6 +352,12 @@ class _Chunked:
                                     device=dev)
             self.host_masks = torch.ones((longest, m), dtype=torch.bool,
                                          pin_memory=self.cuda)
+            if cap is not None:
+                self.slots = torch.zeros((longest, cap), dtype=torch.int64,
+                                         device=dev)
+                self.host_slots = torch.zeros((longest, cap),
+                                              dtype=torch.int64,
+                                              pin_memory=self.cuda)
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.hist = {}
@@ -284,8 +370,9 @@ class _Chunked:
     # ---------------------------------------------------------- the chunk
     def _round(self, st, i):
         mask = self.masks[i] if self.selects else None
-        st, met = self.algo.round_flat(st, self.batch, self.spec, mask=mask,
-                                       donate_kernel=True)
+        slots = self.slots[i] if self.cap is not None else None
+        st, met = _round(self.algo, st, self.batch, self.spec, mask, slots,
+                         self.cap, self.packed)
         for k, v in met.items():
             if torch.is_tensor(v):
                 self.hist[k][i].copy_(v)
@@ -350,7 +437,8 @@ class _Chunked:
 
     def _warm_up(self):
         """One round on copies of the state, eagerly, with every client
-        selected (no draw) where the algorithm selects: it sizes the
+        selected (no draw) where the algorithm selects (the first
+        `cap` under the active store): it sizes the
         history buffers from the metrics and, on the card, runs on the
         capture streams before any capture (cuBLAS handles and
         workspaces, the kernel libraries), outside the timed window and
@@ -359,9 +447,15 @@ class _Chunked:
 
         def warm():
             copies = {k: v.clone() for k, v in self.st.items()}
-            mask = torch.ones_like(self.masks[0]) if self.selects else None
-            return self.algo.round_flat(copies, self.batch, self.spec,
-                                        mask=mask, donate_kernel=True)[1]
+            mask = slots = None
+            if self.cap is not None:
+                slots = torch.arange(self.cap, device=self.device)
+                mask = torch.zeros_like(self.masks[0]).index_fill_(
+                    0, slots, True)
+            elif self.selects:
+                mask = torch.ones_like(self.masks[0])
+            return _round(self.algo, copies, self.batch, self.spec, mask,
+                          slots, self.cap, self.packed)[1]
 
         met = self._on_capture_streams(warm) if self.cuda else warm()
         _set_counts(counts)
@@ -383,10 +477,11 @@ class _Chunked:
     # ---------------------------------------------------------- the run
     def _upload_masks(self, length, first_round):
         """Draw the chunk's masks, from the policy (its rounds counted from
-        `first_round`) or else from the run's generator, and send them to
-        the static buffer. Returns the draw state before each round and
+        `first_round`) or else from the run's generator, pack each into
+        its `ActiveSet.slots` under the active store, and send them to
+        the static buffers. Returns the draw state before each round and
         after the last, so a stop can put back the state at it, and the
-        host seconds the draws took."""
+        host seconds the draws and packs took."""
         if self.cuda:
             self.uploaded.synchronize()  # the last upload has left
         m, alpha = self.masks.shape[1], self.algo.fed.alpha
@@ -401,11 +496,17 @@ class _Chunked:
                 states.append(self.pstate)
                 self.host_masks[i], self.pstate = self.policy.mask(
                     self.pstate, first_round + i)
+            if self.cap is not None:
+                self.host_slots[i] = pt.pack_slots(self.host_masks[i],
+                                                   self.cap)
         states.append(self.gen.get_state() if self.policy is None
                       else self.pstate)
         draw = time.perf_counter() - t0
         self.masks[:length].copy_(self.host_masks[:length],
                                   non_blocking=self.cuda)
+        if self.cap is not None:
+            self.slots[:length].copy_(self.host_slots[:length],
+                                      non_blocking=self.cuda)
         if self.cuda:
             self.uploaded.record()
         return states, draw
@@ -477,3 +578,193 @@ class _Chunked:
                            history, rounds_run, stopped, wall, capture,
                            chunk_size=chunk, draw_s=draw,
                            policy_state=self.pstate)
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+class _Staged:
+    """One round's inputs that the host prepares ahead of it: the mask,
+    the packed ids and (for a participant tile) the batch tile, each in a
+    host buffer (pinned on the card) and its device twin."""
+
+    def __init__(self, m, cap, batch_h, device, pinned):
+        def pair(shape, dtype):
+            return (torch.empty(shape, dtype=dtype, pin_memory=pinned),
+                    torch.empty(shape, dtype=dtype, device=device))
+
+        self.mask = pair((m,), torch.bool)
+        self.slots = pair((cap,), torch.int64)
+        self.batch = {k: pair((cap,) + tuple(v.shape[1:]), v.dtype)
+                      for k, v in (batch_h or {}).items()}
+        self.uploaded = torch.cuda.Event() if device.type == "cuda" else None
+
+
+def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
+                      participation, cap, packed):
+    """Host-driven round loop of ``run_rounds(store="offload")``
+    (counterpart of the reference's `_run_offload_loop`, without its
+    async, quorum and checkpoint branches).
+
+    The resident `flat_client_keys` buffers and, for a participant tile,
+    the per-client batch live in host memory (`pt.OffloadStore`, pinned
+    on the card); the device keeps the globals (x, counters, σ, FedGiA's
+    gram factors). Each round:
+
+      1. the host draws the mask from the policy and packs its ids
+         (`pt.pack_slots`), as the other drivers do, so the masks agree;
+      2. the host gathers the participants' (capacity, N) state tiles
+         from the store into pinned staging buffers (the ActiveSet's clip
+         reads) and copies them to the card, `non_blocking`, on a side
+         stream that the round's stream waits for;
+      3. the round runs `algo.round_flat_active` with a tile-mode
+         `ActiveSet` (`tile_state=True`: the state accessors are the
+         identity on the gathered tiles, while idx, slots and mask keep
+         their resident rows for the aggregation);
+      4. the updated tiles come back on the side stream into pinned
+         buffers, and the host scatters them into the store (the
+         ActiveSet's dropped padding writes).
+
+    Steps 1-2 are DOUBLE-BUFFERED for what does not depend on the round:
+    the next round's mask, ids and batch tile are drawn, gathered and
+    copied while the current round runs on the card; the state tiles wait
+    for the current round's write-back. Gather and scatter are pure data
+    movement, so the loop is BITWISE ``store="active"``. FedGiA's
+    population tile (`active_tile = "population"`) moves the whole
+    client buffers each way instead, and its batch stays on the card.
+
+    `RoundResult.extras`: `host_resident_bytes` (the store and the host
+    batch), `device_peak_bytes` (on the card: the most bytes allocated
+    above the loop's start, `torch.cuda.max_memory_allocated` after
+    `reset_peak_memory_stats`, plus the device-resident state the rounds
+    read; None on the CPU) and `copy_s` (host seconds gathering, copying
+    back and scattering the tiles, the wait for the round excluded).
+    """
+    device = flat["x"].device
+    cuda = device.type == "cuda"
+    m = algo.fed.num_clients
+    population = getattr(algo, "active_tile", "participants") == "population"
+    keys = [k for k in algo.flat_client_keys if k in flat]
+    store = pt.OffloadStore({k: flat.pop(k) for k in keys}, pinned=cuda)
+    gstate = flat
+    batch_h = None if population else {
+        k: pt.host_put(v, cuda) for k, v in batch.items()}
+    host_bytes = store.nbytes + _nbytes((batch_h or {}).values())
+
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        resident = _nbytes(gstate.values()) + (
+            _nbytes(batch.values()) if population else 0)
+        side = torch.cuda.Stream(device)
+        main = torch.cuda.current_stream(device)
+        on_side = lambda: torch.cuda.stream(side)  # noqa: E731
+    else:
+        on_side = contextlib.nullcontext
+    staged = [_Staged(m, cap, batch_h, device, cuda) for _ in range(2)]
+    if population:
+        host_tiles = store.buffers
+        dev_tiles = {k: torch.empty_like(b, device=device)
+                     for k, b in store.buffers.items()}
+    else:
+        host_tiles = {k: torch.empty((cap,) + tuple(b.shape[1:]),
+                                     dtype=b.dtype, pin_memory=cuda)
+                      for k, b in store.buffers.items()}
+        dev_tiles = {k: torch.empty_like(t, device=device)
+                     for k, t in host_tiles.items()}
+        back = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+                for k, t in host_tiles.items()}
+
+    pstate = participation.init()
+    draw = copy = 0.0
+
+    def stage(i, s):
+        """Draw round i's mask, pack its ids, gather its batch tile and
+        start their copies to the card into staging set `s`. Returns the
+        round's host ActiveSet."""
+        nonlocal pstate, draw, copy
+        st = staged[s]
+        td = time.perf_counter()
+        mask, pstate = participation.mask(pstate, i)
+        st.mask[0].copy_(mask)
+        st.slots[0].copy_(pt.pack_slots(mask, cap))
+        aset = pt.active_set(st.mask[0], st.slots[0], cap)
+        tc = time.perf_counter()
+        draw += tc - td
+        for k, (h, _) in st.batch.items():
+            aset.gather(batch_h[k], out=h)
+        copy += time.perf_counter() - tc
+        with on_side():
+            for h, d in (st.mask, st.slots, *st.batch.values()):
+                d.copy_(h, non_blocking=cuda)
+            if cuda:
+                st.uploaded.record()
+        return aset
+
+    hist, stopped, pstate_run = [], False, None
+    t0 = time.perf_counter()
+    aset_h = stage(0, 0)
+    for i in range(num_rounds):
+        st = staged[i % 2]
+        tc = time.perf_counter()
+        if not population:
+            store.gather_tiles(aset_h, out=host_tiles)
+        copy += time.perf_counter() - tc
+        with on_side():
+            for k, h in host_tiles.items():
+                dev_tiles[k].copy_(h, non_blocking=cuda)
+            if cuda:
+                st.uploaded.record()
+        if cuda:
+            main.wait_event(st.uploaded)
+        aset = pt.active_set(st.mask[1], st.slots[1], cap,
+                             tile_state=not population, packed=packed)
+        round_batch = batch if population else {
+            k: d for k, (_, d) in st.batch.items()}
+        out, met = algo.round_flat_active(dict(gstate, **dev_tiles),
+                                          round_batch, spec, aset,
+                                          donate_kernel=True)
+        tiles = {k: out.pop(k) for k in keys}
+        gstate = out
+        pstate_run = pstate
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+        if i + 1 < num_rounds:  # the next round's draw and batch tile
+            next_h = stage(i + 1, (i + 1) % 2)  # overlap this round
+        if cuda:
+            done.synchronize()
+        tc = time.perf_counter()
+        dest = store.buffers if population else back
+        with on_side():
+            for k, t in tiles.items():
+                dest[k].copy_(t, non_blocking=cuda)
+        if cuda:
+            side.synchronize()
+        if not population:
+            store.scatter_tiles(aset_h, back)
+        copy += time.perf_counter() - tc
+        hist.append(met)
+        if tol > 0 and float(met[tol_metric]) < tol:
+            stopped = True
+            break
+        if i + 1 < num_rounds:
+            aset_h = next_h
+    if cuda:
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    extras = {"host_resident_bytes": int(host_bytes),
+              "device_peak_bytes": None, "copy_s": copy}
+    if cuda:
+        extras["device_peak_bytes"] = int(
+            torch.cuda.max_memory_allocated(device) - base + resident)
+    state = dict(gstate)
+    for k, b in store.buffers.items():
+        state[k] = b.to(device)
+    history = {k: _stack([h[k] for h in hist]) for k in hist[0]}
+    return RoundResult(unflatten_state(algo, state, spec), history,
+                       len(hist), stopped, wall, draw_s=draw,
+                       policy_state=pstate_run, extras=extras)

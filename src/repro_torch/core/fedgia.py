@@ -1,7 +1,8 @@
 """FedGiA — the paper's Algorithm 1 on the flat client-state buffer.
 
-Counterpart of `repro/core/fedgia.py`, dense single-device path only (no
-compressor, faults, screening, overlap or stale anchors). One round:
+Counterpart of `repro/core/fedgia.py`, single-device flat path (no
+compressor, faults, screening, overlap or stale anchors); its active-set
+round is the dense round on the round's mask. One round:
 
   1. aggregate   x̄ = (1/m) Σ z_i              (eq. 11)
   2. grads       ḡ_i = (1/m) ∇f_i(x̄)          (computed ONCE per round)
@@ -37,6 +38,8 @@ class FedGiA:
     # (gram_chol is client-stacked but not model-shaped)
     flat_client_keys = ("z", "pi", "h")
     flat_global_keys = ("x",)
+    # store="active": the GD branch rewrites every client every round
+    active_tile = "population"
 
     def __init__(self, fed: FedConfig, loss_fn: api.LossFn, model=None):
         self.fed = fed
@@ -202,6 +205,18 @@ class FedGiA:
             "local_grad_evals": 1.0,  # per client per round (C2)
         }
         return new_state, metrics
+
+    def round_flat_active(self, state, batch, spec, active,
+                          donate_kernel: bool = False):
+        """Active-store round (``run_rounds(store="active" | "offload")``).
+        FedGiA cannot shrink the round's working set: the GD branch (eqs.
+        15-17) recomputes EVERY non-selected client's (z, π, h) from its
+        fresh gradient each round, so every client is read and written
+        whatever the draw (`active_tile = "population"`). The round is
+        therefore the dense round on `active.mask`, bitwise by
+        construction, with the same one `fedgia_update` launch."""
+        return self.round_flat(state, batch, spec, mask=active.mask,
+                               donate_kernel=donate_kernel)
 
     # ------------------------------------------------------------ diagnostics
     def client_params(self, state):

@@ -27,6 +27,8 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils import pytree as pt
+
 MaskAndState = Tuple[torch.Tensor, Any]
 
 
@@ -92,6 +94,16 @@ class ParticipationPolicy:
 
     def mask(self, pstate, round_idx: int) -> MaskAndState:
         return torch.ones((self.m,), dtype=torch.bool), pstate
+
+    def indices(self, pstate, round_idx: int,
+                capacity: Optional[int] = None):
+        """Active-set form of :meth:`mask`: the round's participants as a
+        packed, padded `pytree.ActiveSet` (on the CPU) instead of a dense
+        (m,) mask. Derived from the SAME mask draw, so the participant
+        sequence is the same for the dense and active stores."""
+        mask, pstate = self.mask(pstate, round_idx)
+        cap = self.active_capacity if capacity is None else capacity
+        return pt.make_active_set(mask, cap), pstate
 
 
 class UniformParticipation(ParticipationPolicy):

@@ -24,6 +24,14 @@ candidate lengths 8, 32 and 128 on the live run and keeps the fastest);
 algorithm takes it (FedGiA as its ADMM/GD split, the baselines as the
 round's participants). `--unrolled` runs FedGiA's k0-step ADMM loop
 instead of the closed form, and so launches no kernel.
+
+`--store active` swaps the dense (m, N) round working set for a packed
+tile of each round's participants (it needs `--participation`; uniform,
+weighted and cyclic give a tile of |C| rows, the others of m): the state
+is bitwise the dense store's, and f and |grad|^2 become participant
+means. `--store offload` keeps the client buffers in host memory and
+moves the tiles each round. `--aggregate packed` sums the tile directly
+in eq. (11) (fp tolerance against the dense layout).
 """
 from __future__ import annotations
 
@@ -89,7 +97,9 @@ def _parse_csv(value: str, n: int, flag: str, cast):
 def validate_flags(args) -> dict:
     """Cross-flag checks of the engine flags, with the reference's errors
     (SystemExit): a `--chunk` that is neither an int nor "auto", `--chunk
-    auto` with `--no-scan`, `--client-weights` without `--participation
+    auto` with `--no-scan` or `--store offload`, `--store active|offload`
+    without a policy, `--aggregate packed` with `--store dense`,
+    `--client-weights` without `--participation
     weighted`, `--arrival-periods` without `--participation periodic`,
     and a per-client list whose length is not `--clients`. Returns the
     chunk size (int or "auto") and the parsed lists (or None)."""
@@ -103,6 +113,20 @@ def validate_flags(args) -> dict:
     elif args.no_scan:
         raise SystemExit("--chunk auto tunes the scan chunk length and "
                          "cannot be combined with --no-scan")
+    store = args.store
+    if store in ("active", "offload") and args.participation == "full":
+        raise SystemExit(
+            f"--store {store} needs a per-round participant set to pack the "
+            "tile from: pass --participation (uniform/weighted/cyclic give "
+            "the fixed-size tile; others bound it by m)")
+    if store == "offload" and chunk == "auto":
+        raise SystemExit(
+            "--chunk auto tunes the scan chunk length — the host-driven "
+            "offload loop (--store offload) has no chunks")
+    if args.aggregate == "packed" and store == "dense":
+        raise SystemExit(
+            "--aggregate packed sums the packed participant tile — it "
+            "requires --store active or --store offload")
     weights = periods = None
     if args.client_weights:
         if args.participation != "weighted":
@@ -149,9 +173,21 @@ def train(args) -> dict:
             log.info("participation: %s policy, alpha=%.2f (|C|=%d of "
                      "m=%d)", args.participation, args.alpha,
                      policy.n_selected, args.clients)
+    if args.store == "active":
+        log.info("active-set store: (%d, N) participant tile gathered/"
+                 "scattered per round (m=%d resident)",
+                 policy.active_capacity, args.clients)
+    elif args.store == "offload":
+        log.info("host-offloaded store: resident client buffers in host "
+                 "memory, (%d, N) tiles shuttled per round (m=%d)",
+                 policy.active_capacity, args.clients)
+    if args.aggregate == "packed":
+        log.info("packed aggregation: eq. (11) sums the participant tile "
+                 "directly (fp tolerance vs the bitwise dense layout)")
     res = run_rounds(algo, state, batch, args.rounds, tol=args.tol,
                      scan=not args.no_scan, chunk_size=parsed["chunk"],
-                     participation=policy)
+                     participation=policy, store=args.store,
+                     aggregate=args.aggregate)
     history = [
         {"round": r, "f": float(res.history["f_xbar"][r]),
          "err": float(res.history["grad_sq_norm"][r])}
@@ -175,19 +211,27 @@ def train(args) -> dict:
         "capture_s": res.capture_s,
         "chunk_size": res.chunk_size,
         "draw_s": res.draw_s,
+        "store": args.store,
+        "aggregate": args.aggregate,
+        "extras": res.extras,
         "history": history,
         "algorithm": algo,
         "batch": batch,
         "state": res.state,
     }
-    if not args.no_scan:
+    if args.store == "offload":
+        log.info("host-offloaded store: %d host-resident bytes, device peak "
+                 "%s bytes, tile copies %.3fs on the host",
+                 res.extras["host_resident_bytes"],
+                 res.extras["device_peak_bytes"], res.extras["copy_s"])
+    elif not args.no_scan:
         log.info("chunked driver: %d rounds a chunk%s; warm-up and capture "
                  "%.3fs (outside the rounds' time)", res.chunk_size,
                  " (auto)" if parsed["chunk"] == "auto" else "",
                  res.capture_s)
     if policy is not None:
-        log.info("mask draws on the host: %.3fs of the rounds' time",
-                 res.draw_s)
+        log.info("mask draws%s on the host: %.3fs of the rounds' time",
+                 "" if args.store == "dense" else " and packs", res.draw_s)
     log.info(
         "done: %d rounds (CR=%d) in %.2fs  f=%.6f err=%.2e",
         result["rounds"], result["cr"], res.wall_s, result["final_f"],
@@ -240,6 +284,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arrival-periods", default="",
                     help="comma-separated per-client arrival periods in "
                          "rounds (--participation periodic)")
+    ap.add_argument("--store", default="dense",
+                    choices=["dense", "active", "offload"],
+                    help="client-state store: dense (m, N) rounds, the "
+                         "active participant tile, or the tile with the "
+                         "client buffers in host memory")
+    ap.add_argument("--aggregate", default="dense",
+                    choices=["dense", "packed"],
+                    help="eq. (11) over the tile scattered back to the "
+                         "dense layout (bitwise) or summed directly "
+                         "(--store active/offload)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
