@@ -91,6 +91,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    * `repro_torch.benchmarks.engine_bench` at m = 10^6, alpha = 10^-4:
      FedAvg active and FedPD offload + packed rounds/s, and the offload
      tile round's device peak below the 512 MB (m, N) lambda buffer.
+2e. Async and clocked rounds, counts reset just before each run and
+   read just after:
+   * `repro_torch.benchmarks.async_bench` (m = 64, k0 = 10, periodic
+     arrivals, max_staleness 0, 1, 2, 4; FedGiA_D and SCAFFOLD) on the
+     card and on the CPU: the same CR and staleness every round, Obj at
+     rel 1e-3, staleness within its bound; FedGiA_D launches
+     `fedgia_update_batched` once a round that ran, with an (m, N)
+     anchor wherever max_staleness > 0;
+   * `repro_torch.benchmarks.wallclock_bench` (spreads 1, 4, 16; uniform
+     and poly weights; FedGiA_D, SCAFFOLD, FedAvg) on the card and on the
+     CPU: the same CR, staleness and simulated time every round, Obj at
+     rel 1e-3 (in both runners a row may stop one round apart where the
+     longer run's stop metric lies within ROW_STOP_RTOL of tol; such a
+     row is re-run in float64 on the CPU and its metrics printed);
+     engine_bench's async row (FedGiA_D, m = 64, 200 rounds, against
+     the same rounds synchronous);
+   * FedGiA_D on the population run's data under a straggler clock
+     (compute seconds spread 1..16), max_staleness 4, poly weights, 20
+     rounds, replayed against eager (bitwise, staleness and simulated
+     time included): 20 launches of `fedgia_update_batched`, each with an
+     (m, N) anchor; that form held against its plain version on the next
+     round's own operands and timed against its bound; ms a round and
+     the host's draws. Then 6 rounds of the same data under uniform
+     arrivals at alpha 0.5 (a mixed round: half the rows on the ADMM
+     branch, the rest on anchors up to 4 rounds old), and the launch held
+     and timed again on the 7th round's operands;
+   * SCAFFOLD under uniform alpha 0.1, `--async --max-staleness 2`,
+     active against dense, and FedPD (lr 0.001) offloaded against
+     active, each bitwise, with the offload row's device peak and
+     host-resident bytes.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each):
@@ -185,6 +215,30 @@ STORE_FEDPD_LR = 0.001
 # packed against dense aggregate: the sum of 1638 rows in another order,
 # about sqrt(1638)·eps = 5e-6 a round, over 20 rounds
 PACKED_RTOL = 1e-4
+
+# phase 2e: the population data under a straggler clock (wallclock_bench's
+# worst spread, its staleness bound), and the stores' async rows
+ASYNC_SPREAD = 16.0
+ASYNC_MAX_STALENESS = 4
+ASYNC_STORE_STALENESS = 2
+# the mixed round's arrivals and the rounds run before it
+ASYNC_MIXED_ALPHA = 0.5
+ASYNC_MIXED_ROUNDS = 6
+# a runner row's Obj, card against CPU (the paper runs' rule for whole
+# runs, ROADMAP queue 3 a)
+ROW_OBJ_RTOL = 1e-3
+# a runner row's card and CPU runs may stop one round apart where the
+# longer run's stop metric at the shorter's last round lies within this
+# share of tol (the paper runs' rule, `hold_card_to_cpu`, whose 1 % the
+# runners' rows outgrow): |mean gradient|^2 near 1e-7 is a difference of
+# gradients a thousand times larger. async_bench's SCAFFOLD at bound 0
+# stops a round earlier on an NVIDIA H100 80GB HBM3 (700.00 W) than on
+# the CPU, whose metric there is +1.6 % of tol off it (the card's -1.0
+# %); the same row in float64 on the CPU (`fp64_witness`) is -8.1 % of
+# tol there, so float32 alone moves the metric 7-10 % of tol, and card
+# against CPU 2.6 %.
+ROW_STOP_RTOL = 3e-2
+ROW_KEYS = ("algo", "max_staleness", "spread", "weighting")
 
 # full width; the warm-up run before each takes the same prefill, gen 2
 TINYLLAMA = ["--arch", "tinyllama-1.1b", "--batch", "4", "--prompt-len",
@@ -456,8 +510,8 @@ def hold_and_time(name, args, ops, ref, *, round_form):
             raise SystemExit(f"{name}: non-finite {part}'")
         torch.testing.assert_close(a, b, rtol=RTOL, atol=0.0,
                                    msg=lambda msg: f"{name} {part}': {msg}")
-    form = ("round form: (N,) anchor, h " +
-            ("0-d" if h.dim() == 0 else "(m, N)") + ", no x'"
+    form = (f"round form: {'(N,)' if xbar.dim() == 1 else '(m, N)'} "
+            f"anchor, h {'0-d' if h.dim() == 0 else '(m, N)'}, no x'"
             if round_form else "TPU interface: (m, N) anchor and h, x'")
     shape = list(gbar.shape)
     say(f"  {name} {shape} [{form}]: max_abs_err={err!r} "
@@ -474,22 +528,30 @@ def hold_and_time(name, args, ops, ref, *, round_form):
             else None, "shape": shape, "nbytes": nbytes, "form": form}
 
 
-def hold_card_to_cpu(gpu, cpu, tol, what, sides=("cuda", "cpu")):
+def hold_card_to_cpu(gpu, cpu, tol, what, sides=("cuda", "cpu"),
+                     f_rtol=1e-5, stop_rtol=1e-2):
     """The same run on the card and on the CPU (or two runs that `sides`
-    names), each a per-round list of (f, stop metric): the same rounds (or
-    one apart where the stop metric lies within 1 % of tol, float32 noise
-    in the eq. (35) test), and f at rel 1e-5 at the last round both
-    ran."""
+    names), each a per-round list of (f, stop metric, *exact): the same
+    rounds (or one apart where the longer run's stop metric at the
+    shorter run's last round lies within `stop_rtol` of tol, float32
+    noise in the eq. (35) test), the entries after the stop metric (a
+    round's staleness, its simulated time) equal in every round both ran,
+    and f at rel `f_rtol` at the last round both ran."""
     r_gpu, r_cpu = len(gpu), len(cpu)
     if r_gpu != r_cpu:
         long_ = cpu if r_gpu < r_cpu else gpu
         err_at = long_[min(r_gpu, r_cpu) - 1][1]
-        if abs(r_gpu - r_cpu) > 1 or abs(err_at - tol) > 1e-2 * tol:
+        if abs(r_gpu - r_cpu) > 1 or abs(err_at - tol) > stop_rtol * tol:
             raise SystemExit(f"{what}: {r_gpu} rounds ({sides[0]}), "
-                             f"{r_cpu} ({sides[1]})")
+                             f"{r_cpu} ({sides[1]}); the longer run's stop "
+                             f"metric {err_at!r} at the shorter's last round")
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        if tuple(a[2:]) != tuple(b[2:]):
+            raise SystemExit(f"{what}: round {i}: {a[2:]} ({sides[0]}) vs "
+                             f"{b[2:]} ({sides[1]})")
     r = min(r_gpu, r_cpu) - 1
     f_gpu, f_cpu = gpu[r][0], cpu[r][0]
-    if abs(f_gpu - f_cpu) > 1e-5 * abs(f_cpu):
+    if abs(f_gpu - f_cpu) > f_rtol * abs(f_cpu):
         raise SystemExit(f"{what}: f {f_gpu!r} ({sides[0]}) vs {f_cpu!r} "
                          f"({sides[1]})")
     say(f"{what} parity: rounds {r_gpu} ({sides[0]}) vs {r_cpu} "
@@ -997,6 +1059,341 @@ def client_store_phase(pop, train, counters, launches, card):
     say(f"phase 2d took {time.perf_counter() - t_phase!r} s")
 
 
+def fp64_witness(row, rounds):
+    """The stop metric a round of a runner's row (`async_bench` or
+    `wallclock_bench`) re-run on the CPU in float64, tol 0, for `rounds`
+    rounds: how far float32 arithmetic moves it near the eq. (35) stop."""
+    from repro_torch.benchmarks import async_bench, wallclock_bench
+    from repro_torch.benchmarks.common import M_CLIENTS, make_problem
+    from repro_torch.config import FedConfig
+    from repro_torch.core import api, clock, engine, selection
+
+    m = M_CLIENTS
+    if "spread" in row:
+        bench = wallclock_bench
+        kw = dict(clock=clock.ComputeClock(
+            m, wallclock_bench.straggler_speeds(m, row["spread"])),
+            max_staleness=bench.MAX_STALENESS,
+            stale_weighting=row["weighting"])
+    else:
+        bench = async_bench
+        kw = dict(participation=async_bench._arrival(m, bench.MAX_ROUNDS),
+                  async_rounds=True, max_staleness=row["max_staleness"])
+    model, batch, _ = make_problem("linreg", 0, "cpu")
+    batch = {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    fed = FedConfig(num_clients=m, k0=bench.K0, state_dtype="float64",
+                    **bench.ALGOS[row["algo"]])
+    algo = api.make_algorithm(fed, model.loss, model=model)
+    params = {k: v.double() for k, v in model.init("cpu").items()}
+    state = algo.init(params, selection.make_generator(1), init_batch=batch)
+    res = engine.run_rounds(algo, state, batch, rounds, scan=False, **kw)
+    return res.history["grad_sq_norm"].tolist()
+
+
+def hold_rows(gpu, cpu, exact, what, tol=PAPER_TOL):
+    """A runner's rows on the card against the CPU's, each row's
+    per-round `history` of (f, stop metric, staleness max[, sim_time])
+    held as `hold_card_to_cpu` holds runs, Obj at ROW_OBJ_RTOL and the
+    stop band at ROW_STOP_RTOL; the keys `exact` equal, but for those
+    that move with the rounds where the two runs stopped one round apart.
+    Such a row is re-run on the CPU in float64 (`fp64_witness`) and its
+    stop metrics printed beside the float32 runs'."""
+    if len(gpu) != len(cpu):
+        raise SystemExit(f"{what}: {len(gpu)} rows (cuda), {len(cpu)} (cpu)")
+    apart = 0
+    for g, c in zip(gpu, cpu):
+        label = f"{what} " + " ".join(
+            f"{k}={g[k]}" for k in exact if k in ROW_KEYS)
+        hg, hc = g["history"], c["history"]
+        hold_card_to_cpu(hg, hc, tol, label, f_rtol=ROW_OBJ_RTOL,
+                         stop_rtol=ROW_STOP_RTOL)
+        keys = exact if len(hg) == len(hc) else [
+            k for k in exact if k not in ("cr", "staleness_seen",
+                                          "sim_time_s")]
+        bad = [k for k in keys if g[k] != c[k]]
+        if bad:
+            row = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                             if k != "history"}
+            raise SystemExit(f"{label}: {bad} differ, cuda {row(g)} cpu "
+                             f"{row(c)}")
+        if len(hg) != len(hc):
+            apart += 1
+            r = min(len(hg), len(hc)) - 1
+            w = fp64_witness(g, max(len(hg), len(hc)))
+            first = next((i for i, e in enumerate(w) if e < tol), None)
+            say(f"  {label}: stopped one round apart, cr {g['cr']} (cuda) "
+                f"{c['cr']} (cpu); stop metric at round {r}: {hg[r][1]!r} "
+                f"(cuda) {hc[r][1]!r} (cpu) {w[r]!r} (float64, CPU), off "
+                f"tol by {hg[r][1] / tol - 1:+.6f}, {hc[r][1] / tol - 1:+.6f}"
+                f", {w[r] / tol - 1:+.6f} of it; float64 first below tol at "
+                f"round {first}")
+    say(f"  {what}: {len(gpu)} rows, card against CPU: {', '.join(exact)} "
+        f"equal, staleness and sim_time equal every round, obj within rel "
+        f"{ROW_OBJ_RTOL}; {apart} rows stopped one round apart, within "
+        f"{ROW_STOP_RTOL} of tol")
+
+
+def print_rows(rows, keys, tag):
+    say(f"  [{tag}] " + ",".join(keys))
+    for r in rows:
+        say(f"  [{tag}] " + ",".join(repr(r[k]) for k in keys))
+
+
+def async_phase(pop, counters, launches, card, ops, ref):
+    """Phase 2e: the async and clocked rounds. Adds the launches of its
+    runs to `launches`; returns the kernels line's entry for the (m, N)
+    anchor form of `fedgia_update_batched`."""
+    from repro_torch.benchmarks import async_bench
+    from repro_torch.benchmarks import common as bench_common
+    from repro_torch.benchmarks import engine_bench, wallclock_bench
+    from repro_torch.config import FedConfig
+    from repro_torch.core import api as api_mod
+    from repro_torch.core import clock as clock_mod
+    from repro_torch.core import engine, selection
+    from repro_torch.utils import pytree as pt
+
+    t_phase = time.perf_counter()
+    per_client = 0  # launches with an (m, N) anchor on this phase's runs
+
+    def gia_launches(rows, n, forms, what):
+        """FedGiA_D launches the batched kernel once a round that ran,
+        with an (m, N) anchor where the bound is above 0; no other run
+        launches a kernel."""
+        gia = [r for r in rows if r["algo"] == "fedgia_d"]
+        want = sum(r["cr"] // 2 for r in gia)
+        want_mn = sum(r["cr"] // 2 for r in gia
+                      if r.get("max_staleness", ASYNC_MAX_STALENESS) > 0)
+        say(f"  {what} launches: {n}, by anchor form {forms}")
+        if n["fedgia_update_batched"] != want or sum(n.values()) != want \
+                or forms["(mb, N)"] != want_mn:
+            raise SystemExit(f"{what}: launches {n} {forms}, want {want} "
+                             f"fedgia_update_batched, {want_mn} of them "
+                             f"with an (m, N) anchor")
+        launches["fedgia_update_batched"] += want
+        return want_mn
+
+    say(f"async_bench (m={bench_common.M_CLIENTS}, k0={async_bench.K0}, "
+        f"periodic arrivals, max_staleness {async_bench.STALENESS}) on "
+        f"{card} and on the CPU:")
+    reset_counts(counters)
+    gpu = async_bench.run("cuda", collect_history=True)
+    n, forms = read_counts(counters), dict(ops.anchor_forms)
+    cpu = async_bench.run("cpu", collect_history=True)
+    keys = ("algo", "max_staleness", "staleness_seen", "cr", "time_s", "obj",
+            "converged")
+    print_rows(gpu, keys, "cuda")
+    print_rows(cpu, keys, "cpu")
+    async_bench.check(gpu)
+    hold_rows(gpu, cpu, ("algo", "max_staleness", "staleness_seen", "cr",
+                         "converged"), "async_bench")
+    per_client += gia_launches(gpu, n, forms, "async_bench")
+
+    say(f"wallclock_bench (m={bench_common.M_CLIENTS}, k0="
+        f"{wallclock_bench.K0}, spreads {wallclock_bench.SPREADS}, "
+        f"weightings {wallclock_bench.WEIGHTINGS}, max_staleness "
+        f"{wallclock_bench.MAX_STALENESS}) on {card} and on the CPU:")
+    reset_counts(counters)
+    gpu = wallclock_bench.run("cuda", collect_history=True)
+    n, forms = read_counts(counters), dict(ops.anchor_forms)
+    cpu = wallclock_bench.run("cpu", collect_history=True)
+    keys = ("algo", "spread", "weighting", "cr", "sim_time_s",
+            "staleness_seen", "time_s", "obj", "converged")
+    print_rows(gpu, keys, "cuda")
+    print_rows(cpu, keys, "cpu")
+    wallclock_bench.check(gpu)
+    hold_rows(gpu, cpu, ("algo", "spread", "weighting", "cr", "sim_time_s",
+                         "staleness_seen", "converged"), "wallclock_bench")
+    per_client += gia_launches(gpu, n, forms, "wallclock_bench")
+    del gpu, cpu
+
+    reset_counts(counters)
+    row = engine_bench.run_async("cuda")
+    n, forms = read_counts(counters), dict(ops.anchor_forms)
+    say(f"engine_bench's async row on {card}: {json.dumps(row)}; launches "
+        f"{n}, by anchor form {forms}")
+    want = 2 * engine_bench.REPEATS_ASYNC * row["rounds"]
+    if n["fedgia_update_batched"] != want or sum(n.values()) != want or \
+            forms["(mb, N)"] != want // 2:
+        raise SystemExit(f"engine_bench async row: launches {n} {forms}, "
+                         f"want {want}, half with an (m, N) anchor")
+    launches["fedgia_update_batched"] += want
+    per_client += want // 2
+
+    algo, batch = pop["algorithm"], pop["batch"]
+    model, dev = algo.model, batch["A"].device
+    m = batch["A"].shape[0]
+    rounds = int(POPULATION[POPULATION.index("--rounds") + 1])
+    clk = clock_mod.ComputeClock(
+        m, wallclock_bench.straggler_speeds(m, ASYNC_SPREAD))
+    kw = dict(clock=clk, max_staleness=ASYNC_MAX_STALENESS,
+              stale_weighting="poly")
+    state = algo.init(model.init(dev), selection.make_generator(1),
+                      init_batch=batch)
+    what = (f"FedGiA_D async population run (m={m}, straggler clock spread "
+            f"{ASYNC_SPREAD}, max_staleness {ASYNC_MAX_STALENESS}, poly)")
+    say(f"{what}, {rounds} rounds, tol 0, on {card}:")
+    out = {}
+    for tag, scan in (("replayed", True), ("eager", False)):
+        reset_counts(counters)
+        res = engine.run_rounds(algo, state, batch, rounds, scan=scan, **kw)
+        n, forms = read_counts(counters), dict(ops.anchor_forms)
+        st = res.history["staleness"]
+        say(f"  {tag}: {res.rounds_run} rounds, "
+            f"{res.wall_s / res.rounds_run * 1e3!r} ms a round (capture "
+            f"{res.capture_s!r} s apart), of which the host's clock ticks "
+            f"{res.draw_s / res.rounds_run * 1e3!r} ms; f="
+            f"{float(res.history['f_xbar'][-1])!r}; sim_time "
+            f"{float(res.history['sim_time'][-1])!r}; arrivals a round "
+            f"{res.history['selected'].tolist()}; staleness max a round "
+            f"{res.history['staleness_max'].tolist()}; launches {n}, by "
+            f"anchor form {forms}")
+        if res.rounds_run != rounds or n["fedgia_update_batched"] != rounds \
+                or sum(n.values()) != rounds or forms["(mb, N)"] != rounds:
+            raise SystemExit(f"{what} ({tag}): {res.rounds_run} rounds, "
+                             f"launches {n} {forms}, want {rounds} with an "
+                             f"(m, N) anchor")
+        if st.max() > ASYNC_MAX_STALENESS or st.shape != (rounds, m):
+            raise SystemExit(f"{what} ({tag}): staleness {st.max()} above "
+                             f"the bound or shape {st.shape}")
+        out[tag] = res
+    graph_res, eager_res = out["replayed"], out["eager"]
+    hold_replayed_to_eager(graph_res.state, eager_res.state, what,
+                           bitwise_only=True)
+    for k, v in graph_res.history.items():
+        if not (v == eager_res.history[k]).all():
+            raise SystemExit(f"{what}: history {k} replayed != eager")
+    say("  replayed vs eager history (staleness, sim_time, f, |grad|^2): "
+        "bitwise equal")
+    launches["fedgia_update_batched"] += rounds
+    per_client += rounds
+
+    def anchor_launch(res, mask, tag):
+        """The (m, N)-anchor launch held against its plain version on the
+        operands of the round after `res` (arrival mask `mask`) and
+        timed; its entry of the kernels line."""
+        spec = pt.ravel_spec(res.state["x"])
+        flat = engine.flatten_state(algo, res.state, spec)
+        stale = res.stale.clone()
+        xbar, sel, _, _, gbar = algo.round_inputs(flat, batch, spec,
+                                                  mask.to(dev), stale)
+        anchor = api_mod.stale_anchor(stale, xbar)
+        args = algo.kernel_args(flat, anchor, gbar, sel)
+        k = hold_and_time("fedgia_update_batched", args, ops, ref,
+                          round_form=True)
+        nbytes = k.pop("nbytes")
+        all_rows = 6 * m * spec.padded_size * 4 + m  # 4 reads, 2 writes, sel
+        say(f"  fedgia_update_batched {k['shape']} [{k.pop('form')}], "
+            f"{tag}: kernel_us={k['ms'] * 1e3:.3f} in_graph_us="
+            f"{k['graph_ms'] * 1e3:.3f} plain_us={k['plain_ms'] * 1e3:.2f} "
+            f"bound_us={k['bound_ms'] * 1e3:.3f} (bytes this round's "
+            f"{int(sel.sum())} arrivals need: {nbytes}) share_of_bound="
+            f"{k['bound_ms'] / k['ms']:.4f}; every row's pi and h read: "
+            f"{all_rows} bytes, bound_us={bound(all_rows) * 1e3:.3f}, "
+            f"share={bound(all_rows) / k['ms']:.4f}; anchors' ages "
+            f"{torch.bincount(stale.last_used.cpu()).tolist()}")
+        return {"shape": k["shape"], "arrivals": int(sel.sum()),
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "graph_ms": k["graph_ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": "bytes",
+                "all_rows_bound_ms": bound(all_rows)}
+
+    anchor_entry = anchor_launch(
+        graph_res, clk.tick(graph_res.clock_state, rounds)[0],
+        "the clocked run's next round")
+    del graph_res, eager_res, out
+
+    # a mixed round: uniform arrivals, so the ADMM branch runs on half
+    # the rows and the others carry anchors of every age up to the bound
+    pol = selection.make_policy("uniform", m, ASYNC_MIXED_ALPHA)
+    what = (f"FedGiA_D async population run (m={m}, uniform alpha "
+            f"{ASYNC_MIXED_ALPHA}, max_staleness {ASYNC_MAX_STALENESS}, "
+            f"poly)")
+    reset_counts(counters)
+    mixed = engine.run_rounds(algo, state, batch, ASYNC_MIXED_ROUNDS,
+                              participation=pol, async_rounds=True,
+                              max_staleness=ASYNC_MAX_STALENESS,
+                              stale_weighting="poly")
+    n, forms = read_counts(counters), dict(ops.anchor_forms)
+    say(f"{what}, {ASYNC_MIXED_ROUNDS} rounds, tol 0, on {card}: "
+        f"{mixed.wall_s / mixed.rounds_run * 1e3!r} ms a round (capture "
+        f"{mixed.capture_s!r} s apart), of which the host's draws "
+        f"{mixed.draw_s / mixed.rounds_run * 1e3!r} ms; arrivals a round "
+        f"{mixed.history['selected'].tolist()}; staleness max a round "
+        f"{mixed.history['staleness_max'].tolist()}; launches {n}, by "
+        f"anchor form {forms}")
+    if mixed.rounds_run != ASYNC_MIXED_ROUNDS or \
+            n["fedgia_update_batched"] != ASYNC_MIXED_ROUNDS or \
+            sum(n.values()) != ASYNC_MIXED_ROUNDS or \
+            forms["(mb, N)"] != ASYNC_MIXED_ROUNDS or \
+            mixed.history["staleness_max"].max() > ASYNC_MAX_STALENESS:
+        raise SystemExit(f"{what}: {mixed.rounds_run} rounds, launches {n} "
+                         f"{forms}, staleness max "
+                         f"{mixed.history['staleness_max'].tolist()}")
+    launches["fedgia_update_batched"] += ASYNC_MIXED_ROUNDS
+    per_client += ASYNC_MIXED_ROUNDS
+    anchor_entry["mixed_round"] = anchor_launch(
+        mixed, pol.mask(mixed.policy_state, ASYNC_MIXED_ROUNDS)[0],
+        f"round {ASYNC_MIXED_ROUNDS} of that run")
+    anchor_entry["launches"] = per_client
+    del mixed
+
+    say(f"async stores at the population size, uniform alpha {STORE_ALPHA},"
+        f" max_staleness {ASYNC_STORE_STALENESS}, {rounds} rounds, on "
+        f"{card}; FedPD at lr {STORE_FEDPD_LR}:")
+    kw = dict(async_rounds=True, max_staleness=ASYNC_STORE_STALENESS)
+    for name, stores in (("scaffold", ("dense", "active")),
+                         ("fedpd", ("active", "offload"))):
+        hp = dict(bench_common.ALGO_HPARAMS[name])
+        if name == "fedpd":
+            hp["lr"] = STORE_FEDPD_LR
+        algo = api_mod.make_algorithm(
+            FedConfig(algorithm=name, num_clients=m, **hp), model.loss,
+            model=model)
+        state = algo.init(model.init(dev), selection.make_generator(1),
+                          init_batch=batch)
+        res = {}
+        for store in stores:
+            reset_counts(counters)
+            r = engine.run_rounds(
+                algo, state, batch, rounds, store=store,
+                participation=selection.make_policy("uniform", m,
+                                                    STORE_ALPHA), **kw)
+            n = read_counts(counters)
+            extra = (f"; extras {r.extras}" if store == "offload" else "")
+            say(f"  {name} store={store}: {r.rounds_run} rounds, "
+                f"{r.wall_s / rounds * 1e3!r} ms a round, of which the "
+                f"host's draws{'' if store == 'dense' else ' and packs'} "
+                f"{r.draw_s / rounds * 1e3!r} ms; f="
+                f"{float(r.history['f_xbar'][-1])!r}; staleness max "
+                f"{int(r.history['staleness_max'].max())}; launches {n}"
+                f"{extra}")
+            if r.rounds_run != rounds or sum(n.values()) or \
+                    r.history["staleness_max"].max() > ASYNC_STORE_STALENESS:
+                raise SystemExit(f"{name} async store={store}: "
+                                 f"{r.rounds_run} rounds, launches {n}")
+            res[store] = r
+        a, b = (res[s] for s in stores)
+        hold_replayed_to_eager(b.state, a.state, f"{name} async",
+                               bitwise_only=True,
+                               label=f"{stores[1]} vs {stores[0]}")
+        for key in ("staleness", "selected"):
+            if not (a.history[key] == b.history[key]).all():
+                raise SystemExit(f"{name} async: {key} differs between "
+                                 f"stores")
+        if not torch.equal(a.stale.anchor, b.stale.anchor):
+            raise SystemExit(f"{name} async: final stale anchors differ")
+        if "offload" in res:
+            ext = res["offload"].extras
+            say(f"  {name} offload: device peak {ext['device_peak_bytes']} "
+                f"bytes, host-resident {ext['host_resident_bytes']} bytes "
+                f"(the (m, N) stale anchor among them), tile copies "
+                f"{ext['copy_s']!r} s on the host")
+        del res, a, b, state
+    say(f"phase 2e took {time.perf_counter() - t_phase!r} s")
+    return anchor_entry
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1338,6 +1735,9 @@ def main():
     # 2d. client stores ---------------------------------------------------
     client_store_phase(pop, train, counters, launches, card)
 
+    # 2e. async and clocked rounds ------------------------------------------
+    per_client_anchor = async_phase(pop, counters, launches, card, ops, ref)
+
     # 3. serving path, full width -------------------------------------------
     served = {}
     for argv, mod, name, layers in (
@@ -1403,6 +1803,9 @@ def main():
             k["launches"] = launches[name]
             if k["launches"] < 1:
                 raise SystemExit(f"{name} was not launched on the main path")
+            if name == "fedgia_update_batched":
+                # the async rounds' form: an (m, N) anchor (phase 2e)
+                k["per_client_anchor"] = per_client_anchor
             kernels.append(k)
 
     g = torch.Generator(device="cuda").manual_seed(0)

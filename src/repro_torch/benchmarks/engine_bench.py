@@ -1,6 +1,6 @@
-"""Million-client rounds of the client stores (counterpart of the
-`active_1m` and `offload_1m` rows of `benchmarks/engine_bench.py`, at the
-reference's own size).
+"""Million-client rounds of the client stores and the async round
+(counterpart of the `active_1m`, `offload_1m` and `async` rows of
+`benchmarks/engine_bench.py`, at the reference's own sizes).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.engine_bench
   PYTHONPATH=src python -m repro_torch.benchmarks.engine_bench \
@@ -20,11 +20,20 @@ tiles; what stays O(m) a round is the host's mask draw and the one
 and the row checks that the tile round's device peak stays below the
 dense store's λ buffer that it moved off the card.
 
-The batch is built directly with numpy from seed 0, as the reference
-builds it (its heterogeneous splitter is O(m²) at this size). Each row
-runs one warm-up round first (kernel libraries, the CUDA-graph capture of
-the chunked driver), then its timed rounds; rounds/s is over those, on
-the host clock around work that ends in a device synchronise.
+`async` is the stale-x̄ engine on the paper's linreg problem at the
+runners' size (m = 64, n = 100): FedGiA_D (k0 5, alpha 0.5), 200 rounds
+of the chunked driver under periodic arrivals (periods cycling 1..4) with
+`max_staleness=2`, against the same rounds synchronous; each path's
+median of 3 runs. The async round adds the per-client anchor selects and
+takes its gradients at the per-client anchors. It is a library entry,
+`run_async`, that the CLI does not run.
+
+The batch of the million-client rows is built directly with numpy from
+seed 0, as the reference builds it (its heterogeneous splitter is O(m²)
+at this size). Each row runs one warm-up round first (kernel libraries,
+the CUDA-graph capture of the chunked driver), then its timed rounds;
+rounds/s is over those, on the host clock around work that ends in a
+device synchronise.
 """
 from __future__ import annotations
 
@@ -34,10 +43,15 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.benchmarks.common import M_CLIENTS, make_problem
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import make_generator, make_policy
+from repro_torch.core.selection import (
+    AvailabilityParticipation,
+    make_generator,
+    make_policy,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import LeastSquares
 from repro_torch.utils import pytree as pt
@@ -46,6 +60,8 @@ M_1M = 1_000_000
 ALPHA_1M = 1e-4
 ROUNDS_1M = 3
 N_FEATURES = 32
+ROUNDS_ASYNC = 200
+REPEATS_ASYNC = 3
 
 
 def million_client_problem(m: int, device):
@@ -133,6 +149,40 @@ def run_offload_1m(device="cuda", clients: int = M_1M,
                     "resident (m, N) duals in host memory, (|C|, N) tiles "
                     "on the card")
     return row
+
+
+def run_async(device="cuda", rounds: int = ROUNDS_ASYNC,
+              repeats: int = REPEATS_ASYNC) -> dict:
+    """The async row: FedGiA_D's stale-x̄ rounds (periodic arrivals,
+    max_staleness 2) against its synchronous rounds, median wall of
+    `repeats` runs each, run in turns."""
+    device = resolve_device(device)
+    model, batch, _ = make_problem("linreg", 0, device)
+    fed = FedConfig(algorithm="fedgia", num_clients=M_CLIENTS, k0=5,
+                    alpha=0.5, sigma_t=0.15, h_policy="diag_ema")
+    algo = make_algorithm(fed, model.loss, model=model)
+    state = algo.init(model.init(device), make_generator(1),
+                      init_batch=batch)
+    pol = AvailabilityParticipation.from_periods(
+        M_CLIENTS, 1 + (np.arange(M_CLIENTS) % 4), horizon=rounds)
+    sync_walls, async_walls = [], []
+    for _ in range(repeats):
+        sync_walls.append(run_rounds(algo, state, batch, rounds).wall_s)
+        res = run_rounds(algo, state, batch, rounds, participation=pol,
+                         async_rounds=True, max_staleness=2)
+        async_walls.append(res.wall_s)
+    seen = int(res.history["staleness_max"].max())
+    if seen > 2:
+        raise RuntimeError(f"async: staleness {seen} above the bound 2")
+    sync_s, async_s = (float(np.median(w)) for w in (sync_walls,
+                                                    async_walls))
+    return {"wall_s": async_s, "rounds_per_s": rounds / async_s,
+            "max_staleness": 2, "staleness_seen": seen,
+            "sync_wall_s": sync_s, "overhead_async_vs_scan": async_s / sync_s,
+            "rounds": rounds, "clients": M_CLIENTS,
+            "f_xbar": float(res.history["f_xbar"][-1]),
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu")}
 
 
 def main(argv=None):

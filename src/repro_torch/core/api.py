@@ -4,10 +4,12 @@ single-device subset of `repro/core/api.py`).
 Client-stacked tensors carry the client index on axis 0. The reference's
 sharded reductions (psum over a mesh axis) have no counterpart here yet.
 The `_active` twins reduce a round's packed participant tile
-(`store="active"` / `"offload"`, `utils.pytree.ActiveSet`).
+(`store="active"` / `"offload"`, `utils.pytree.ActiveSet`). The stale-x̄
+state of the async rounds (`StaleXbar`) and its views close the module.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -16,16 +18,29 @@ LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, dict]]
 
 
-def client_mean(x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (m,) vector shaped to broadcast against a client-stacked tensor."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def client_mean(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq. (11): the mean over the leading client axis. With `mask` ((m,)
     bool, at least one True) the mean over the masked-in clients only:
-    their sum over their count."""
-    if mask is None:
-        return torch.mean(x, dim=0)
-    keep = mask.reshape((-1,) + (1,) * (x.dim() - 1))
-    num = torch.sum(torch.where(keep, x, 0.0), dim=0)
-    return num / torch.sum(mask.to(torch.float32)).to(num.dtype)
+    their sum over their count. With `weights` ((m,), e.g.
+    `stale_weights`) the weighted mean Σ w_i x_i / Σ w_i, masked-out
+    clients weighing 0; `weights=None` keeps the unweighted paths bit for
+    bit (uniform staleness weighting passes None)."""
+    if weights is None:
+        if mask is None:
+            return torch.mean(x, dim=0)
+        num = torch.sum(torch.where(_rows(mask, x), x, 0.0), dim=0)
+        return num / torch.sum(mask.to(torch.float32)).to(num.dtype)
+    w = weights.to(torch.float32)
+    if mask is not None:
+        w = torch.where(mask, w, 0.0)
+    num = torch.sum(_rows(w, x).to(x.dtype) * x, dim=0)
+    return num / torch.sum(w).to(num.dtype)
 
 
 def client_scalar_mean(x: torch.Tensor) -> torch.Tensor:
@@ -78,16 +93,18 @@ def flat_grad_sq_norm(grads_flat: torch.Tensor, spec) -> torch.Tensor:
 def flat_round_aggregate(contrib: torch.Tensor, grads: torch.Tensor,
                          losses: torch.Tensor, sel_vec: torch.Tensor, spec,
                          mask: Optional[torch.Tensor] = None,
+                         weights: Optional[torch.Tensor] = None,
                          extra_mean: Optional[torch.Tensor] = None):
     """Eq. (11) and the round's diagnostics over the flat client buffers
-    (the baselines' rounds; unsharded, so no collective): the (masked)
-    mean of the (m, N) `contrib`, `flat_grad_sq_norm` of the (m, N) raw
-    gradients, the mean of the (m,) losses and the sum of the (m,)
-    participation indicator `sel_vec`. `extra_mean` is one more (m, N)
-    buffer whose plain all-client column mean is returned too
+    (the baselines' rounds; unsharded, so no collective): the (masked,
+    `weights`-weighted) mean of the (m, N) `contrib`, `flat_grad_sq_norm`
+    of the (m, N) raw gradients, the mean of the (m,) losses and the sum
+    of the (m,) participation indicator `sel_vec`. `extra_mean` is one
+    more (m, N) buffer whose plain all-client column mean is returned too
     (SCAFFOLD's control-variate delta). Returns
     ``(agg, grad_sq_norm, f_mean, n_sel[, extra])``."""
-    out = (client_mean(contrib, mask=mask), flat_grad_sq_norm(grads, spec),
+    out = (client_mean(contrib, mask=mask, weights=weights),
+           flat_grad_sq_norm(grads, spec),
            torch.mean(losses), torch.sum(sel_vec))
     if extra_mean is not None:
         out = out + (torch.mean(extra_mean, dim=0),)
@@ -109,6 +126,7 @@ def flat_grad_sq_norm_active(grads_tile: torch.Tensor, active,
 def flat_round_aggregate_active(contrib_tile: torch.Tensor,
                                 grads_tile: torch.Tensor,
                                 losses_tile: torch.Tensor, active, spec,
+                                weights: Optional[torch.Tensor] = None,
                                 extra_mean_tile: Optional[torch.Tensor] = None):
     """Eq. (11) and the diagnostics over the PACKED participant tile, the
     active-store twin of :func:`flat_round_aggregate` (every tile
@@ -126,24 +144,34 @@ def flat_round_aggregate_active(contrib_tile: torch.Tensor,
 
     The diagnostics are participant means by construction: `f_mean` the
     participants' loss mean, `grad_sq_norm` their gradient's
-    (:func:`flat_grad_sq_norm_active`). `extra_mean_tile` is a plain
-    all-client mean (SCAFFOLD's control-variate delta, exact zeros on
-    frozen clients): its sum over m. Returns
+    (:func:`flat_grad_sq_norm_active`). `weights` are the DENSE (m,)
+    staleness weights (:func:`stale_weights`). `extra_mean_tile` is a
+    plain all-client mean (SCAFFOLD's control-variate delta, exact zeros
+    on frozen clients): its sum over m. Returns
     ``(agg, grad_sq_norm, f_mean, n_sel[, extra])``."""
     gsq = flat_grad_sq_norm_active(grads_tile, active, spec)
     n_sel = active.count
     f_mean = torch.sum(active.zero_invalid(losses_tile)) / n_sel
     m = active.num_clients
     if active.packed:
-        agg = (torch.sum(active.zero_invalid(contrib_tile), dim=0)
-               / n_sel.to(contrib_tile.dtype))
-        out = (agg, gsq, f_mean, n_sel)
+        contrib_z = active.zero_invalid(contrib_tile)
+        if weights is None:
+            num, den = torch.sum(contrib_z, dim=0), n_sel
+        else:
+            w_t = torch.where(active.valid, active.gather(
+                torch.where(active.mask, weights, 0.0)).to(torch.float32),
+                0.0)
+            num = torch.sum(_rows(w_t, contrib_z).to(contrib_z.dtype)
+                            * contrib_z, dim=0)
+            den = torch.sum(w_t)
+        out = (num / den.to(num.dtype), gsq, f_mean, n_sel)
         if extra_mean_tile is not None:
             out = out + (torch.sum(active.zero_invalid(extra_mean_tile),
                                    dim=0) / m,)
         return out
     dense = contrib_tile.new_zeros((m,) + tuple(contrib_tile.shape[1:]))
-    out = (client_mean(active.scatter(dense, contrib_tile), mask=active.mask),
+    out = (client_mean(active.scatter(dense, contrib_tile), mask=active.mask,
+                       weights=weights),
            gsq, f_mean, n_sel)
     if extra_mean_tile is not None:
         extra = torch.zeros_like(dense)
@@ -180,6 +208,197 @@ def per_client_value_and_grad_stacked(loss_fn: LossFn):
         return losses, grads
 
     return value_and_grad
+
+
+# --------------------------------------------------------------------------
+# Stale-x̄ state of the async rounds. The server still aggregates every
+# round (eq. (11)), but each client anchors its local branch on the x̄ it
+# last DOWNLOADED, at most `max_staleness` rounds old. The round's mask is
+# the arrival process: True means the client uploads this round (its
+# contribution was computed against its stale view) and then downloads
+# the fresh x̄.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class StaleXbar:
+    """Per-client stale view of the global anchor x̄ (counterpart of
+    `repro/core/api.py::StaleXbar`, a plain dataclass here).
+
+    * ``anchor``: (m, N) flat buffer, client i's last-downloaded x̄. Under
+      ``max_staleness == 0`` it is never read and stays the stride-0
+      broadcast of the initial x̄.
+    * ``age``: (m,) int32, rounds since client i's last download, as seen
+      entering a round; `init_stale_xbar` sets ``max_staleness + 1`` so
+      that round 0 force-syncs every client.
+    * ``last_used``: (m,) int32, the staleness s of the anchor client i
+      used in the round just run (its branch ran against x̄^(t-s)); the
+      engine reports it as the round's ``staleness``. Always
+      ``last_used <= max_staleness``.
+    * ``max_staleness``, ``weighting``, ``decay``: static Python values
+      (the bound, and the `stale_weights` schedule).
+    * ``view``: the (m, N) buffer the round's per-client anchors are
+      written into (None under ``max_staleness == 0``).
+
+    The views below update the tensors IN PLACE and hand back the same
+    object, so a round captured in a CUDA graph writes the static buffers
+    and allocates no (m, N) tensor.
+    """
+
+    anchor: torch.Tensor
+    age: torch.Tensor
+    last_used: torch.Tensor
+    max_staleness: int = 0
+    weighting: str = "uniform"
+    decay: float = 1.0
+    view: Optional[torch.Tensor] = None
+
+    @property
+    def always_fresh(self) -> bool:
+        """True when max_staleness == 0: every client refreshes every
+        round, so the algorithms keep their synchronous (shared-anchor)
+        path, bit for bit."""
+        return self.max_staleness == 0
+
+    def clone(self) -> "StaleXbar":
+        """A copy with buffers of its own (the chunked driver's warm-up
+        round runs on one)."""
+        own = (lambda t: t) if self.always_fresh else torch.clone
+        return dataclasses.replace(
+            self, anchor=own(self.anchor), age=self.age.clone(),
+            last_used=self.last_used.clone(),
+            view=None if self.view is None else torch.empty_like(self.view))
+
+
+STALE_WEIGHTINGS = ("uniform", "poly", "exp")
+
+
+def init_stale_xbar(anchor: torch.Tensor, m: int, max_staleness: int,
+                    weighting: str = "uniform", decay: float = 1.0,
+                    resident: bool = True) -> StaleXbar:
+    """The engine's initial staleness state from the (N,) flat x̄⁰: every
+    client's view is x̄⁰ and `age` starts past the bound, so round 0
+    force-syncs every client. `weighting`/`decay` select the aggregation
+    schedule (`stale_weights`). `resident=False` (the host-offloaded
+    store, which keeps the (m, N) anchor in host memory) leaves `anchor`
+    the stride-0 broadcast and `view` None."""
+    if weighting not in STALE_WEIGHTINGS:
+        raise ValueError(
+            f"unknown stale weighting {weighting!r}: {STALE_WEIGHTINGS}")
+    if weighting != "uniform" and decay <= 0:
+        # a negative decay would silently UPweight the stalest anchors
+        raise ValueError(f"stale weighting decay must be > 0, got {decay}")
+    buf = broadcast_clients(anchor, m)
+    view = None
+    if max_staleness > 0 and resident:
+        buf = buf.contiguous()
+        view = torch.empty_like(buf)
+    dev = anchor.device
+    return StaleXbar(
+        anchor=buf,
+        age=torch.full((m,), max_staleness + 1, dtype=torch.int32,
+                       device=dev),
+        last_used=torch.zeros((m,), dtype=torch.int32, device=dev),
+        max_staleness=int(max_staleness), weighting=weighting,
+        decay=float(decay), view=view)
+
+
+def stale_weights(stale: Optional[StaleXbar]) -> Optional[torch.Tensor]:
+    """Per-client weights of the staleness-aware eq. (11), from the age s
+    of the anchor each client's contribution was computed against
+    (``stale.last_used``): "uniform" gives None (`client_mean`'s
+    unweighted path, bit for bit), "poly" (1 + s)^(-decay), "exp"
+    exp(-decay · s)."""
+    if stale is None or stale.weighting == "uniform":
+        return None
+    s = stale.last_used.to(torch.float32)
+    if stale.weighting == "poly":
+        return (1.0 + s) ** (-stale.decay)
+    if stale.weighting == "exp":
+        return torch.exp(-stale.decay * s)
+    raise ValueError(
+        f"unknown stale weighting {stale.weighting!r}: {STALE_WEIGHTINGS}")
+
+
+def _advance(stale: StaleXbar, force: torch.Tensor,
+             refresh: torch.Tensor) -> None:
+    """The per-client scalars, in place: the staleness used this round
+    (0 where forced, else the age) and the next round's age (1 where the
+    client downloads, else one more)."""
+    stale.last_used.copy_(stale.age).masked_fill_(force, 0)
+    torch.add(stale.last_used, 1, out=stale.age)
+    stale.age.masked_fill_(refresh, 1)
+
+
+def _fresh(stale: StaleXbar) -> None:
+    stale.age.fill_(1)
+    stale.last_used.zero_()
+
+
+def stale_xbar_view(stale: StaleXbar, xbar: torch.Tensor,
+                    mask: torch.Tensor):
+    """The round's per-client anchors, and the advanced stale state.
+
+    Per client i at round t (after x̄ᵗ exists):
+      1. force-sync: where ``age_i > max_staleness`` the client downloads
+         x̄ᵗ before computing (the server blocks on it);
+      2. the round runs against ``anchor_i`` (staleness 0 if forced, else
+         ``age_i``);
+      3. arrivals (``mask_i``) upload and then download x̄ᵗ: their view
+         re-anchors and their age resets to 1; the others age by one.
+
+    With ``max_staleness == 0`` the (m, N) anchors are the stride-0
+    broadcast of x̄ and no select runs. Otherwise the anchors are written
+    into ``stale.view`` and the refreshed views into ``stale.anchor``,
+    both in place: the round reads ``stale.view``, which stays unchanged
+    until the next round's view. Returns ``(anchors, stale)``.
+    """
+    m = stale.age.shape[0]
+    if stale.always_fresh:
+        _fresh(stale)
+        return broadcast_clients(xbar, m), stale
+    force = stale.age > stale.max_staleness
+    refresh = torch.logical_or(mask, force)
+    view = torch.where(_rows(force, stale.anchor), xbar, stale.anchor,
+                       out=stale.view)
+    torch.where(_rows(refresh, view), xbar, view, out=stale.anchor)
+    _advance(stale, force, refresh)
+    return view, stale
+
+
+def stale_xbar_view_active(stale: StaleXbar, xbar: torch.Tensor, active):
+    """Active-store twin of :func:`stale_xbar_view`: the anchors of the
+    packed tile only, (capacity, N), gathered from the resident (m, N)
+    view (padding rows carry a clamped duplicate, masked downstream like
+    any tile row). `age` and `last_used` stay dense (m,) and advance as
+    the dense store's; the resident anchor takes one in-place row select.
+
+    Under the host-offloaded store (``active.tile_state``) ``stale.anchor``
+    arrives as the gathered (capacity, N) tile and the resident anchor is
+    in host memory: the refresh write is the engine's, so ``stale.anchor``
+    comes back as the fresh (N,) x̄, whose exact bits the engine writes
+    into the refreshed host rows. Returns ``(anchor_tile, stale)``."""
+    if stale.always_fresh:
+        _fresh(stale)
+        return broadcast_clients(xbar, active.capacity), stale
+    force = stale.age > stale.max_staleness
+    refresh = torch.logical_or(active.mask, force)
+    tile = active.gather_state(stale.anchor)
+    anchor_t = torch.where(_rows(active.gather(force), tile), xbar, tile)
+    if active.tile_state:
+        stale.anchor = xbar
+    else:
+        torch.where(_rows(refresh, stale.anchor), xbar, stale.anchor,
+                    out=stale.anchor)
+    _advance(stale, force, refresh)
+    return anchor_t, stale
+
+
+def stale_anchor(stale: Optional[StaleXbar], xbar: torch.Tensor):
+    """The anchor of the round whose view has just run: x̄ itself without
+    stale state or under ``always_fresh``, else the (m, N) per-client
+    view that `stale_xbar_view` wrote into ``stale.view``."""
+    if stale is None or stale.always_fresh:
+        return xbar
+    return stale.view
 
 
 def make_algorithm(fed, loss_fn: LossFn, model=None):

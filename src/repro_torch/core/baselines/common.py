@@ -45,6 +45,19 @@ class FlatBaseline:
         return {"x": {k: v.to(sdt) for k, v in params0.items()},
                 "round": 0, "step": 0, "rng": gen}
 
+    def _anchors(self, state, rows: int, mask=None, stale=None,
+                 active=None):
+        """The (rows, N) starting points of the round's local work: the
+        stride-0 broadcast of x̄, or, in an async round (`stale`), each
+        client's last-downloaded x̄ (`api.stale_xbar_view`, or its
+        `_active` twin on the packed tile when `active` is given). Returns
+        anchors; the stale state advances in place."""
+        if stale is None:
+            return api.broadcast_clients(state["x"], rows)
+        if active is None:
+            return api.stale_xbar_view(stale, state["x"], mask)[0]
+        return api.stale_xbar_view_active(stale, state["x"], active)[0]
+
     def _result(self, state, aggregate, grad_evals, **updates):
         """(new state, metrics) of a round from the outputs of
         `api.flat_round_aggregate` or its `_active` twin (x̄', |grad|^2,

@@ -51,24 +51,28 @@ class FedPD(FlatBaseline):
             anchor = xi + eta * lam
         return anchor, lam, losses0, grads0
 
-    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+    def round_flat(self, state, batch, spec, mask=None, stale=None,
+                   donate_kernel=False):
         """One round on the flat state (`lam` an (m, N) buffer): k0
         primal-dual steps per client from the broadcast x̄, then eq. (11)
         over the clients' anchors. Under `mask`, a masked-out client keeps
-        its duals and is not aggregated. The metrics read the first inner
-        iteration of the first step (see `FedAvg.round_flat`)."""
+        its duals and is not aggregated. In an async round (`stale`) each
+        client's primal-dual anchor resets to its last-downloaded x̄, not
+        the fresh one. The metrics read the first inner iteration of the
+        first step (see `FedAvg.round_flat`)."""
         fed = self.fed
-        anchor, lam, losses0, grads0 = self._local(
-            state, batch, spec,
-            api.broadcast_clients(state["x"], fed.num_clients), state["lam"])
+        xc = self._anchors(state, fed.num_clients, mask, stale)
+        anchor, lam, losses0, grads0 = self._local(state, batch, spec, xc,
+                                                   state["lam"])
         if mask is not None:
             lam = api.masked_update(mask, lam, state["lam"])
         agg = api.flat_round_aggregate(
             anchor, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask)
-        return self._result(state, agg, fed.k0 * fed.inner_steps, lam=lam)
+            mask=mask, weights=api.stale_weights(stale))
+        return self._result(state, agg, fed.k0 * fed.inner_steps,
+                            lam=lam)
 
-    def round_flat_active(self, state, batch, spec, active,
+    def round_flat_active(self, state, batch, spec, active, stale=None,
                           donate_kernel=False):
         """`round_flat` on the packed participant tile (store="active"):
         the participants' duals are GATHERED from the resident (m, N)
@@ -77,11 +81,14 @@ class FedPD(FlatBaseline):
         `masked_update`, row for row), and the padding rows' writes are
         dropped."""
         fed = self.fed
+        xc = self._anchors(state, active.capacity, stale=stale,
+                           active=active)
         anchor, lam_t, losses0, grads0 = self._local(
-            state, active.gather_tree(batch), spec,
-            api.broadcast_clients(state["x"], active.capacity),
+            state, active.gather_tree(batch), spec, xc,
             active.gather_state(state["lam"]))
         lam = active.scatter_state(state["lam"], lam_t)
-        agg = api.flat_round_aggregate_active(anchor, grads0, losses0,
-                                              active, spec)
-        return self._result(state, agg, fed.k0 * fed.inner_steps, lam=lam)
+        agg = api.flat_round_aggregate_active(
+            anchor, grads0, losses0, active, spec,
+            weights=api.stale_weights(stale))
+        return self._result(state, agg, fed.k0 * fed.inner_steps,
+                            lam=lam)

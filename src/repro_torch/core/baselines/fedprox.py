@@ -36,29 +36,32 @@ class FedProx(FlatBaseline):
                 x = x - lr * g.to(x.dtype)
         return x, losses0, grads0
 
-    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+    def round_flat(self, state, batch, spec, mask=None, stale=None,
+                   donate_kernel=False):
         """One round on the flat state: k0 steps of `inner_steps` proximal
         GD iterations toward the broadcast x̄, then eq. (11) and the
         diagnostics (see `FedAvg.round_flat`). The metrics read the first
-        iteration's losses and gradients."""
-        x, losses0, grads0 = self._local(
-            state, batch, spec,
-            api.broadcast_clients(state["x"], self.fed.num_clients))
+        iteration's losses and gradients. In an async round (`stale`) a
+        straggler starts from, and proxes toward, its stale anchor."""
+        xc = self._anchors(state, self.fed.num_clients, mask, stale)
+        x, losses0, grads0 = self._local(state, batch, spec, xc)
         agg = api.flat_round_aggregate(
             x, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask)
+            mask=mask, weights=api.stale_weights(stale))
         return self._result(state, agg,
                             self.fed.k0 * self.fed.inner_steps)
 
-    def round_flat_active(self, state, batch, spec, active,
+    def round_flat_active(self, state, batch, spec, active, stale=None,
                           donate_kernel=False):
         """`round_flat` on the packed participant tile (store="active"):
         the proximal trajectories exist only for the gathered clients.
         See `FedAvg.round_flat_active`."""
-        x, losses0, grads0 = self._local(
-            state, active.gather_tree(batch), spec,
-            api.broadcast_clients(state["x"], active.capacity))
-        agg = api.flat_round_aggregate_active(x, grads0, losses0, active,
-                                              spec)
+        xc = self._anchors(state, active.capacity, stale=stale,
+                           active=active)
+        x, losses0, grads0 = self._local(state, active.gather_tree(batch),
+                                         spec, xc)
+        agg = api.flat_round_aggregate_active(
+            x, grads0, losses0, active, spec,
+            weights=api.stale_weights(stale))
         return self._result(state, agg,
                             self.fed.k0 * self.fed.inner_steps)

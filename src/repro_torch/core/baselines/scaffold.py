@@ -53,26 +53,29 @@ class Scaffold(FlatBaseline):
         denom = fed.k0 * lr
         return y, ci - c[None] + (xc - y) / denom, losses0, grads0
 
-    def round_flat(self, state, batch, spec, mask=None, donate_kernel=False):
+    def round_flat(self, state, batch, spec, mask=None, stale=None,
+                   donate_kernel=False):
         """One round on the flat state: the local steps and control update
         from the broadcast x̄ (`_local`), then eq. (11) over the
         trajectories with the variates' delta mean riding the same
         aggregate (`extra_mean`). Under `mask`, a masked-out client keeps
         its variate (a zero delta: c moves by |S|/m of the participants'
-        mean) and is not aggregated. Metrics as `FedAvg.round_flat`."""
+        mean) and is not aggregated. In an async round (`stale`) the
+        steps start from, and the option-II control reads, each client's
+        stale anchor. Metrics as `FedAvg.round_flat`."""
         ci = state["ci"]
-        y, ci_new, losses0, grads0 = self._local(
-            state, batch, spec,
-            api.broadcast_clients(state["x"], self.fed.num_clients), ci)
+        xc = self._anchors(state, self.fed.num_clients, mask, stale)
+        y, ci_new, losses0, grads0 = self._local(state, batch, spec, xc, ci)
         if mask is not None:
             ci_new = api.masked_update(mask, ci_new, ci)
         *agg, dci = api.flat_round_aggregate(
             y, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask, extra_mean=ci_new - ci)
-        return self._result(state, agg, self.fed.k0, c=state["c"] + dci,
-                            ci=ci_new)
+            mask=mask, weights=api.stale_weights(stale),
+            extra_mean=ci_new - ci)
+        return self._result(state, agg, self.fed.k0,
+                            c=state["c"] + dci, ci=ci_new)
 
-    def round_flat_active(self, state, batch, spec, active,
+    def round_flat_active(self, state, batch, spec, active, stale=None,
                           donate_kernel=False):
         """`round_flat` on the packed participant tile (store="active"):
         the participants' variates are GATHERED from the resident (m, N)
@@ -81,13 +84,15 @@ class Scaffold(FlatBaseline):
         all-client 1/m: frozen clients' deltas are exact zeros, so the
         tile's delta summed over m (`extra_mean_tile`) is the dense
         round's mean, bit for bit."""
+        xc = self._anchors(state, active.capacity, stale=stale,
+                           active=active)
         ci_t = active.gather_state(state["ci"])
         y, ci_new_t, losses0, grads0 = self._local(
-            state, active.gather_tree(batch), spec,
-            api.broadcast_clients(state["x"], active.capacity), ci_t)
+            state, active.gather_tree(batch), spec, xc, ci_t)
         ci = active.scatter_state(state["ci"], ci_new_t)
         *agg, dci = api.flat_round_aggregate_active(
             y, grads0, losses0, active, spec,
+            weights=api.stale_weights(stale),
             extra_mean_tile=ci_new_t - ci_t)
-        return self._result(state, agg, self.fed.k0, c=state["c"] + dci,
-                            ci=ci)
+        return self._result(state, agg, self.fed.k0,
+                            c=state["c"] + dci, ci=ci)

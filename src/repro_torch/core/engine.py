@@ -41,6 +41,16 @@ back, in either driver; "offload" keeps the resident client buffers in
 host memory (`_run_offload_loop`). `aggregate="packed"` sums the tile
 directly in eq. (11) instead of scattering it back to the dense layout.
 
+Async rounds (`async_rounds=True`, the reference's stale-x̄ engine): the
+round's mask is the ARRIVAL process, and each client computes against the
+x̄ it last downloaded, at most `max_staleness` rounds old
+(`api.StaleXbar`, whose buffers every round updates in place: static
+buffers of a captured chunk). `clock=` (`core/clock.py`) derives the
+arrival mask from simulated per-client finish times instead of a policy:
+the clock ticks on the host where a policy draws, and each round's
+simulated time joins the history as `sim_time`. `staleness` ((m,) a
+round) and `staleness_max` join it in every async run.
+
 `chunk_size="auto"` tunes the chunk length on the live run, as the
 reference does: the first chunks run the lengths of
 `AUTO_CHUNK_CANDIDATES` in turn (each clipped to the rounds left), each
@@ -58,7 +68,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.core import graphs, selection
+from repro_torch.core import api, graphs, selection
+from repro_torch.core.clock import ClockArrivals
 from repro_torch.core.selection import copy_generator
 from repro_torch.kernels import launch_counters
 from repro_torch.utils import pytree as pt
@@ -85,6 +96,10 @@ class RoundResult:
     # the participation policy's state after the last round that ran
     # (None without a policy)
     policy_state: Any = None
+    # the clock's state after the last round that ran, and the async
+    # rounds' stale-x̄ state (None without a clock / async rounds)
+    clock_state: Any = None
+    stale: Any = None
     # store="offload": host_resident_bytes, device_peak_bytes (None off
     # the card) and copy_s; empty for the dense and active stores
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -126,7 +141,10 @@ AUTO_CHUNK_CANDIDATES = (8, 32, 128)
 def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                tol_metric: str = "grad_sq_norm", scan: bool = True,
                chunk_size=0, participation=None, store: str = "dense",
-               aggregate: str = "dense") -> RoundResult:
+               aggregate: str = "dense", async_rounds: bool = False,
+               max_staleness: int = 0, clock=None,
+               stale_weighting: str = "uniform",
+               stale_decay: float = 1.0) -> RoundResult:
     """Run up to `num_rounds` communication rounds of `algo`.
 
     tol > 0 enables the paper's stopping rule (eq. 35). `scan=True` runs
@@ -140,8 +158,9 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     every round takes (None: no mask; FedGiA draws its own split).
 
     `store`: "dense" (default), "active" or "offload" (see the module
-    docstring); the last two need a participation policy, whose
-    `active_capacity` sizes the tile. The states are bitwise equal
+    docstring); the last two need a participation policy or a clock,
+    whose `active_capacity` sizes the tile (m under a clock). The states
+    are bitwise equal
     between stores, and so are `selected`, `cr` and `local_grad_evals`;
     `f_xbar` and `grad_sq_norm` become PARTICIPANT means (the server never
     contacts the others), except for FedGiA (`active_tile =
@@ -150,6 +169,14 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     and fills `RoundResult.extras`. `aggregate`: "dense" (default) or
     "packed" (active and offload only: eq. (11) sums the participant
     tile directly, at fp tolerance).
+
+    `async_rounds`: stale-x̄ rounds (module docstring); they need an
+    arrival process, a policy or a clock. `max_staleness=0` is bitwise
+    the synchronous masked run. `clock`: a `core.clock.ComputeClock`
+    (implies async rounds, excludes a policy, models `algo`'s m
+    clients). `stale_weighting` ("uniform", "poly" or "exp", with
+    `stale_decay` > 0) turns eq. (11) into the staleness-weighted mean;
+    anything but "uniform" needs async rounds.
 
     The caller's `state` is left as it was: its tensors are copied into
     fresh flat buffers at entry and its generator is copied, so every
@@ -164,21 +191,33 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     if auto and not scan:
         raise ValueError("chunk_size='auto' tunes the chunk length — the "
                          "legacy per-round loop (scan=False) has no chunks")
-    cap = _check_store(algo, store, aggregate, participation, auto)
+    m = algo.fed.num_clients
+    async_rounds = _check_async(m, participation, async_rounds,
+                                max_staleness, clock, stale_weighting)
+    arrivals = participation if clock is None else ClockArrivals(clock)
+    cap = _check_store(algo, store, aggregate, arrivals, auto)
     packed = aggregate == "packed"
     spec = ravel_spec(state["x"])
     flat = flatten_state(algo, state, spec)
     flat["rng"] = copy_generator(state["rng"])
+    stale = None
+    if async_rounds:
+        stale = api.init_stale_xbar(flat["x"], m, max_staleness,
+                                    stale_weighting, stale_decay,
+                                    resident=store != "offload")
     if num_rounds <= 0:
-        pstate = participation.init() if participation is not None else None
-        return RoundResult(unflatten_state(algo, flat, spec), {}, 0, False,
-                           0.0, policy_state=pstate)
+        astate = arrivals.init() if arrivals is not None else None
+        return _with_clock(RoundResult(
+            unflatten_state(algo, flat, spec), {}, 0, False, 0.0,
+            policy_state=astate, stale=stale), clock)
     if store == "offload":
-        return _run_offload_loop(algo, flat, batch, spec, num_rounds, tol,
-                                 tol_metric, participation, cap, packed)
+        return _with_clock(_run_offload_loop(
+            algo, flat, batch, spec, num_rounds, tol, tol_metric, arrivals,
+            cap, packed, stale), clock)
     if not scan:
-        return _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol,
-                                tol_metric, participation, cap, packed)
+        return _with_clock(_run_legacy_loop(
+            algo, flat, batch, spec, num_rounds, tol, tol_metric, arrivals,
+            cap, packed, stale), clock)
     plan = []
     if auto:
         rest = num_rounds
@@ -205,14 +244,58 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
             # with tol > 0 a converging run may never reach the remainder:
             # it is captured on use
             lengths.add(num_rounds % chunk)
-    return _Chunked(algo, flat, batch, spec, tol, tol_metric, max(lengths),
-                    participation, cap, packed).run(num_rounds, chunk, plan,
-                                                    lengths)
+    return _with_clock(_Chunked(
+        algo, flat, batch, spec, tol, tol_metric, max(lengths), arrivals,
+        cap, packed, stale).run(num_rounds, chunk, plan, lengths), clock)
+
+
+def _check_async(m, participation, async_rounds, max_staleness, clock,
+                 stale_weighting):
+    """The reference's checks of the async and clock arguments, with its
+    messages. Returns whether the rounds are async (a clock implies
+    it)."""
+    if clock is not None:
+        if participation is not None:
+            raise ValueError(
+                "clock= and participation= are mutually exclusive: the "
+                "clock DERIVES the arrival mask from simulated finish "
+                "times (core/clock.py), a policy samples it")
+        if clock.m != m:
+            raise ValueError(
+                f"clock models {clock.m} clients, algorithm has {m}")
+        async_rounds = True  # a clock IS an arrival process
+    if stale_weighting not in api.STALE_WEIGHTINGS:
+        raise ValueError(
+            f"unknown stale_weighting {stale_weighting!r}: "
+            f"{api.STALE_WEIGHTINGS}")
+    if stale_weighting != "uniform" and not async_rounds:
+        raise ValueError(
+            "stale_weighting only applies to async rounds — pass "
+            "async_rounds=True (with a participation policy) or clock=")
+    if async_rounds:
+        if participation is None and clock is None:
+            raise ValueError(
+                "async_rounds requires an arrival process — a participation "
+                "policy (e.g. selection.AvailabilityParticipation) or a "
+                "clock (core.clock.ComputeClock)")
+        if max_staleness < 0:
+            raise ValueError(
+                f"max_staleness must be >= 0, got {max_staleness}")
+    return async_rounds
+
+
+def _with_clock(res, clock):
+    """Under a clock the arrival state the drivers return is the clock's."""
+    if clock is not None:
+        res.clock_state, res.policy_state = res.policy_state, None
+    return res
 
 
 def _check_store(algo, store, aggregate, participation, auto):
     """The reference's checks of `store` and `aggregate`, with its
-    messages. Returns the tile's capacity (None for the dense store)."""
+    messages. `participation` is the round's arrival process (a policy,
+    or a clock as `ClockArrivals`). Returns the tile's capacity (None for
+    the dense store)."""
     if store not in ("dense", "active", "offload"):
         raise ValueError(
             f"unknown store {store!r}: ('dense', 'active', 'offload')")
@@ -221,7 +304,8 @@ def _check_store(algo, store, aggregate, participation, auto):
         if participation is None:
             raise ValueError(
                 f"store={store!r} needs a per-round participant set to pack "
-                "the tile from — pass participation= (core.selection)")
+                "the tile from — pass participation= (core.selection) or "
+                "clock= (core.clock)")
         if not hasattr(algo, "round_flat_active"):
             raise ValueError(
                 f"algorithm {getattr(algo, 'name', algo)!r} does not "
@@ -241,22 +325,53 @@ def _check_store(algo, store, aggregate, participation, auto):
     return cap
 
 
-def _round(algo, st, batch, spec, mask, slots, cap, packed):
+def _round(algo, st, batch, spec, mask, slots, cap, packed, stale=None):
     """One round of the dense store (`cap` None) or, on the round's
-    `ActiveSet` of (mask, slots), of the active store."""
+    `ActiveSet` of (mask, slots), of the active store; an async round
+    when `stale` is given (it advances in place, and the metrics gain
+    the staleness)."""
     if cap is None:
-        return algo.round_flat(st, batch, spec, mask=mask,
-                               donate_kernel=True)
-    return algo.round_flat_active(
-        st, batch, spec, pt.active_set(mask, slots, cap, packed=packed),
-        donate_kernel=True)
+        st, met = algo.round_flat(st, batch, spec, mask=mask, stale=stale,
+                                  donate_kernel=True)
+    else:
+        st, met = algo.round_flat_active(
+            st, batch, spec, pt.active_set(mask, slots, cap, packed=packed),
+            stale=stale, donate_kernel=True)
+    if stale is None:
+        return st, met
+    return st, _with_staleness_metrics(met, stale)
+
+
+def _with_staleness_metrics(met, stale):
+    """The async diagnostics of a round: `staleness`, the (m,) age of the
+    anchor each client used (a copy: the stale state advances in place),
+    and its max."""
+    met = dict(met)
+    met["staleness"] = stale.last_used.clone()
+    met["staleness_max"] = torch.max(stale.last_used)
+    return met
+
+
+def _sim_time(arrivals, astate):
+    """The round's simulated time under a clock (the tick's new `now`),
+    else None."""
+    return astate["now"] if isinstance(arrivals, ClockArrivals) else None
+
+
+def _history(hist, sims):
+    """Stack the per-round metrics, with the clock's times as
+    `sim_time`."""
+    history = {k: _stack([h[k] for h in hist]) for k in hist[0]}
+    if sims:
+        history["sim_time"] = _stack(sims)
+    return history
 
 
 def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
-                     participation, cap, packed):
+                     participation, cap, packed, stale=None):
     device = flat["x"].device
     pstate = participation.init() if participation is not None else None
-    hist = []
+    hist, sims = [], []
     stopped = False
     draw = 0.0
     t0 = time.perf_counter()
@@ -269,7 +384,11 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
                 slots = pt.pack_slots(mask, cap).to(device)
             draw += time.perf_counter() - td
             mask = mask.to(device)
-        flat, met = _round(algo, flat, batch, spec, mask, slots, cap, packed)
+            now = _sim_time(participation, pstate)
+            if now is not None:
+                sims.append(now)
+        flat, met = _round(algo, flat, batch, spec, mask, slots, cap, packed,
+                           stale)
         hist.append(met)
         if tol > 0 and float(met[tol_metric]) < tol:
             stopped = True
@@ -277,9 +396,9 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    history = {k: _stack([h[k] for h in hist]) for k in hist[0]}
-    return RoundResult(unflatten_state(algo, flat, spec), history, len(hist),
-                       stopped, wall, draw_s=draw, policy_state=pstate)
+    return RoundResult(unflatten_state(algo, flat, spec),
+                       _history(hist, sims), len(hist), stopped, wall,
+                       draw_s=draw, policy_state=pstate, stale=stale)
 
 
 def _counts():
@@ -322,16 +441,22 @@ class _Chunked:
     Launch counts: a capture makes no launch, so the counts that the
     wrappers add while a chunk is captured are taken back, and each
     replay adds the launches recorded by the rounds that ran in it.
+
+    Async rounds: the `api.StaleXbar` buffers are static buffers of the
+    chunk too (every round writes them in place). A clock ticks on the
+    host beside the mask draws, and its simulated times stay there.
     """
 
     def __init__(self, algo, flat, batch, spec, tol, tol_metric, longest,
-                 participation, cap=None, packed=False):
+                 participation, cap=None, packed=False, stale=None):
         """`longest`: the most rounds a chunk of this run can have, which
-        sizes the static mask and history buffers. `cap`: the active
-        store's tile capacity (None: the dense store); the chunk's packed
-        ids (`ActiveSet.slots`) then ride beside its masks."""
+        sizes the static mask and history buffers. `participation`: the
+        arrival process (a policy, or a clock as `ClockArrivals`). `cap`:
+        the active store's tile capacity (None: the dense store); the
+        chunk's packed ids (`ActiveSet.slots`) then ride beside its
+        masks. `stale`: the async rounds' state."""
         self.algo, self.batch, self.spec = algo, batch, spec
-        self.cap, self.packed = cap, packed
+        self.cap, self.packed, self.stale = cap, packed, stale
         self.tol, self.tol_metric, self.longest = tol, tol_metric, longest
         self.gen = flat["rng"]
         self.policy = participation
@@ -372,7 +497,7 @@ class _Chunked:
         mask = self.masks[i] if self.selects else None
         slots = self.slots[i] if self.cap is not None else None
         st, met = _round(self.algo, st, self.batch, self.spec, mask, slots,
-                         self.cap, self.packed)
+                         self.cap, self.packed, self.stale)
         for k, v in met.items():
             if torch.is_tensor(v):
                 self.hist[k][i].copy_(v)
@@ -447,6 +572,7 @@ class _Chunked:
 
         def warm():
             copies = {k: v.clone() for k, v in self.st.items()}
+            stale = None if self.stale is None else self.stale.clone()
             mask = slots = None
             if self.cap is not None:
                 slots = torch.arange(self.cap, device=self.device)
@@ -455,13 +581,15 @@ class _Chunked:
             elif self.selects:
                 mask = torch.ones_like(self.masks[0])
             return _round(self.algo, copies, self.batch, self.spec, mask,
-                          slots, self.cap, self.packed)[1]
+                          slots, self.cap, self.packed, stale)[1]
 
         met = self._on_capture_streams(warm) if self.cuda else warm()
         _set_counts(counts)
         for k, v in met.items():
-            dt = v.dtype if torch.is_tensor(v) else torch.float32
-            self.hist[k] = torch.zeros((self.longest,), dtype=dt,
+            dt, shape = torch.float32, ()
+            if torch.is_tensor(v):
+                dt, shape = v.dtype, tuple(v.shape)
+            self.hist[k] = torch.zeros((self.longest,) + shape, dtype=dt,
                                        device=self.device)
 
     def _graph(self, length):
@@ -480,13 +608,14 @@ class _Chunked:
         `first_round`) or else from the run's generator, pack each into
         its `ActiveSet.slots` under the active store, and send them to
         the static buffers. Returns the draw state before each round and
-        after the last, so a stop can put back the state at it, and the
-        host seconds the draws and packs took."""
+        after the last, so a stop can put back the state at it, the host
+        seconds the draws and packs took, and, under a clock, the
+        rounds' simulated times."""
         if self.cuda:
             self.uploaded.synchronize()  # the last upload has left
         m, alpha = self.masks.shape[1], self.algo.fed.alpha
         t0 = time.perf_counter()
-        states = []
+        states, sims = [], []
         for i in range(length):
             if self.policy is None:
                 states.append(self.gen.get_state())
@@ -496,6 +625,9 @@ class _Chunked:
                 states.append(self.pstate)
                 self.host_masks[i], self.pstate = self.policy.mask(
                     self.pstate, first_round + i)
+                now = _sim_time(self.policy, self.pstate)
+                if now is not None:
+                    sims.append(now)
             if self.cap is not None:
                 self.host_slots[i] = pt.pack_slots(self.host_masks[i],
                                                    self.cap)
@@ -509,7 +641,7 @@ class _Chunked:
                                       non_blocking=self.cuda)
         if self.cuda:
             self.uploaded.record()
-        return states, draw
+        return states, draw, sims
 
     def run(self, num_rounds, chunk, plan, lengths):
         """Run the rounds in chunks of `chunk`, after the timed chunks of
@@ -525,7 +657,7 @@ class _Chunked:
         capture = time.perf_counter() - t0
 
         plan, timings = list(plan), []
-        chunks, rounds_run, stopped, draw = [], 0, False, 0.0
+        chunks, sims, rounds_run, stopped, draw = [], [], 0, False, 0.0
         t0 = time.perf_counter()
         while rounds_run < num_rounds and not stopped:
             timed = bool(plan)
@@ -533,7 +665,8 @@ class _Chunked:
                                                    num_rounds - rounds_run)
             tc = time.perf_counter()
             if self.selects:
-                states, dt = self._upload_masks(length, rounds_run)
+                states, dt, chunk_sims = self._upload_masks(length,
+                                                            rounds_run)
                 draw += dt
             if self.cuda:
                 tg = time.perf_counter()
@@ -559,6 +692,8 @@ class _Chunked:
                 for d in per_round[:live]:
                     _add_counts(d)
             chunks.append({k: v[:live].clone() for k, v in self.hist.items()})
+            if self.selects:
+                sims += chunk_sims[:live]
             rounds_run += live
             if stopped and self.selects:
                 if self.policy is None:
@@ -571,13 +706,15 @@ class _Chunked:
 
         history = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()
                    for k in self.hist}
+        if sims:
+            history["sim_time"] = _stack(sims)
         flat = dict(self.st, rng=self.gen)
         for k in self.counters:
             flat[k] = int(self.st[k])
         return RoundResult(unflatten_state(self.algo, flat, self.spec),
                            history, rounds_run, stopped, wall, capture,
                            chunk_size=chunk, draw_s=draw,
-                           policy_state=self.pstate)
+                           policy_state=self.pstate, stale=self.stale)
 
 
 def _nbytes(tensors):
@@ -603,10 +740,10 @@ class _Staged:
 
 
 def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
-                      participation, cap, packed):
+                      participation, cap, packed, stale=None):
     """Host-driven round loop of ``run_rounds(store="offload")``
     (counterpart of the reference's `_run_offload_loop`, without its
-    async, quorum and checkpoint branches).
+    quorum and checkpoint branches).
 
     The resident `flat_client_keys` buffers and, for a participant tile,
     the per-client batch live in host memory (`pt.OffloadStore`, pinned
@@ -627,6 +764,16 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
          buffers, and the host scatters them into the store (the
          ActiveSet's dropped padding writes).
 
+    Async rounds (`stale`, built with ``resident=False``): the (m, N)
+    stale anchor lives in host memory beside the store, and the (m,) ages
+    on the card. The participants' anchor rows ride with the state tiles
+    (FedGiA's population round takes the whole buffer and writes it back
+    as it does z, π and h); after a participant-tile round the host
+    applies the refresh write, ``anchor[refresh] = x̄`` with the rows
+    ``mask | (age > max_staleness)`` of the round's entry and the fresh
+    x̄ that `api.stale_xbar_view_active` hands back: the same row select
+    as the active store's, so the loop stays bitwise "active".
+
     Steps 1-2 are DOUBLE-BUFFERED for what does not depend on the round:
     the next round's mask, ids and batch tile are drawn, gathered and
     copied while the current round runs on the card; the state tiles wait
@@ -635,11 +782,11 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     population tile (`active_tile = "population"`) moves the whole
     client buffers each way instead, and its batch stays on the card.
 
-    `RoundResult.extras`: `host_resident_bytes` (the store and the host
-    batch), `device_peak_bytes` (on the card: the most bytes allocated
-    above the loop's start, `torch.cuda.max_memory_allocated` after
-    `reset_peak_memory_stats`, plus the device-resident state the rounds
-    read; None on the CPU) and `copy_s` (host seconds gathering, copying
+    `RoundResult.extras`: `host_resident_bytes` (the store, the host
+    batch and the stale anchor), `device_peak_bytes` (on the card: the
+    most bytes allocated above the loop's start,
+    `torch.cuda.max_memory_allocated` after `reset_peak_memory_stats`,
+    plus the device-resident state the rounds read; None on the CPU) and `copy_s` (host seconds gathering, copying
     back and scattering the tiles, the wait for the round excluded).
     """
     device = flat["x"].device
@@ -651,7 +798,11 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     gstate = flat
     batch_h = None if population else {
         k: pt.host_put(v, cuda) for k, v in batch.items()}
-    host_bytes = store.nbytes + _nbytes((batch_h or {}).values())
+    anchor_h = None  # the async rounds' (m, N) stale anchor, on the host
+    if stale is not None and not stale.always_fresh:
+        anchor_h = pt.host_put(stale.anchor, cuda)
+    host_bytes = store.nbytes + _nbytes(
+        (*(batch_h or {}).values(), anchor_h))
 
     if cuda:
         torch.cuda.synchronize(device)
@@ -665,18 +816,25 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     else:
         on_side = contextlib.nullcontext
     staged = [_Staged(m, cap, batch_h, device, cuda) for _ in range(2)]
+    # the buffers that move to the card and back each round: the state
+    # tiles, with the stale anchor's rows as "anchor"
+    moving = dict(store.buffers)
+    if anchor_h is not None:
+        moving["anchor"] = anchor_h
     if population:
-        host_tiles = store.buffers
+        host_tiles = moving
         dev_tiles = {k: torch.empty_like(b, device=device)
-                     for k, b in store.buffers.items()}
+                     for k, b in moving.items()}
     else:
         host_tiles = {k: torch.empty((cap,) + tuple(b.shape[1:]),
                                      dtype=b.dtype, pin_memory=cuda)
-                      for k, b in store.buffers.items()}
+                      for k, b in moving.items()}
         dev_tiles = {k: torch.empty_like(t, device=device)
                      for k, t in host_tiles.items()}
         back = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
-                for k, t in host_tiles.items()}
+                for k, t in host_tiles.items() if k != "anchor"}
+    if anchor_h is not None and population:
+        stale.view = torch.empty_like(dev_tiles["anchor"])
 
     pstate = participation.init()
     draw = copy = 0.0
@@ -704,7 +862,7 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
                 st.uploaded.record()
         return aset
 
-    hist, stopped, pstate_run = [], False, None
+    hist, sims, stopped, pstate_run = [], [], False, None
     t0 = time.perf_counter()
     aset_h = stage(0, 0)
     for i in range(num_rounds):
@@ -712,6 +870,8 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
         tc = time.perf_counter()
         if not population:
             store.gather_tiles(aset_h, out=host_tiles)
+            if anchor_h is not None:
+                aset_h.gather(anchor_h, out=host_tiles["anchor"])
         copy += time.perf_counter() - tc
         with on_side():
             for k, h in host_tiles.items():
@@ -724,12 +884,26 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
                              tile_state=not population, packed=packed)
         round_batch = batch if population else {
             k: d for k, (_, d) in st.batch.items()}
-        out, met = algo.round_flat_active(dict(gstate, **dev_tiles),
+        state_tiles = {k: dev_tiles[k] for k in keys}
+        refresh = None
+        if anchor_h is not None:
+            stale.anchor = dev_tiles["anchor"]
+            if not population:  # the rows the host write refreshes
+                refresh = torch.logical_or(
+                    aset.mask, stale.age > stale.max_staleness)
+        out, met = algo.round_flat_active(dict(gstate, **state_tiles),
                                           round_batch, spec, aset,
-                                          donate_kernel=True)
+                                          stale=stale, donate_kernel=True)
+        if stale is not None:
+            met = _with_staleness_metrics(met, stale)
         tiles = {k: out.pop(k) for k in keys}
+        if anchor_h is not None and population:
+            tiles["anchor"] = stale.anchor
         gstate = out
         pstate_run = pstate
+        now = _sim_time(participation, pstate)
+        if now is not None:
+            sims.append(now)
         if cuda:
             done = torch.cuda.Event()
             done.record()
@@ -738,7 +912,7 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
         if cuda:
             done.synchronize()
         tc = time.perf_counter()
-        dest = store.buffers if population else back
+        dest = moving if population else back
         with on_side():
             for k, t in tiles.items():
                 dest[k].copy_(t, non_blocking=cuda)
@@ -746,6 +920,9 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
             side.synchronize()
         if not population:
             store.scatter_tiles(aset_h, back)
+            if refresh is not None:
+                # the active store's row select, on the host copy
+                anchor_h[refresh.cpu()] = stale.anchor.cpu()
         copy += time.perf_counter() - tc
         hist.append(met)
         if tol > 0 and float(met[tol_metric]) < tol:
@@ -764,7 +941,9 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     state = dict(gstate)
     for k, b in store.buffers.items():
         state[k] = b.to(device)
-    history = {k: _stack([h[k] for h in hist]) for k in hist[0]}
-    return RoundResult(unflatten_state(algo, state, spec), history,
-                       len(hist), stopped, wall, draw_s=draw,
-                       policy_state=pstate_run, extras=extras)
+    if anchor_h is not None:
+        stale.anchor, stale.view = anchor_h.to(device), None
+    return RoundResult(unflatten_state(algo, state, spec),
+                       _history(hist, sims), len(hist), stopped, wall,
+                       draw_s=draw, policy_state=pstate_run, extras=extras,
+                       stale=stale)

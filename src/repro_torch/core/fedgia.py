@@ -1,8 +1,8 @@
 """FedGiA — the paper's Algorithm 1 on the flat client-state buffer.
 
 Counterpart of `repro/core/fedgia.py`, single-device flat path (no
-compressor, faults, screening, overlap or stale anchors); its active-set
-round is the dense round on the round's mask. One round:
+compressor, faults, screening or overlap); its active-set round is the
+dense round on the round's mask. One round:
 
   1. aggregate   x̄ = (1/m) Σ z_i              (eq. 11)
   2. grads       ḡ_i = (1/m) ∇f_i(x̄)          (computed ONCE per round)
@@ -15,6 +15,11 @@ With `collapsed=True` and a diagonal H (scalar or diag_ema) the k0-step
 recursion runs in closed form as one fused pass: the CUDA `fedgia_update`
 kernel on the card, its plain version on the CPU. Otherwise (gram H, or
 `collapsed=False`) the paper-faithful k0-step loop runs in torch.
+
+Async rounds (`stale=`, an `api.StaleXbar`): eq. (11) takes the
+staleness weights, and each client's gradient and branch run against its
+own last-downloaded x̄, an (m, N) anchor that the kernel reads row by
+row. Under `max_staleness == 0` the round is the synchronous masked one.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ class FedGiA:
         self.loss_fn = loss_fn
         self.model = model
         self._vg = api.per_client_value_and_grad(loss_fn)
+        self._vg_stacked = api.per_client_value_and_grad_stacked(loss_fn)
 
     # ------------------------------------------------------------------ init
     def init(self, params0: Dict[str, torch.Tensor], gen: torch.Generator,
@@ -127,18 +133,36 @@ class FedGiA:
         return pi_new, z_new
 
     # ------------------------------------------------------------ flat round
-    def round_inputs(self, state, batch, spec, mask=None):
+    def round_inputs(self, state, batch, spec, mask=None, stale=None):
         """Steps (1)-(3) of a round on the flat `state`: x̄ (eq. 11), the
         (m,) branch select, and the per-client losses, raveled gradients
-        and ḡ at x̄. `mask=None` draws the select from `state["rng"]`.
-        Returns (xbar, sel, losses, grads_flat, gbar)."""
+        and ḡ. `mask=None` draws the select from `state["rng"]`. Returns
+        (xbar, sel, losses, grads_flat, gbar).
+
+        With `stale` (async rounds; `mask` is then the arrival mask) x̄
+        is the staleness-weighted mean and the stale state advances in
+        place (`api.stale_xbar_view`). The gradients are taken at the
+        round's anchor, `api.stale_anchor(stale, xbar)`: x̄ itself without
+        `stale` or under `stale.always_fresh`, else the (m, N) per-client
+        view."""
         m = self.fed.num_clients
-        xbar = api.client_mean(state["z"])  # (1) eq. (11)
+        xbar = api.client_mean(state["z"],  # (1) eq. (11)
+                               weights=api.stale_weights(stale))
         if mask is None:  # (3) client selection
+            if stale is not None:
+                raise ValueError("stale-x̄ rounds need the engine's "
+                                 "arrival mask")
             mask = selection.selection_mask(state["rng"], m, self.fed.alpha,
                                             device=xbar.device)
         # (2) per-client gradient: the one boundary that unravels
-        losses, grads = self._vg(spec.unravel(xbar), batch)
+        if stale is not None:
+            api.stale_xbar_view(stale, xbar, mask)
+        anchor = api.stale_anchor(stale, xbar)
+        if anchor is xbar:
+            losses, grads = self._vg(spec.unravel(xbar), batch)
+        else:
+            losses, grads = self._vg_stacked(spec.unravel_stacked(anchor),
+                                             batch)
         grads_flat = spec.ravel_stacked(grads)
         gbar = (grads_flat * (1.0 / m)).to(_DTYPES[self.fed.state_dtype])
         return xbar, mask, losses, grads_flat, gbar
@@ -146,16 +170,16 @@ class FedGiA:
     def kernel_args(self, state, xbar, gbar, sel):
         """The fused update's arguments, as `round_flat` passes them to
         `fedgia_update_flat`: (xbar, gbar, pi, h, sel, sigma, m, k0). The
-        kernel reads the (N,) x̄ for every client row and, under the
-        scalar policy, the 0-d h = r once, so neither is copied to
-        (m, N)."""
+        kernel reads an (N,) x̄ for every client row (an async round's
+        (m, N) anchor row by row) and, under the scalar policy, the 0-d
+        h = r once, so neither is copied to (m, N)."""
         h = state.get("h")
         if h is None:  # scalar policy: H = r I
             h = state["r"].to(gbar.dtype)
         return (xbar, gbar, state["pi"], h, sel, state["sigma"],
                 self.fed.num_clients, self.fed.k0)
 
-    def round_flat(self, state, batch, spec, mask=None,
+    def round_flat(self, state, batch, spec, mask=None, stale=None,
                    donate_kernel: bool = False):
         """One communication round on the FLAT client-state buffer:
         `state["z"]`, `state["pi"]`, `state["h"]` are (m, N) buffers and
@@ -163,29 +187,35 @@ class FedGiA:
         (new_state, metrics).
 
         `mask` is the (m,) ADMM/GD branch split; None draws it from
-        `state["rng"]` (`selection.selection_mask`).
+        `state["rng"]` (`selection.selection_mask`). With `stale` (an
+        `api.StaleXbar`, async rounds) `mask` is the arrival mask and the
+        branches run against each client's anchor (`round_inputs`); the
+        stale state advances in place.
 
         `donate_kernel=True` runs the in-place kernel: π' is written into
         the buffer of `state["pi"]` and z' into this round's own ḡ, so
         the caller must treat the input state's `pi` as consumed. Under
         diag_ema the H refresh reads ḡ after the update, as the reference
         orders it, so ḡ is not donated there and the undonated kernel
-        runs. The kernel never writes x' here: x̄ is the new state's x.
+        runs. The kernel never writes x' here, nor the anchor: x̄ is the
+        new state's x.
         """
         fed = self.fed
         m = fed.num_clients
         sigma = state["sigma"]
         xbar, sel, losses, grads_flat, gbar = self.round_inputs(
-            state, batch, spec, mask)
+            state, batch, spec, mask, stale)
+        anchor = api.stale_anchor(stale, xbar)
 
         # (4) both branches + masked combine
         if fed.collapsed and fed.h_policy != "gram":
-            *args, k0 = self.kernel_args(state, xbar, gbar, sel)
+            *args, k0 = self.kernel_args(state, anchor, gbar, sel)
             donate = donate_kernel and fed.h_policy != "diag_ema"
             _, pi_new, z_new = fedgia_update_flat(*args, k0=k0, donate=donate,
                                                   want_x=False)
         else:
-            xbar_c = api.broadcast_clients(xbar, m)  # stride-0 view
+            xbar_c = (api.broadcast_clients(xbar, m) if anchor is xbar
+                      else anchor)  # stride-0 view, or the stale anchors
             pia, za = self._admm_branch_unrolled(state, xbar_c, gbar, spec)
             pig = gbar * -1.0  # eq. (16)
             zg = (-1.0 / sigma) * gbar + xbar_c  # eq. (17)
@@ -206,7 +236,7 @@ class FedGiA:
         }
         return new_state, metrics
 
-    def round_flat_active(self, state, batch, spec, active,
+    def round_flat_active(self, state, batch, spec, active, stale=None,
                           donate_kernel: bool = False):
         """Active-store round (``run_rounds(store="active" | "offload")``).
         FedGiA cannot shrink the round's working set: the GD branch (eqs.
@@ -216,7 +246,7 @@ class FedGiA:
         therefore the dense round on `active.mask`, bitwise by
         construction, with the same one `fedgia_update` launch."""
         return self.round_flat(state, batch, spec, mask=active.mask,
-                               donate_kernel=donate_kernel)
+                               stale=stale, donate_kernel=donate_kernel)
 
     # ------------------------------------------------------------ diagnostics
     def client_params(self, state):

@@ -12,6 +12,9 @@ are (mb, N); the anchor x̄ is (mb, N) or one (N,) vector for every row;
 h is (mb, N) or a 0-d tensor (scalar H); x' is returned only when asked
 (`want_x`). Each wrapper call is one launch: sel is read as the bool
 tensor it is and σ from the device, so nothing else runs on the card.
+`anchor_forms` counts the same launches by the anchor's form: "(N,)"
+for the round's shared x̄, "(mb, N)" for an async round's per-client
+anchors.
 """
 from __future__ import annotations
 
@@ -30,11 +33,13 @@ launches = {
     "fedgia_update_batched_donated": 0,
     "fedgia_update_single": 0,
 }
+anchor_forms = {"(N,)": 0, "(mb, N)": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, anchor_forms):
+        for k in counts:
+            counts[k] = 0
 
 
 def _lib():
@@ -103,6 +108,7 @@ def _launch(name, xbar, gbar, pi, h, outs, sel, sigma, m, k0):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
     launches[name] += 1
+    anchor_forms["(N,)" if xbar.dim() == 1 else "(mb, N)"] += 1
     return outs
 
 

@@ -32,6 +32,17 @@ is bitwise the dense store's, and f and |grad|^2 become participant
 means. `--store offload` keeps the client buffers in host memory and
 moves the tiles each round. `--aggregate packed` sums the tile directly
 in eq. (11) (fp tolerance against the dense layout).
+
+`--async` makes the participation mask the ARRIVAL process of stale-x̄
+rounds: a client works against the x̄ it last downloaded, at most
+`--max-staleness` rounds old (0: bitwise the synchronous run). `--clock
+constant|lognormal` derives the arrival mask from simulated per-client
+work times (`--client-speeds`, `--clock-sigma`; implies `--async`) and
+reports the simulated seconds beside CR. `--stale-weighting poly|exp`
+downweights stale contributions in eq. (11) (`--stale-decay`).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --clients 64 \
+      --clock constant --max-staleness 4 --stale-weighting poly
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import sys
 
 from repro_torch.config import ALGORITHMS, FedConfig
 from repro_torch.core.api import make_algorithm
+from repro_torch.core.clock import CLOCKS, make_clock
 from repro_torch.core.engine import run_rounds
 from repro_torch.core.selection import POLICIES, make_generator, make_policy
 from repro_torch.data import linreg_noniid, logreg_data, to_torch
@@ -98,11 +110,16 @@ def validate_flags(args) -> dict:
     """Cross-flag checks of the engine flags, with the reference's errors
     (SystemExit): a `--chunk` that is neither an int nor "auto", `--chunk
     auto` with `--no-scan` or `--store offload`, `--store active|offload`
-    without a policy, `--aggregate packed` with `--store dense`,
-    `--client-weights` without `--participation
+    without a policy or a clock, `--aggregate packed` with `--store
+    dense`, `--client-weights` without `--participation
     weighted`, `--arrival-periods` without `--participation periodic`,
-    and a per-client list whose length is not `--clients`. Returns the
-    chunk size (int or "auto") and the parsed lists (or None)."""
+    `--clock` with a `--participation` policy, `--clock trace`
+    (library-level), a non-positive `--stale-decay` with a decaying
+    weighting, `--max-staleness` or `--stale-weighting` without `--async`
+    or `--clock`, `--async` without an arrival process,
+    `--client-speeds` without `--clock`, and a per-client list whose
+    length is not `--clients`. Returns the chunk size (int or "auto"),
+    whether the rounds are async, and the parsed lists (or None)."""
     chunk = args.chunk
     if chunk != "auto":
         try:
@@ -113,12 +130,15 @@ def validate_flags(args) -> dict:
     elif args.no_scan:
         raise SystemExit("--chunk auto tunes the scan chunk length and "
                          "cannot be combined with --no-scan")
+    kind, clock_kind = args.participation, args.clock
+    async_rounds = args.async_rounds or clock_kind != "none"
     store = args.store
-    if store in ("active", "offload") and args.participation == "full":
+    if store in ("active", "offload") and kind == "full" and \
+            clock_kind == "none":
         raise SystemExit(
             f"--store {store} needs a per-round participant set to pack the "
             "tile from: pass --participation (uniform/weighted/cyclic give "
-            "the fixed-size tile; others bound it by m)")
+            "the fixed-size tile; others bound it by m) or --clock")
     if store == "offload" and chunk == "auto":
         raise SystemExit(
             "--chunk auto tunes the scan chunk length — the host-driven "
@@ -127,7 +147,27 @@ def validate_flags(args) -> dict:
         raise SystemExit(
             "--aggregate packed sums the packed participant tile — it "
             "requires --store active or --store offload")
-    weights = periods = None
+    if clock_kind != "none" and kind != "full":
+        raise SystemExit(
+            "--clock derives the arrival mask from simulated finish times "
+            "and cannot be combined with --participation")
+    if clock_kind == "trace":
+        raise SystemExit(
+            "--clock trace is library-level (it needs a (T, m) duration "
+            "table): build core.clock.TraceClock and pass it to "
+            "run_rounds(clock=...) programmatically")
+    if args.stale_weighting != "uniform" and args.stale_decay <= 0:
+        raise SystemExit("--stale-decay must be > 0")
+    if args.max_staleness and not async_rounds:
+        raise SystemExit("--max-staleness requires --async (or --clock)")
+    if args.stale_weighting != "uniform" and not async_rounds:
+        raise SystemExit("--stale-weighting requires --async (or --clock)")
+    if async_rounds and kind == "full" and clock_kind == "none":
+        raise SystemExit(
+            "--async needs an arrival process: pass --participation "
+            "straggler/periodic/... (the mask is who communicates) or "
+            "--clock (event-driven wall-clock arrivals)")
+    weights = periods = speeds = None
     if args.client_weights:
         if args.participation != "weighted":
             raise SystemExit(
@@ -140,7 +180,13 @@ def validate_flags(args) -> dict:
                 "--arrival-periods requires --participation periodic")
         periods = _parse_csv(args.arrival_periods, args.clients,
                              "--arrival-periods", int)
-    return {"chunk": chunk, "weights": weights, "periods": periods}
+    if args.client_speeds:
+        if clock_kind == "none":
+            raise SystemExit("--client-speeds requires --clock")
+        speeds = _parse_csv(args.client_speeds, args.clients,
+                            "--client-speeds", float)
+    return {"chunk": chunk, "async_rounds": async_rounds, "weights": weights,
+            "periods": periods, "speeds": speeds}
 
 
 def train(args) -> dict:
@@ -173,21 +219,36 @@ def train(args) -> dict:
             log.info("participation: %s policy, alpha=%.2f (|C|=%d of "
                      "m=%d)", args.participation, args.alpha,
                      policy.n_selected, args.clients)
+    # the wall-clock simulation derives the arrival mask from simulated
+    # finish times and implies async rounds
+    clock = make_clock(args.clock, args.clients, compute_s=parsed["speeds"],
+                       sigma=args.clock_sigma, seed=args.seed)
+    async_rounds = parsed["async_rounds"]
+    if async_rounds:
+        log.info("async rounds: stale-x̄ engine, max_staleness=%d, "
+                 "weighting=%s", args.max_staleness, args.stale_weighting)
+    if clock is not None:
+        log.info("wall-clock rounds: %s clock, m=%d", clock.name,
+                 args.clients)
+    cap = args.clients if clock is not None else (
+        policy.active_capacity if policy is not None else None)
     if args.store == "active":
         log.info("active-set store: (%d, N) participant tile gathered/"
-                 "scattered per round (m=%d resident)",
-                 policy.active_capacity, args.clients)
+                 "scattered per round (m=%d resident)", cap, args.clients)
     elif args.store == "offload":
         log.info("host-offloaded store: resident client buffers in host "
-                 "memory, (%d, N) tiles shuttled per round (m=%d)",
-                 policy.active_capacity, args.clients)
+                 "memory, (%d, N) tiles shuttled per round (m=%d)", cap,
+                 args.clients)
     if args.aggregate == "packed":
         log.info("packed aggregation: eq. (11) sums the participant tile "
                  "directly (fp tolerance vs the bitwise dense layout)")
     res = run_rounds(algo, state, batch, args.rounds, tol=args.tol,
                      scan=not args.no_scan, chunk_size=parsed["chunk"],
                      participation=policy, store=args.store,
-                     aggregate=args.aggregate)
+                     aggregate=args.aggregate, async_rounds=async_rounds,
+                     max_staleness=args.max_staleness, clock=clock,
+                     stale_weighting=args.stale_weighting,
+                     stale_decay=args.stale_decay)
     history = [
         {"round": r, "f": float(res.history["f_xbar"][r]),
          "err": float(res.history["grad_sq_norm"][r])}
@@ -219,6 +280,19 @@ def train(args) -> dict:
         "batch": batch,
         "state": res.state,
     }
+    if async_rounds:
+        result["max_staleness"] = args.max_staleness
+        result["stale_weighting"] = args.stale_weighting
+        result["staleness_max_seen"] = int(
+            res.history["staleness_max"].max())
+        log.info("async: max staleness actually used = %d (bound %d)",
+                 result["staleness_max_seen"], args.max_staleness)
+    if clock is not None:
+        result["clock"] = clock.name
+        result["sim_time_s"] = float(res.history["sim_time"][-1])
+        log.info("simulated wall-clock: %.3f s to round %d "
+                 "(time-to-target when the tolerance stopped the run)",
+                 result["sim_time_s"], res.rounds_run - 1)
     if args.store == "offload":
         log.info("host-offloaded store: %d host-resident bytes, device peak "
                  "%s bytes, tile copies %.3fs on the host",
@@ -294,6 +368,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="eq. (11) over the tile scattered back to the "
                          "dense layout (bitwise) or summed directly "
                          "(--store active/offload)")
+    ap.add_argument("--async", dest="async_rounds", action="store_true",
+                    help="stale-x̄ rounds: the participation mask becomes "
+                         "the arrival process and stragglers work against "
+                         "their last-downloaded x̄")
+    ap.add_argument("--max-staleness", type=int, default=0,
+                    help="bound on the stale-x̄ age in rounds (--async); "
+                         "0 = bitwise the synchronous run")
+    ap.add_argument("--clock", default="none", choices=("none",) + CLOCKS,
+                    help="wall-clock simulation (implies --async): derive "
+                         "the arrival mask from per-client work times — "
+                         "constant (fixed speeds), lognormal (jittered); "
+                         "trace is library-level. Reports simulated "
+                         "seconds beside CR")
+    ap.add_argument("--client-speeds", default="",
+                    help="comma-separated per-client compute seconds for "
+                         "--clock (default: cycling 1..4)")
+    ap.add_argument("--clock-sigma", type=float, default=0.5,
+                    help="lognormal compute-time jitter (--clock "
+                         "lognormal)")
+    ap.add_argument("--stale-weighting", default="uniform",
+                    choices=["uniform", "poly", "exp"],
+                    help="staleness-aware eq. (11) (--async/--clock): "
+                         "uniform (unweighted, bitwise), poly "
+                         "((1+s)^-decay), exp (e^(-decay*s))")
+    ap.add_argument("--stale-decay", type=float, default=1.0,
+                    help="decay rate of --stale-weighting poly/exp")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
