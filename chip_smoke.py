@@ -7,6 +7,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. Build: compile every CUDA source of the port with nvcc (in parallel)
    and print the card's name and power limit.
+1b. The threefry stream on the host (`core/prng.py`): the paper run's
+   first three FedGiA splits (m = 128, alpha = 0.5, `prng_key(1)`) must
+   select the clients that the reference selects (constants below,
+   computed once from the JAX package).
 2. FedGiA main path, through `repro_torch.launch.train`, with every
    kernel's launch count set to 0 just before each run and read just
    after. Each run takes the default driver, the chunked one, which
@@ -123,18 +127,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      host-resident bytes.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
-   and read just after each run (after one short warm-up run each):
+   and read just after each run (after one short warm-up run each), each
+   model served twice: with the default captured decode (one decode step
+   captured as a CUDA graph, `core/graphs.py::scan_steps`, replayed a
+   token) and with `--no-scan` (the same step eagerly):
    * tinyllama-1.1b, batch 4, prompt 2048, gen 32: exactly 22 flash
-     attention launches (one per layer's prefill);
+     attention launches (one per layer's prefill; the decode launches
+     none);
    * rwkv6-3b, batch 4, prompt 1024, gen 32: exactly 32 WKV-scan
      launches.
-   The first launch of each kernel in these runs (layer 0's prefill) is
-   recorded, so that phase 5 checks and times the kernel on its own
-   main-path inputs.
+   The two modes generate the same tokens and, expected, the same
+   logits bit for bit (else held to CAPTURED_LOGIT_RTOL, and said so);
+   prefill_s, capture_s, decode_s and tok/s/req of both are printed with
+   the card. The first launch of each kernel in the captured runs
+   (layer 0's prefill) is recorded, so that phase 5 checks and times the
+   kernel on its own main-path inputs. Then the captured tinyllama decode
+   with a float8_e4m3fn KV cache, fed the bf16 run's tokens: every
+   step's logits within tests/test_serve.py's bound of the bf16 run's
+   (err < 0.15·max|logit| + 0.5); and `repro_torch.examples.
+   serve_requests` (reduced, bfloat16), captured and `--no-scan`, the
+   same tokens.
 4. Card against CPU: the reduced tinyllama-1.1b and rwkv6-3b in float32,
    parameters made on the CPU and copied to the card, prefill of 64
-   tokens and 8 decode steps on both: the same tokens, logits within
-   1e-4.
+   tokens and 8 decode steps on both, the card's decode captured, the
+   CPU's eager: the same tokens, logits within 1e-4.
 5. Kernels against their plain versions on the card: each
    `fedgia_update` form that a round launches (an (N,) anchor, a 0-d h
    under scalar H, no x') bitwise on the next round's inputs of the run
@@ -225,7 +241,7 @@ ASYNC_STORE_STALENESS = 2
 ASYNC_MIXED_ALPHA = 0.5
 ASYNC_MIXED_ROUNDS = 6
 # a runner row's Obj, card against CPU (the paper runs' rule for whole
-# runs, ROADMAP queue 3 a)
+# runs)
 ROW_OBJ_RTOL = 1e-3
 # a runner row's card and CPU runs may stop one round apart where the
 # longer run's stop metric at the shorter's last round lies within this
@@ -249,6 +265,29 @@ RWKV6 = ["--arch", "rwkv6-3b", "--batch", "4", "--prompt-len", "1024",
 # fp32 sums (cuBLAS vs CPU GEMMs, the kernels vs their plain versions)
 PARITY_TOL = 1e-4
 PARITY_PROMPT, PARITY_GEN = 64, 9  # the prefill's token, then 8 decode steps
+# captured decode against --no-scan at full width: the same kernels on the
+# same inputs, so bit for bit is expected; were cuBLAS to pick another GEMM
+# algorithm inside the capture, the bf16 logits would be held to this
+# share of the largest logit instead (and the script says so)
+CAPTURED_LOGIT_RTOL = 2e-2
+# the paper run's first three FedGiA splits (m = 128, alpha = 0.5, the
+# state's key prng_key(1)): the clients the reference's threefry chain
+# selects (split, then fold_in of the round), computed once in JAX 0.9.0
+PRNG_KNOWN_M, PRNG_KNOWN_ALPHA, PRNG_KNOWN_SEED = 128, 0.5, 1
+PRNG_KNOWN_IDS = (
+    [0, 1, 2, 3, 7, 9, 12, 13, 14, 16, 18, 19, 20, 21, 23, 24, 27, 28, 31,
+     32, 36, 39, 40, 43, 44, 46, 48, 49, 51, 57, 58, 59, 60, 61, 63, 64, 65,
+     66, 73, 74, 78, 85, 88, 90, 92, 93, 98, 99, 101, 103, 104, 105, 107,
+     108, 109, 110, 111, 112, 113, 115, 118, 121, 123, 127],
+    [0, 3, 4, 8, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 23, 24, 25, 26, 27,
+     28, 33, 34, 37, 41, 43, 47, 49, 50, 53, 56, 57, 58, 61, 62, 63, 65, 67,
+     68, 70, 71, 73, 75, 79, 81, 83, 84, 85, 88, 89, 90, 92, 94, 95, 101,
+     102, 105, 112, 114, 116, 118, 120, 123, 124, 125],
+    [0, 1, 2, 6, 7, 10, 12, 13, 14, 15, 17, 21, 26, 27, 28, 31, 33, 34, 36,
+     41, 44, 49, 50, 51, 52, 57, 58, 61, 64, 65, 66, 70, 73, 74, 78, 79, 80,
+     82, 84, 85, 86, 87, 88, 89, 93, 95, 98, 99, 102, 103, 105, 106, 107,
+     109, 113, 114, 119, 121, 122, 123, 124, 125, 126, 127],
+)
 # kernel vs plain version: the tolerances of tests/test_kernels.py
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-2}
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -338,37 +377,123 @@ def record_first_call(mod, name, store):
 def serve_main_path(serve, counters, argv, mod, name):
     """A warm-up serve run, then the measured one: counts reset before and
     read after, the first call of `mod.name` recorded, the prefill and
-    decode times read from serve's log line. Returns (tokens, counts,
-    times, the recorded call)."""
+    decode times read from serve's log lines (and the capture's, when the
+    decode was captured), the logits that `generate` returned kept.
+    Returns (tokens, counts, times, the recorded call, logits)."""
     warm = list(argv)
     warm[warm.index("--gen") + 1] = "2"
     serve.main(warm)
     logs = LogRecords()
     serve.log.addHandler(logs)
-    store = []
+    store, seen = [], []
     restore = record_first_call(mod, name, store)
+    generate = serve.generate
+
+    def keep(*args, **kwargs):
+        res = generate(*args, **kwargs)
+        seen.append(res["logits"])
+        return res
+
+    serve.generate = keep
     try:
         reset_counts(counters)
         tokens = serve.main(argv)
         counts = read_counts(counters)
     finally:
+        serve.generate = generate
         restore()
         serve.log.removeHandler(logs)
     t_prefill, n_tok, t_decode, tok_s = next(
         r.args for r in logs.records if r.msg.startswith("prefill"))
     times = {"prefill_s": t_prefill, "prefill_tokens": n_tok,
-             "decode_s": t_decode, "decode_tok_s_req": tok_s}
-    return tokens, counts, times, store[0]
+             "decode_s": t_decode, "decode_tok_s_req": tok_s,
+             "capture_s": next((r.args[0] for r in logs.records
+                                if r.msg.startswith("capture_s")), None)}
+    return tokens, counts, times, (store[0] if store else None), seen[0]
 
 
-def round_inputs(res, engine, selection, pt):
+def fp8_cache_run(serve, graphs, Transformer, get_config, argv, logits16,
+                  tokens16, card):
+    """The captured tinyllama decode with a float8_e4m3fn KV cache, fed
+    the bf16 run's own tokens (teacher forcing, as tests/test_serve.py's
+    fp8 test feeds both caches the same tokens), on the same parameters
+    and prompts (`serve` draws both from --seed on the card). Each step's
+    logits are held to that test's bound against the bf16 run's:
+    err < 0.15·max|logit| + 0.5."""
+    arch, seed = argv[1], int(argv[argv.index("--seed") + 1])
+    batch = int(argv[argv.index("--batch") + 1])
+    P = int(argv[argv.index("--prompt-len") + 1])
+    gen = int(argv[argv.index("--gen") + 1])
+    cfg = get_config(arch)
+    model = Transformer(cfg, "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(seed)
+    model.init(rng)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, P), generator=rng,
+                            device="cuda")
+    fp8 = torch.float8_e4m3fn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache = model.prefill(prompts, cache_len=P + gen, cache_dtype=fp8)
+    feed = tokens16.cuda().T[:gen - 1, :, None].contiguous()  # (gen-1, B, 1)
+
+    def step(carry):
+        c, i, pos = carry
+        tok = feed.index_select(0, i.view(1))[0]
+        lg, c = model.decode_step(c, tok, pos)
+        return (c, i + 1, pos + 1), lg
+
+    run = graphs.scan_steps(step, gen - 1)
+    carry = (cache, torch.zeros((), dtype=torch.long, device="cuda"),
+             torch.tensor(P, dtype=torch.int32, device="cuda"))
+    _, lg8 = run(carry)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if cache["dense"]["k"].dtype != fp8:
+        raise SystemExit("fp8 run: the cache is not float8_e4m3fn")
+    lg8 = torch.cat([first[None], lg8]).float()
+    ref = logits16.float()
+    worst = 0.0
+    for t in range(gen):
+        err = float((lg8[t] - ref[t]).abs().max())
+        limit = 0.15 * float(ref[t].abs().max()) + 0.5
+        if not err < limit:
+            raise SystemExit(f"fp8 cache, step {t}: err {err!r} >= bound "
+                             f"{limit!r}")
+        worst = max(worst, err / limit)
+    same = float((lg8.argmax(-1) == ref.argmax(-1)).float().mean())
+    say(f"serve {arch} with a float8_e4m3fn KV cache (captured decode, the "
+        f"bf16 run's tokens fed): every step within tests/test_serve.py's "
+        f"bound (err < 0.15*max|logit| + 0.5), worst err/bound "
+        f"{worst!r}; argmax agrees with bf16 at {same!r} of positions; "
+        f"prefill + capture + {gen - 1} steps {wall!r} s "
+        f"(capture_s={run.capture_s!r}) on {card}")
+    del model, cache, lg8
+
+
+def serve_requests_run(serve_requests, counters, card):
+    """`repro_torch.examples.serve_requests` on the card (reduced,
+    bfloat16), captured and `--no-scan`: the same tokens."""
+    out = {}
+    for extra in ([], ["--no-scan"]):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        out[bool(extra)] = serve_requests.main(["--device", "cuda"] + extra)
+        n = read_counts(counters)
+        say(f"  serve_requests {' '.join(extra) or '(captured)'}: "
+            f"{time.perf_counter() - t0!r} s, launches {n} on {card}")
+    if not (out[False] == out[True]).all():
+        raise SystemExit(f"serve_requests: captured {out[False].tolist()} "
+                         f"!= --no-scan {out[True].tolist()}")
+
+
+def round_inputs(res, engine, pt):
     """The kernel's arguments for the round after a run's last one, as
     `FedGiA.round_flat` builds them: (x̄, ḡ, π, h, sel, σ, m, k0), with
     the (N,) anchor, and h 0-d under scalar H."""
     algo, batch, state = res["algorithm"], res["batch"], res["state"]
     spec = pt.ravel_spec(state["x"])
     flat = engine.flatten_state(algo, state, spec)
-    flat["rng"] = selection.copy_generator(state["rng"])
+    flat["rng"] = state["rng"].copy()
     xbar, sel, _, _, gbar = algo.round_inputs(flat, batch, spec)
     return algo.kernel_args(flat, xbar, gbar, sel)
 
@@ -709,7 +834,7 @@ def profile_round(res, modules, engine, selection, pt):
     algo, batch, state = res["algorithm"], res["batch"], res["state"]
     spec = pt.ravel_spec(state["x"])
     flat = engine.flatten_state(algo, state, spec)
-    flat["rng"] = selection.copy_generator(state["rng"])
+    flat["rng"] = state["rng"].copy()
     walls = []
     for _ in range(6):  # undonated: flat is left as it was
         torch.cuda.synchronize()
@@ -769,13 +894,13 @@ def replay_busy(run):
     return busy, res
 
 
-def replayed_busy_us(res, argv, engine, selection):
+def replayed_busy_us(res, argv, engine, prng):
     """Device busy time a round (us, profiled) of the CLI run `argv` again
     through `engine.run_rounds`, replayed, from the state a fresh run
     starts from. Returns (busy us a round, rounds run)."""
     algo, batch = res["algorithm"], res["batch"]
     state = algo.init(algo.model.init(batch["A"].device),
-                      selection.make_generator(1), init_batch=batch)
+                      prng.prng_key(1), init_batch=batch)
     rounds = int(argv[argv.index("--rounds") + 1])
     tol = float(argv[argv.index("--tol") + 1]) if "--tol" in argv else 1e-7
     busy, rr = replay_busy(lambda: engine.run_rounds(algo, state, batch,
@@ -896,10 +1021,12 @@ def card_vs_cpu(serve, Transformer, get_config, arch, counters):
     gpu = Transformer(cfg, "cuda").load_params(cpu.state_dict())
     prompts = torch.randint(0, cfg.vocab_size, (2, PARITY_PROMPT),
                             generator=torch.Generator().manual_seed(1))
-    want = serve.generate(cpu, prompts, PARITY_GEN)
+    want = serve.generate(cpu, prompts, PARITY_GEN, scan=False)
     reset_counts(counters)
-    got = serve.generate(gpu, prompts.cuda(), PARITY_GEN)
+    got = serve.generate(gpu, prompts.cuda(), PARITY_GEN, scan=True)
     n = read_counts(counters)
+    if not got["capture_s"] > 0:
+        raise SystemExit(f"{arch}: the card's decode was not captured")
     if not torch.equal(got["tokens"].cpu(), want["tokens"]):
         raise SystemExit(f"{arch}: the card generated {got['tokens'].tolist()}"
                          f", the CPU {want['tokens'].tolist()}")
@@ -921,7 +1048,7 @@ def client_store_phase(pop, train, counters, launches, card):
     from repro_torch.benchmarks import engine_bench
     from repro_torch.config import FedConfig
     from repro_torch.core import api as api_mod
-    from repro_torch.core import engine, selection
+    from repro_torch.core import engine, prng, selection
 
     t_phase = time.perf_counter()
     m = pop["batch"]["A"].shape[0]
@@ -942,7 +1069,7 @@ def client_store_phase(pop, train, counters, launches, card):
                 FedConfig(algorithm=name, num_clients=m, **hp), model.loss,
                 model=model)
         state = algo.init(model.init(batch["A"].device),
-                          selection.make_generator(1), init_batch=batch)
+                          prng.prng_key(1), init_batch=batch)
         cap = selection.make_policy("uniform", m, STORE_ALPHA).active_capacity
         stores = ["dense", "active"]
         if name in ("fedgia", "fedpd", "scaffold"):
@@ -1066,7 +1193,7 @@ def fp64_witness(row, rounds):
     from repro_torch.benchmarks import async_bench, wallclock_bench
     from repro_torch.benchmarks.common import M_CLIENTS, make_problem
     from repro_torch.config import FedConfig
-    from repro_torch.core import api, clock, engine, selection
+    from repro_torch.core import api, clock, engine, prng, selection
 
     m = M_CLIENTS
     if "spread" in row:
@@ -1086,7 +1213,7 @@ def fp64_witness(row, rounds):
                     **bench.ALGOS[row["algo"]])
     algo = api.make_algorithm(fed, model.loss, model=model)
     params = {k: v.double() for k, v in model.init("cpu").items()}
-    state = algo.init(params, selection.make_generator(1), init_batch=batch)
+    state = algo.init(params, prng.prng_key(1), init_batch=batch)
     res = engine.run_rounds(algo, state, batch, rounds, scan=False, **kw)
     return res.history["grad_sq_norm"].tolist()
 
@@ -1150,7 +1277,7 @@ def async_phase(pop, counters, launches, card, ops, ref):
     from repro_torch.config import FedConfig
     from repro_torch.core import api as api_mod
     from repro_torch.core import clock as clock_mod
-    from repro_torch.core import engine, selection
+    from repro_torch.core import engine, prng, selection
     from repro_torch.utils import pytree as pt
 
     t_phase = time.perf_counter()
@@ -1228,7 +1355,7 @@ def async_phase(pop, counters, launches, card, ops, ref):
         m, wallclock_bench.straggler_speeds(m, ASYNC_SPREAD))
     kw = dict(clock=clk, max_staleness=ASYNC_MAX_STALENESS,
               stale_weighting="poly")
-    state = algo.init(model.init(dev), selection.make_generator(1),
+    state = algo.init(model.init(dev), prng.prng_key(1),
                       init_batch=batch)
     what = (f"FedGiA_D async population run (m={m}, straggler clock spread "
             f"{ASYNC_SPREAD}, max_staleness {ASYNC_MAX_STALENESS}, poly)")
@@ -1350,7 +1477,7 @@ def async_phase(pop, counters, launches, card, ops, ref):
         algo = api_mod.make_algorithm(
             FedConfig(algorithm=name, num_clients=m, **hp), model.loss,
             model=model)
-        state = algo.init(model.init(dev), selection.make_generator(1),
+        state = algo.init(model.init(dev), prng.prng_key(1),
                           init_batch=batch)
         res = {}
         for store in stores:
@@ -1405,7 +1532,7 @@ def main():
     from repro_torch.config import FedConfig
     from repro_torch.configs import get_config
     from repro_torch.core import api as api_mod
-    from repro_torch.core import engine, selection
+    from repro_torch.core import engine, prng, selection
     from repro_torch.core import fedgia as fedgia_mod
     from repro_torch.core import hparams as hparams_mod
     from repro_torch.core.baselines import common as baselines_common
@@ -1416,6 +1543,8 @@ def main():
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.rwkv6_scan import ops as scan_ops
     from repro_torch.kernels.rwkv6_scan import ref as scan_ref
+    from repro_torch.core import graphs
+    from repro_torch.examples import serve_requests
     from repro_torch.launch import serve, train
     from repro_torch.models import Transformer
     from repro_torch.utils import pytree as pt
@@ -1433,6 +1562,20 @@ def main():
             if ("registers" in line or "spill" in line
                     or "Compiling entry function" in line):
                 say("  " + line.strip())
+
+    # 1b. the threefry stream on the card's host --------------------------
+    key = prng.prng_key(PRNG_KNOWN_SEED)
+    for t, want in enumerate(PRNG_KNOWN_IDS):
+        key, mask = selection.round_split(key, t, PRNG_KNOWN_M,
+                                          PRNG_KNOWN_ALPHA)
+        got = torch.nonzero(mask).flatten().tolist()
+        if got != want:
+            raise SystemExit(f"prng: round {t} selected {got}, the "
+                             f"reference {want}")
+    say(f"prng: the paper run's first {len(PRNG_KNOWN_IDS)} FedGiA splits "
+        f"(m={PRNG_KNOWN_M}, alpha={PRNG_KNOWN_ALPHA}, "
+        f"prng_key({PRNG_KNOWN_SEED})) are the reference's, client for "
+        "client")
 
     # 2. FedGiA main path ----------------------------------------------------
     # the default driver replays CUDA-graph chunks; each run is also made
@@ -1469,7 +1612,7 @@ def main():
     cpu = train.main(PAPER + ["--device", "cpu"])
     say(done_line("paper run (cpu, plain versions)", cpu))
     card_vs_cpu_run(paper, cpu, "paper run")
-    paper_in, pop_in, one_in = (round_inputs(res, engine, selection, pt)
+    paper_in, pop_in, one_in = (round_inputs(res, engine, pt)
                                 for res in (paper, pop, one))
     # the split of a round (phase 6) goes on from these runs' states
     profiled = {what: (res, argv, res["wall_s"] / res["rounds"] * 1e6)
@@ -1511,7 +1654,7 @@ def main():
                         **bench_common.ALGO_HPARAMS[name])
         algo = api_mod.make_algorithm(fed, model.loss, model=model)
         state = algo.init(model.init(batch["A"].device),
-                          selection.make_generator(1), init_batch=batch)
+                          prng.prng_key(1), init_batch=batch)
         out = {}
         for tag, scan in (("replayed", True), ("eager", False)):
             reset_counts(counters)
@@ -1626,7 +1769,7 @@ def main():
     model, batch, algo = pop["algorithm"].model, pop["batch"], \
         pop["algorithm"]
     state = algo.init(model.init(batch["A"].device),
-                      selection.make_generator(1), init_batch=batch)
+                      prng.prng_key(1), init_batch=batch)
     policies = {
         "uniform 0.1": selection.make_policy("uniform", m, 0.1),
         "weighted 0.5": selection.make_policy(
@@ -1653,7 +1796,7 @@ def main():
                     **bench_common.ALGO_HPARAMS["scaffold"])
     scaffold = api_mod.make_algorithm(fed, model.loss, model=model)
     s_state = scaffold.init(model.init(batch["A"].device),
-                            selection.make_generator(1), init_batch=batch)
+                            prng.prng_key(1), init_batch=batch)
     got, n, _ = engine_pair(
         engine, counters, scaffold, s_state, batch, rounds,
         "SCAFFOLD, uniform policy 0.25",
@@ -1739,35 +1882,75 @@ def main():
     per_client_anchor = async_phase(pop, counters, launches, card, ops, ref)
 
     # 3. serving path, full width -------------------------------------------
-    served = {}
+    # the default decode is one captured CUDA-graph step replayed a token;
+    # --no-scan runs the same step eagerly, a dispatch per op
+    served, logits16 = {}, {}
     for argv, mod, name, layers in (
             (TINYLLAMA, flash_ops, "flash_attention", 22),
             (RWKV6, scan_ops, "rwkv6_scan", 32)):
         arch = argv[1]
-        tokens, n, times, call = serve_main_path(serve, counters, argv, mod,
-                                                 name)
         cfg = get_config(arch)
         batch, gen = int(argv[3]), int(argv[7])
-        say(f"serve {arch} (cuda, full width, batch {batch}, prompt "
-            f"{argv[5]}, gen {gen}): prefill_s={times['prefill_s']!r} "
-            f"({times['prefill_tokens']} tokens) "
-            f"decode_s={times['decode_s']!r} "
-            f"decode_tok_s_req={times['decode_tok_s_req']!r} on {card}")
-        say(f"  generated[0,:16] = {tokens[0, :16].tolist()}")
-        say(f"  launches: {n}")
-        if n[name] != layers or sum(n.values()) != layers:
-            raise SystemExit(f"serve {arch}: launches {n}, want {layers} "
-                             f"{name} launches and no other")
-        if tokens.shape != (batch, gen) or tokens.min() < 0 or \
-                tokens.max() >= cfg.vocab_size:
-            raise SystemExit(f"serve {arch}: bad tokens {tokens.shape}")
-        launches[name] += n[name]
-        served[name] = call
+        runs = {}
+        for mode, extra in (("captured", []), ("--no-scan", ["--no-scan"])):
+            tokens, n, times, call, logits = serve_main_path(
+                serve, counters, argv + extra, mod, name)
+            runs[mode] = tokens, logits
+            capture = ("" if times["capture_s"] is None
+                       else f"capture_s={times['capture_s']!r} ")
+            say(f"serve {arch} {mode} (cuda, full width, batch {batch}, "
+                f"prompt {argv[5]}, gen {gen}): "
+                f"prefill_s={times['prefill_s']!r} "
+                f"({times['prefill_tokens']} tokens) {capture}"
+                f"decode_s={times['decode_s']!r} "
+                f"decode_tok_s_req={times['decode_tok_s_req']!r} on {card}")
+            say(f"  generated[0,:16] = {tokens[0, :16].tolist()}")
+            say(f"  launches: {n}")
+            # the prefill launches the kernel once a layer; the decode,
+            # captured or eager, launches none
+            if n[name] != layers or sum(n.values()) != layers:
+                raise SystemExit(f"serve {arch} {mode}: launches {n}, want "
+                                 f"{layers} {name} launches and no other")
+            if tokens.shape != (batch, gen) or tokens.min() < 0 or \
+                    tokens.max() >= cfg.vocab_size:
+                raise SystemExit(f"serve {arch}: bad tokens {tokens.shape}")
+            if mode == "captured":
+                if not times["capture_s"]:
+                    raise SystemExit(f"serve {arch}: no capture logged")
+                launches[name] += n[name]
+                served[name] = call
+        (t_cap, l_cap), (t_eager, l_eager) = (runs["captured"],
+                                              runs["--no-scan"])
+        if not (t_cap == t_eager).all():
+            raise SystemExit(f"serve {arch}: captured tokens "
+                             f"{t_cap.tolist()} != --no-scan "
+                             f"{t_eager.tolist()}")
+        if torch.equal(l_cap, l_eager):
+            say("  captured vs --no-scan: tokens equal, logits bit for bit")
+        else:  # cuBLAS may pick another GEMM algorithm inside a capture
+            err = float((l_cap.float() - l_eager.float()).abs().max())
+            scale = float(l_eager.float().abs().max())
+            say(f"  captured vs --no-scan: tokens equal, logits NOT bit for "
+                f"bit: max_abs_err={err!r} against max|logit| {scale!r} "
+                f"(held to {CAPTURED_LOGIT_RTOL} of it: another GEMM "
+                f"algorithm inside the graph rounds {cfg.dtype} sums apart)")
+            if not err <= CAPTURED_LOGIT_RTOL * scale:
+                raise SystemExit(f"serve {arch}: captured logits off by "
+                                 f"{err!r}")
+        logits16[arch] = (l_cap, t_cap)
     say(f"main-path launches: {launches}")
+
+    l16, t16 = logits16.pop("tinyllama-1.1b")
+    fp8_cache_run(serve, graphs, Transformer, get_config, TINYLLAMA, l16,
+                  torch.as_tensor(t16), card)
+    del l16, logits16
+    say("serve_requests (reduced, bfloat16):")
+    serve_requests_run(serve_requests, counters, card)
 
     # 4. card against CPU, reduced, float32 ------------------------------------
     say("card vs cpu, reduced float32 models (prefill "
-        f"{PARITY_PROMPT} tokens, {PARITY_GEN - 1} decode steps):")
+        f"{PARITY_PROMPT} tokens, {PARITY_GEN - 1} decode steps; the card's "
+        "captured, the CPU's eager):")
     for arch in ("tinyllama-1.1b", "rwkv6-3b"):
         card_vs_cpu(serve, Transformer, get_config, arch, counters)
 
@@ -1923,7 +2106,7 @@ def main():
         if busy <= 0:
             raise SystemExit(f"{what}: the profiler recorded no device time")
         for attempt in range(1, ATTEMPTS + 1):
-            per_round, rr = replayed_busy_us(res, argv, engine, selection)
+            per_round, rr = replayed_busy_us(res, argv, engine, prng)
             whole = per_round >= 0.5 * busy
             say(f"  {what} run, replayed (session {attempt}): {rr} rounds, "
                 f"device busy {per_round:.1f} us a round (profiled), against "

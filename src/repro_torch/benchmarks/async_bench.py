@@ -23,10 +23,8 @@ from repro_torch.benchmarks.common import M_CLIENTS, make_problem
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import (
-    AvailabilityParticipation,
-    make_generator,
-)
+from repro_torch.core.prng import prng_key
+from repro_torch.core.selection import AvailabilityParticipation
 from repro_torch.device import resolve_device
 
 STALENESS = [0, 1, 2, 4]
@@ -54,7 +52,7 @@ def run(device="cuda", collect_history=False):
     for algo_key, hp in ALGOS.items():
         fed = FedConfig(num_clients=M_CLIENTS, k0=K0, **hp)
         algo = make_algorithm(fed, model.loss, model=model)
-        state = algo.init(model.init(device), make_generator(1),
+        state = algo.init(model.init(device), prng_key(1),
                           init_batch=batch)
         pol = _arrival(M_CLIENTS, MAX_ROUNDS)
         for s in STALENESS:

@@ -14,7 +14,7 @@ from __future__ import annotations
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import make_generator
+from repro_torch.core.prng import prng_key
 from repro_torch.data import linreg_noniid, logreg_data, to_torch
 from repro_torch.device import resolve_device
 from repro_torch.models import (
@@ -74,7 +74,7 @@ def run_algorithm(algo_key: str, problem: str, k0: int, seed: int = 0,
     fed = FedConfig(algorithm=name, num_clients=M_CLIENTS, k0=k0, alpha=alpha,
                     **hp)
     algo = make_algorithm(fed, model.loss, model=model)
-    state = algo.init(model.init(device), make_generator(seed + 1),
+    state = algo.init(model.init(device), prng_key(seed + 1),
                       init_batch=batch)
     res = run_rounds(algo, state, batch, max_rounds, tol=tol, scan=scan)
     hist = (

@@ -47,9 +47,9 @@ from repro_torch.benchmarks.common import M_CLIENTS, make_problem
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
+from repro_torch.core.prng import prng_key
 from repro_torch.core.selection import (
     AvailabilityParticipation,
-    make_generator,
     make_policy,
 )
 from repro_torch.device import resolve_device
@@ -82,7 +82,7 @@ def _run(algo_name, hparams, store, aggregate, device, clients, rounds):
     fed = FedConfig(algorithm=algo_name, num_clients=clients, k0=5,
                     **hparams)
     algo = make_algorithm(fed, model.loss, model=model)
-    state = algo.init(model.init(device), make_generator(1),
+    state = algo.init(model.init(device), prng_key(1),
                       init_batch=batch)
     pol = make_policy("uniform", clients, ALPHA_1M, seed=0)
     kw = dict(participation=pol, store=store, aggregate=aggregate)
@@ -161,7 +161,7 @@ def run_async(device="cuda", rounds: int = ROUNDS_ASYNC,
     fed = FedConfig(algorithm="fedgia", num_clients=M_CLIENTS, k0=5,
                     alpha=0.5, sigma_t=0.15, h_policy="diag_ema")
     algo = make_algorithm(fed, model.loss, model=model)
-    state = algo.init(model.init(device), make_generator(1),
+    state = algo.init(model.init(device), prng_key(1),
                       init_batch=batch)
     pol = AvailabilityParticipation.from_periods(
         M_CLIENTS, 1 + (np.arange(M_CLIENTS) % 4), horizon=rounds)

@@ -7,8 +7,9 @@ CR impact at k0 = 10, FedGiA_D time roughly flat in alpha. Counterpart of
 alpha is applied through the ENGINE's uniform participation policy
 (`core/selection.py`), the mechanism every algorithm shares: FedGiA runs
 with alpha = 1.0 in its config, so the engine's mask is its ADMM/GD
-split and its own draw is bypassed. The masks come from a CPU generator
-seeded by the policy, so the card and the CPU run the same ones.
+split and its own draw is bypassed. The masks come from the policy's
+threefry key (`core/prng.py`), so the card, the CPU and the reference
+run the same ones.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from repro_torch.benchmarks.common import M_CLIENTS, make_problem
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import UniformParticipation, make_generator
+from repro_torch.core.prng import prng_key
+from repro_torch.core.selection import UniformParticipation
 from repro_torch.device import resolve_device
 
 ALPHAS = [0.1, 0.25, 0.5, 0.75, 1.0]
@@ -34,7 +36,7 @@ def run(device="cuda", collect_history=False):
     fed = FedConfig(algorithm="fedgia", num_clients=M_CLIENTS, k0=K0,
                     alpha=1.0, sigma_t=0.15, h_policy="diag_ema")
     algo = make_algorithm(fed, model.loss, model=model)
-    state = algo.init(model.init(device), make_generator(1),
+    state = algo.init(model.init(device), prng_key(1),
                       init_batch=batch)
     rows = []
     for alpha in ALPHAS:

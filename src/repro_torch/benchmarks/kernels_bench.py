@@ -26,7 +26,7 @@ import torch
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import flatten_state
-from repro_torch.core.selection import make_generator
+from repro_torch.core.prng import prng_key
 from repro_torch.data import linreg_noniid, to_torch
 from repro_torch.device import resolve_device
 from repro_torch.models import LeastSquares
@@ -65,7 +65,7 @@ def _round_fn(fed, samples, device):
     model = LeastSquares(100)
     batch = to_torch(linreg_noniid(0, samples, 100, fed.num_clients), device)
     algo = make_algorithm(fed, model.loss, model=model)
-    state = algo.init(model.init(device), make_generator(1), init_batch=batch)
+    state = algo.init(model.init(device), prng_key(1), init_batch=batch)
     spec = ravel_spec(state["x"])
     flat = flatten_state(algo, state, spec)
     return lambda: algo.round_flat(flat, batch, spec)

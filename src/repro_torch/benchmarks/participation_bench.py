@@ -20,7 +20,8 @@ from repro_torch.benchmarks.common import M_CLIENTS, make_problem
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import UniformParticipation, make_generator
+from repro_torch.core.prng import prng_key
+from repro_torch.core.selection import UniformParticipation
 from repro_torch.device import resolve_device
 
 ALPHAS = [0.1, 0.25, 0.5, 1.0]
@@ -40,7 +41,7 @@ def run(device="cuda"):
     for algo_key, hp in ALGOS.items():
         fed = FedConfig(num_clients=M_CLIENTS, k0=K0, **hp)
         algo = make_algorithm(fed, model.loss, model=model)
-        state = algo.init(model.init(device), make_generator(1),
+        state = algo.init(model.init(device), prng_key(1),
                           init_batch=batch)
         for alpha in ALPHAS:
             pol = UniformParticipation(M_CLIENTS, alpha, seed=0)

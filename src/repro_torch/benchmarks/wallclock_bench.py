@@ -28,7 +28,7 @@ from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.clock import ComputeClock
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import make_generator
+from repro_torch.core.prng import prng_key
 from repro_torch.device import resolve_device
 
 MAX_ROUNDS = 400
@@ -62,7 +62,7 @@ def run(device="cuda", max_rounds: int = MAX_ROUNDS, collect_history=False):
     for algo_key, hp in ALGOS.items():
         fed = FedConfig(num_clients=M_CLIENTS, k0=K0, **hp)
         algo = make_algorithm(fed, model.loss, model=model)
-        state = algo.init(model.init(device), make_generator(1),
+        state = algo.init(model.init(device), prng_key(1),
                           init_batch=batch)
         for spread in SPREADS:
             clk = ComputeClock(M_CLIENTS, straggler_speeds(M_CLIENTS, spread))

@@ -15,6 +15,7 @@ own counter; every function here takes either.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import api
@@ -38,12 +39,12 @@ class FlatBaseline:
         self.model = model
         self._vg_stacked = api.per_client_value_and_grad_stacked(loss_fn)
 
-    def init(self, params0, gen: torch.Generator, init_batch=None):
+    def init(self, params0, rng, init_batch=None):
         """x̄ = params0 in the state dtype, both counters 0, and the run's
-        generator (which no baseline draws from)."""
+        threefry key (which no baseline splits)."""
         sdt = getattr(torch, self.fed.state_dtype)
         return {"x": {k: v.to(sdt) for k, v in params0.items()},
-                "round": 0, "step": 0, "rng": gen}
+                "round": 0, "step": 0, "rng": np.array(rng, np.uint32)}
 
     def _anchors(self, state, rows: int, mask=None, stale=None,
                  active=None):

@@ -26,8 +26,8 @@ class FedPD(FlatBaseline):
     name = "fedpd"
     flat_client_keys = ("lam",)
 
-    def init(self, params0, gen, init_batch=None):
-        state = super().init(params0, gen)
+    def init(self, params0, rng, init_batch=None):
+        state = super().init(params0, rng)
         state["lam"] = zeros_stacked(state["x"], self.fed.num_clients)
         return state
 

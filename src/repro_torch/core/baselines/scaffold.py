@@ -28,8 +28,8 @@ class Scaffold(FlatBaseline):
     flat_client_keys = ("ci",)
     flat_global_keys = ("x", "c")
 
-    def init(self, params0, gen, init_batch=None):
-        state = super().init(params0, gen)
+    def init(self, params0, rng, init_batch=None):
+        state = super().init(params0, rng)
         state["c"] = {k: torch.zeros_like(v) for k, v in state["x"].items()}
         state["ci"] = zeros_stacked(state["x"], self.fed.num_clients)
         return state

@@ -14,10 +14,12 @@ participation masks: a clock's state never depends on a round's output,
 so the engine draws a chunk's masks and times before its replay. For the
 constant and trace clocks `max`, `min`, `<=`, `where` and `+` are exact
 IEEE float32 operations, so masks and times are the reference's device
-ticks bit for bit. `LognormalClock` draws its jitter from a CPU
-`torch.Generator` seeded by `seed`, another stream than the reference's
-threefry. `tick` never changes its argument, so the engine can put back
-the state of any round (the eq. (35) stop).
+ticks bit for bit. `LognormalClock` draws its jitter from the
+reference's threefry key chain (`core/prng.py`): the same normal draws
+up to a few ulps of `log1p`, so the same arrivals on the tested seeds
+(tests/test_torch_wallclock.py states the tolerance on the durations).
+`tick` never changes its argument, so the engine can put back the state
+of any round (the eq. (35) stop).
 
 Only the event-driven ticks are ported: the byte-accurate clock
 (`bandwidth_bps`, `with_wire`), the overlapped round's pricing
@@ -30,6 +32,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import prng
 
 # (mask, sim_time_now, advanced clock state), what `tick` returns
 TickResult = Tuple[torch.Tensor, torch.Tensor, Any]
@@ -124,9 +128,10 @@ class ComputeClock:
 class LognormalClock(ComputeClock):
     """Lognormal compute-time jitter: a work item's compute time is
     ``compute_s[i] * exp(sigma * N(0, 1))`` (median `compute_s`), its
-    communication constant. The draws come from a CPU generator seeded by
-    `seed`, whose state rides in the clock state: the durations are a
-    function of the seed alone, the same in both drivers."""
+    communication constant. The threefry key (`prng_key(seed)`) rides in
+    the clock state and splits once a tick, as the reference's: the
+    durations are a function of the seed alone, the same in both
+    drivers."""
 
     name = "lognormal"
 
@@ -141,16 +146,15 @@ class LognormalClock(ComputeClock):
 
     def init(self):
         cs = super().init()
-        cs["gen"] = torch.Generator().manual_seed(self.seed).get_state()
+        cs["key"] = prng.prng_key(self.seed)
         return cs
 
     def _draw(self, cstate, round_idx):
-        gen = torch.Generator()
-        gen.set_state(cstate["gen"])
-        jitter = torch.exp(self.sigma * torch.randn((self.m,),
-                                                    generator=gen))
+        key, sub = prng.split(cstate["key"])
+        z = torch.from_numpy(prng.normal(sub, self.m))
+        jitter = torch.exp(self.sigma * z)
         cs2 = dict(cstate)
-        cs2["gen"] = gen.get_state()
+        cs2["key"] = key
         return self._combine(self.compute_s * jitter), cs2
 
 

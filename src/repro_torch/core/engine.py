@@ -23,12 +23,13 @@ round counts.
 
 Any of the five algorithms runs through either driver. Without a
 participation policy the baselines take no mask (the paper's full
-participation): neither driver draws for them, and their generator is
-never advanced. With a policy (`core/selection.py`), both drivers draw
-one mask a round from the policy, from its `init()` state, with the
-rounds of the call counted from 0, and pass it to every algorithm:
-FedGiA's ADMM/GD split (its own generator is then left alone), the
-baselines' participants.
+participation): neither driver draws for them, and their key is never
+split. With a policy (`core/selection.py`), both drivers draw one mask a
+round from the policy, from its `init()` state, with the rounds of the
+call counted from 0, and pass it to every algorithm: FedGiA's ADMM/GD
+split, the baselines' participants. FedGiA's own threefry key splits
+every round either way, as the reference's does; without a policy its
+second half, folded with the state's round counter, draws the split.
 
 `store` picks where the per-client state lives and how a round touches
 it (the reference's `store=`): "dense" runs every round on the (m, N)
@@ -70,7 +71,6 @@ import torch
 
 from repro_torch.core import api, graphs, selection
 from repro_torch.core.clock import ClockArrivals
-from repro_torch.core.selection import copy_generator
 from repro_torch.kernels import launch_counters
 from repro_torch.utils import pytree as pt
 from repro_torch.utils.pytree import ravel_spec
@@ -151,8 +151,8 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     the chunked driver with chunks of `chunk_size` rounds (0: the whole
     run when tol <= 0, else min(num_rounds, 32), as the reference;
     "auto": timed on the live run, see the module docstring);
-    `scan=False` the legacy per-round loop. Both give the same state,
-    history, `rounds_run`, returned generator state and policy state.
+    `scan=False` the legacy per-round loop. Both give the same state
+    (its key too), history, `rounds_run` and policy state.
 
     `participation`: a `core.selection.ParticipationPolicy` whose mask
     every round takes (None: no mask; FedGiA draws its own split).
@@ -179,7 +179,7 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     anything but "uniform" needs async rounds.
 
     The caller's `state` is left as it was: its tensors are copied into
-    fresh flat buffers at entry and its generator is copied, so every
+    fresh flat buffers at entry and its key is copied, so every
     round can run the in-place (donated) kernel, as the reference donates
     off the CPU backend; on the CPU the donated plain version writes in
     place too.
@@ -199,7 +199,7 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     packed = aggregate == "packed"
     spec = ravel_spec(state["x"])
     flat = flatten_state(algo, state, spec)
-    flat["rng"] = copy_generator(state["rng"])
+    flat["rng"] = state["rng"].copy()
     stale = None
     if async_rounds:
         stale = api.init_stale_xbar(flat["x"], m, max_staleness,
@@ -435,8 +435,9 @@ class _Chunked:
 
     Masks are drawn and uploaded for every algorithm under a
     participation policy, and otherwise only for an algorithm that
-    selects in the round (`algo.selects_in_round`, from its own
-    generator); the others get `mask=None`.
+    selects in the round (`algo.selects_in_round`, from its own key);
+    the others get `mask=None`. The key stays on the host: the driver
+    splits it a chunk ahead, once a round, where the algorithm selects.
 
     Launch counts: a capture makes no launch, so the counts that the
     wrappers add while a chunk is captured are taken back, and each
@@ -458,7 +459,9 @@ class _Chunked:
         self.algo, self.batch, self.spec = algo, batch, spec
         self.cap, self.packed, self.stale = cap, packed, stale
         self.tol, self.tol_metric, self.longest = tol, tol_metric, longest
-        self.gen = flat["rng"]
+        self.key = flat["rng"]
+        self.round0 = flat["round"]
+        self.splits = getattr(algo, "selects_in_round", False)
         self.policy = participation
         self.pstate = (participation.init() if participation is not None
                        else None)
@@ -605,24 +608,27 @@ class _Chunked:
     # ---------------------------------------------------------- the run
     def _upload_masks(self, length, first_round):
         """Draw the chunk's masks, from the policy (its rounds counted from
-        `first_round`) or else from the run's generator, pack each into
-        its `ActiveSet.slots` under the active store, and send them to
-        the static buffers. Returns the draw state before each round and
-        after the last, so a stop can put back the state at it, the host
-        seconds the draws and packs took, and, under a clock, the
-        rounds' simulated times."""
+        `first_round`) or else from the algorithm's key chain
+        (`selection.round_split`, which splits the key every round even
+        under a policy), pack each into its `ActiveSet.slots` under the
+        active store, and send them to the static buffers. Returns the
+        (key, policy state) before each round and after the last, so a
+        stop can put back the state at it, the host seconds the draws and
+        packs took, and, under a clock, the rounds' simulated times."""
         if self.cuda:
             self.uploaded.synchronize()  # the last upload has left
         m, alpha = self.masks.shape[1], self.algo.fed.alpha
         t0 = time.perf_counter()
         states, sims = [], []
         for i in range(length):
+            states.append((self.key, self.pstate))
+            if self.splits:
+                self.key, mask = selection.round_split(
+                    self.key, self.round0 + first_round + i, m, alpha,
+                    draw=self.policy is None)
             if self.policy is None:
-                states.append(self.gen.get_state())
-                self.host_masks[i] = selection.selection_mask(self.gen, m,
-                                                              alpha)
+                self.host_masks[i] = mask
             else:
-                states.append(self.pstate)
                 self.host_masks[i], self.pstate = self.policy.mask(
                     self.pstate, first_round + i)
                 now = _sim_time(self.policy, self.pstate)
@@ -631,8 +637,7 @@ class _Chunked:
             if self.cap is not None:
                 self.host_slots[i] = pt.pack_slots(self.host_masks[i],
                                                    self.cap)
-        states.append(self.gen.get_state() if self.policy is None
-                      else self.pstate)
+        states.append((self.key, self.pstate))
         draw = time.perf_counter() - t0
         self.masks[:length].copy_(self.host_masks[:length],
                                   non_blocking=self.cuda)
@@ -696,10 +701,7 @@ class _Chunked:
                 sims += chunk_sims[:live]
             rounds_run += live
             if stopped and self.selects:
-                if self.policy is None:
-                    self.gen.set_state(states[live])
-                else:
-                    self.pstate = states[live]
+                self.key, self.pstate = states[live]
         if self.cuda:
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -708,7 +710,7 @@ class _Chunked:
                    for k in self.hist}
         if sims:
             history["sim_time"] = _stack(sims)
-        flat = dict(self.st, rng=self.gen)
+        flat = dict(self.st, rng=self.key)
         for k in self.counters:
             flat[k] = int(self.st[k])
         return RoundResult(unflatten_state(self.algo, flat, self.spec),

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.config import FedConfig
@@ -54,10 +55,11 @@ class FedGiA:
         self._vg_stacked = api.per_client_value_and_grad_stacked(loss_fn)
 
     # ------------------------------------------------------------------ init
-    def init(self, params0: Dict[str, torch.Tensor], gen: torch.Generator,
+    def init(self, params0: Dict[str, torch.Tensor], rng,
              init_batch=None) -> Dict[str, Any]:
-        """Round-0 state. `gen` is the run's selection generator
-        (`selection.make_generator`); the state owns it from here on."""
+        """Round-0 state. `rng` is the run's threefry key
+        (`prng.prng_key(seed + 1)`, as the reference's CLI and runners
+        pass it); every round splits it."""
         fed = self.fed
         m = fed.num_clients
         sdt = _DTYPES[fed.state_dtype]
@@ -82,7 +84,7 @@ class FedGiA:
             "sigma": sigma,
             "r": r,
             "round": 0,
-            "rng": gen,
+            "rng": np.array(rng, np.uint32),
         }
         if fed.h_policy == "diag_ema":
             state["h"] = {k: r.expand(v.shape).clone() for k, v in z.items()}
@@ -136,8 +138,9 @@ class FedGiA:
     def round_inputs(self, state, batch, spec, mask=None, stale=None):
         """Steps (1)-(3) of a round on the flat `state`: x̄ (eq. 11), the
         (m,) branch select, and the per-client losses, raveled gradients
-        and ḡ. `mask=None` draws the select from `state["rng"]`. Returns
-        (xbar, sel, losses, grads_flat, gbar).
+        and ḡ. `mask=None` draws the select from `state["rng"]` and the
+        round index (`selection.round_split`). Returns (xbar, sel, losses,
+        grads_flat, gbar).
 
         With `stale` (async rounds; `mask` is then the arrival mask) x̄
         is the staleness-weighted mean and the stale state advances in
@@ -152,8 +155,9 @@ class FedGiA:
             if stale is not None:
                 raise ValueError("stale-x̄ rounds need the engine's "
                                  "arrival mask")
-            mask = selection.selection_mask(state["rng"], m, self.fed.alpha,
-                                            device=xbar.device)
+            _, mask = selection.round_split(state["rng"], state["round"], m,
+                                            self.fed.alpha)
+            mask = mask.to(xbar.device)
         # (2) per-client gradient: the one boundary that unravels
         if stale is not None:
             api.stale_xbar_view(stale, xbar, mask)
@@ -187,7 +191,10 @@ class FedGiA:
         (new_state, metrics).
 
         `mask` is the (m,) ADMM/GD branch split; None draws it from
-        `state["rng"]` (`selection.selection_mask`). With `stale` (an
+        `state["rng"]` (`selection.round_split`). The state's key splits
+        every round, with a mask or without, as the reference's does; a
+        state without one (the chunked driver's, which keeps the key on
+        the host) needs the mask. With `stale` (an
         `api.StaleXbar`, async rounds) `mask` is the arrival mask and the
         branches run against each client's anchor (`round_inputs`); the
         stale state advances in place.
@@ -203,6 +210,14 @@ class FedGiA:
         fed = self.fed
         m = fed.num_clients
         sigma = state["sigma"]
+        if stale is not None and mask is None:
+            raise ValueError("stale-x̄ rounds need the engine's arrival mask")
+        rng = state.get("rng")
+        if rng is not None:  # (3) the round's key chain, on the host
+            rng, drawn = selection.round_split(rng, state["round"], m,
+                                               fed.alpha, draw=mask is None)
+            if mask is None:
+                mask = drawn.to(state["z"].device)
         xbar, sel, losses, grads_flat, gbar = self.round_inputs(
             state, batch, spec, mask, stale)
         anchor = api.stale_anchor(stale, xbar)
@@ -224,6 +239,8 @@ class FedGiA:
 
         new_state = dict(state)
         new_state.update(x=xbar, z=z_new, pi=pi_new, round=state["round"] + 1)
+        if rng is not None:
+            new_state["rng"] = rng
         if fed.h_policy == "diag_ema":
             new_state["h"] = hparams.update_diag_h(state["h"], gbar,
                                                    state["r"], m)

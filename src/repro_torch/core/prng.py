@@ -1,0 +1,212 @@
+"""Threefry-2x32 key chains on the host: the reference's random stream.
+
+The reference draws every participation mask, clock duration and (later)
+fault or codec sample from `jax.random`'s threefry2x32 keys. This module
+is the port's own copy of those algorithms, in numpy with exact uint32
+arithmetic, so the port draws the same clients for the same seed:
+
+* `threefry2x32`: the Threefry-2x32 block cipher with 20 rounds
+  (Salmon et al., SC'11), as `jax._src.prng._threefry2x32_lowering`;
+* `prng_key(seed)`: `jax.random.PRNGKey` (`threefry_seed`);
+* `split`, `fold_in`, `random_bits`: the key operations;
+* `permutation`: `jax.random.permutation(key, n)` (`random._shuffle`);
+* `uniform`, `gumbel`, `normal`: the float32 samplers.
+
+Which stream. JAX has two forms of `split` and `random_bits`, chosen by
+the flag `jax_threefry_partitionable`. Its default became True in JAX
+0.5.0; the reference is tested with JAX 0.9.0, where it is True, so this
+module follows the partitionable forms: the i-th key of a split and the
+i-th word of `random_bits` both hash the 64-bit counter i, split into
+(hi, lo) 32-bit halves. (JAX 0.4.37, which `requirements-dev.txt` pins,
+defaulted to the other form and so draws other masks.) Seeds follow
+JAX's default 32-bit mode (`jax_enable_x64` off): a Python int seed is
+cast to int32 by dropping its high bits, so the key is
+`(0, seed mod 2**32)` for any seed, 64-bit ones included.
+
+Keys are (2,) uint32 numpy arrays. Every function returns new arrays and
+never changes its arguments, so a key stored in a state is copied with
+`key.copy()`.
+
+Integers (keys, bits, permutations, uniform floats) are the reference's
+bit for bit, and so is `erfinv` on the same input. `gumbel` and `normal`
+apply `log` and `log1p`, which numpy and XLA:CPU compute with their own
+approximations, a few float32 ulps apart (tests/test_torch_prng.py
+states the bounds).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+_U32 = np.uint32
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = _U32(0x1BD11BDA)
+
+
+_M32 = 0xFFFFFFFF
+# up to this many counter pairs (the key operations' one or two) the hash
+# runs on Python ints: ~20 µs a call where numpy's per-op overhead costs
+# ~0.2 ms, most of a small round's draw
+_SCALAR_PAIRS = 8
+
+
+def _threefry_ints(k0: int, k1: int, a: int, b: int):
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    a, b = (a + k0) & _M32, (b + k1) & _M32
+    for group in range(5):
+        for rot in _ROTATIONS[group % 2]:
+            a = (a + b) & _M32
+            b = (((b << rot) | (b >> (32 - rot))) & _M32) ^ a
+        a = (a + ks[(group + 1) % 3]) & _M32
+        b = (b + ks[(group + 2) % 3] + group + 1) & _M32
+    return a, b
+
+
+def threefry2x32(key, x0, x1):
+    """The Threefry-2x32 hash of the counter pairs (x0[i], x1[i]) under
+    `key`: 20 rounds in five groups of four, a key injection after each
+    group. Returns the two output words, uint32 arrays of x0's shape,
+    computed in place on two fresh buffers (on Python ints for a few
+    pairs)."""
+    x0, x1 = np.asarray(x0, _U32), np.asarray(x1, _U32)
+    if x0.size <= _SCALAR_PAIRS:
+        k0, k1 = (int(k) for k in np.asarray(key, _U32))
+        out = [_threefry_ints(k0, k1, int(p), int(q))
+               for p, q in zip(x0.ravel(), x1.ravel())]
+        return (np.array([o[0] for o in out], _U32).reshape(x0.shape),
+                np.array([o[1] for o in out], _U32).reshape(x0.shape))
+    k0, k1 = (_U32(k) for k in np.asarray(key, _U32))
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    a = np.add(x0, ks[0], dtype=_U32)
+    b = np.add(x1, ks[1], dtype=_U32)
+    tmp = np.empty_like(b)
+    for group in range(5):
+        for rot in _ROTATIONS[group % 2]:
+            np.add(a, b, out=a)  # then b = rotl(b, rot) ^ a
+            np.left_shift(b, _U32(rot), out=tmp)
+            np.right_shift(b, _U32(32 - rot), out=b)
+            np.bitwise_or(b, tmp, out=b)
+            np.bitwise_xor(b, a, out=b)
+        np.add(a, ks[(group + 1) % 3], out=a)
+        np.add(b, ks[(group + 2) % 3], out=b)  # array adds wrap mod 2**32
+        np.add(b, _U32(group + 1), out=b)
+    return a, b
+
+
+def _counters(n: int):
+    """The 64-bit counters 0..n-1 as (hi, lo) uint32 halves
+    (`prng.iota_2x32_shape`)."""
+    c = np.arange(n, dtype=np.uint64)
+    return (c >> np.uint64(32)).astype(_U32), c.astype(_U32)
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)` in JAX's default 32-bit mode: the seed
+    is cast to int32 (its low 32 bits kept), whose logical shift by 32 is
+    0, so the key is (0, seed mod 2**32)."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], dtype=_U32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """`jax.random.split(key, num)`, partitionable form: key i is the hash
+    of counter i. Returns (num, 2) uint32."""
+    a, b = threefry2x32(key, *_counters(num))
+    return np.stack([a, b], axis=1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """`jax.random.fold_in(key, data)`: the hash of the pair
+    (0, data mod 2**32)."""
+    a, b = threefry2x32(key, np.zeros((1,), _U32),
+                        np.array([int(data) & 0xFFFFFFFF], _U32))
+    return np.concatenate([a, b])
+
+
+def random_bits(key, n: int) -> np.ndarray:
+    """`jax.random.bits(key, (n,))` (32-bit words), partitionable form:
+    word i is the XOR of the two halves of the hash of counter i."""
+    a, b = threefry2x32(key, *_counters(n))
+    return a ^ b
+
+
+def permutation(key, n: int) -> np.ndarray:
+    """`jax.random.permutation(key, n)`: arange(n) sorted by fresh random
+    32-bit keys, ceil(3 ln n / ln(2**32 - 1)) times, each time from a key
+    split off the last. The sort is stable (`lax.sort_key_val`'s default),
+    which decides the order of colliding keys. Returns int64."""
+    x = np.arange(n, dtype=np.int64)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    pos = np.arange(n, dtype=np.uint64)
+    key = np.asarray(key, _U32)
+    for _ in range(rounds):
+        key, sub = split(key)
+        # the stable sort as one plain sort of (bits << 32 | position):
+        # equal bits keep their order (~10x faster than a stable argsort)
+        packed = random_bits(sub, n).astype(np.uint64) << np.uint64(32)
+        packed |= pos
+        packed.sort()
+        x = x[(packed & np.uint64(0xFFFFFFFF)).astype(np.int64)]
+    return x
+
+
+def uniform(key, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """`jax.random.uniform(key, (n,), float32, minval, maxval)`: 23 random
+    mantissa bits under exponent 0 give a float in [1, 2); minus 1,
+    scaled and shifted, and held at or above `minval`."""
+    f32 = np.float32
+    bits = (random_bits(key, n) >> _U32(32 - 23)) | _U32(0x3F800000)
+    floats = bits.view(f32) - f32(1.0)
+    lo, hi = f32(minval), f32(maxval)
+    # floats·(hi − lo) + lo rounded once, as XLA:CPU contracts it into an
+    # FMA (the float64 product of two float32 values is exact)
+    scaled = (floats.astype(np.float64) * np.float64(hi - lo)
+              + np.float64(lo)).astype(f32)
+    return np.maximum(lo, scaled)
+
+
+def gumbel(key, n: int) -> np.ndarray:
+    """`jax.random.gumbel(key, (n,))` (mode "low"): -log(-log(u)) with u
+    uniform on [tiny, 1)."""
+    u = uniform(key, n, np.finfo(np.float32).tiny, 1.0)
+    return -np.log(-np.log(u))
+
+
+# XLA's float32 erfinv (M. Giles, "Approximating the erfinv function"):
+# a degree-8 polynomial in w - 2.5 for w = -log1p(-x²) < 5, else in
+# sqrt(w) - 3; the coefficients from the highest power down.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: np.ndarray) -> np.ndarray:
+    """float32 erfinv as XLA computes it (Giles' polynomial), ±inf at ±1."""
+    f32 = np.float32
+    x = np.asarray(x, f32)
+    with np.errstate(divide="ignore", invalid="ignore"):  # at |x| = 1
+        w = -np.log1p(-x * x)
+        small = w < f32(5.0)
+        w = np.where(small, w - f32(2.5), np.sqrt(w) - f32(3.0))
+        p = np.where(small, f32(_ERFINV_SMALL[0]), f32(_ERFINV_LARGE[0]))
+        w64 = w.astype(np.float64)
+        for cs, cl in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+            # c + p·w rounded once, as XLA:CPU contracts it into an FMA
+            # (the float64 product of two float32 values is exact)
+            c = np.where(small, cs, cl).astype(f32).astype(np.float64)
+            p = (p * w64 + c).astype(f32)
+        return np.where(np.abs(x) == f32(1.0), x * f32(np.inf), p * x)
+
+
+def normal(key, n: int) -> np.ndarray:
+    """`jax.random.normal(key, (n,))` (float32): sqrt(2)·erfinv(u) with u
+    uniform on (nextafter(-1, 0), 1)."""
+    f32 = np.float32
+    lo = np.nextafter(f32(-1.0), f32(0.0))
+    u = uniform(key, n, lo, 1.0)
+    return f32(math.sqrt(2)) * erfinv(u)

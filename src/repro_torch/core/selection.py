@@ -1,15 +1,17 @@
 """Client participation: who runs which branch each communication round.
 
 Counterpart of `repro/core/selection.py`. The paper draws |C| = alpha*m
-clients uniformly without replacement each round (§V.B). JAX's threefry
-stream cannot be reproduced in torch, so draws come from CPU
-`torch.Generator`s seeded by the run's seed: the card and the CPU pick
-the same clients every round.
+clients uniformly without replacement each round (§V.B). Draws follow
+the reference's threefry key chains (`core/prng.py`, on the host), so
+the port, on the card or the CPU, picks the reference's clients for the
+same seed: the uniform policy and FedGiA's own split bit for bit, the
+weighted policy up to the ulps of `log` in its Gumbel keys.
 
 Two sources of masks:
 
-* `selection_mask`: FedGiA's own ADMM/GD split, drawn in the round from
-  the state's generator when the engine passes no mask.
+* `round_split`: FedGiA's own ADMM/GD split. The state's key splits
+  every round, and the round index folded into the second half draws
+  the split when the engine passes no mask.
 * A `ParticipationPolicy`, passed to `core/engine.py::run_rounds`: the
   engine draws a fresh (m,) mask on the host every round and hands it to
   every algorithm's `round_flat(mask=...)` (FedGiA's split; the
@@ -27,21 +29,10 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.utils import pytree as pt
 
 MaskAndState = Tuple[torch.Tensor, Any]
-
-
-def make_generator(seed: int) -> torch.Generator:
-    """The selection generator of a run (CPU, so every device draws the
-    same masks from the same seed)."""
-    return torch.Generator().manual_seed(seed)
-
-
-def copy_generator(gen: torch.Generator) -> torch.Generator:
-    out = torch.Generator()
-    out.set_state(gen.get_state())
-    return out
 
 
 def num_selected(m: int, alpha: float) -> int:
@@ -49,21 +40,25 @@ def num_selected(m: int, alpha: float) -> int:
     return max(1, min(m, int(round(alpha * m))))
 
 
-def selection_mask(gen: torch.Generator, m: int, alpha: float,
-                   device=None) -> torch.Tensor:
-    """(m,) bool — True = client runs the inexact-ADMM branch this round.
-    Draws nothing from `gen` when every client is selected."""
+def selection_mask(key, m: int, alpha: float) -> torch.Tensor:
+    """(m,) bool on the CPU — True = client runs the inexact-ADMM branch
+    this round: the clients whose rank in `prng.permutation(key, m)` is
+    below |C|. Draws nothing when every client is selected."""
     n_sel = num_selected(m, alpha)
     if n_sel == m:
-        return torch.ones((m,), dtype=torch.bool, device=device)
-    ranks = torch.randperm(m, generator=gen)
-    return (ranks < n_sel).to(device)
+        return torch.ones((m,), dtype=torch.bool)
+    return torch.from_numpy(prng.permutation(key, m) < n_sel)
 
 
-def _generator_at(state: torch.Tensor) -> torch.Generator:
-    gen = torch.Generator()
-    gen.set_state(state)
-    return gen
+def round_split(key, round_idx: int, m: int, alpha: float, draw=True):
+    """FedGiA's key chain for one round (reference `fedgia.py:323-328`):
+    the state's key splits into the next state's key and a selection key;
+    with `draw`, the selection key folded with the round index draws the
+    ADMM/GD split. Returns (next key, mask or None)."""
+    key, sel_key = prng.split(key)
+    if not draw:
+        return key, None
+    return key, selection_mask(prng.fold_in(sel_key, round_idx), m, alpha)
 
 
 class ParticipationPolicy:
@@ -108,8 +103,9 @@ class ParticipationPolicy:
 
 class UniformParticipation(ParticipationPolicy):
     """Paper §V.B: alpha*m clients uniformly without replacement a round.
-    The state is the state of a CPU generator seeded from `seed`, so the
-    mask sequence is a function of `seed` alone."""
+    The state is a threefry key (`{"key": prng_key(seed)}`) that each
+    round splits, so the mask sequence is a function of `seed` alone: the
+    reference's, bit for bit."""
 
     name = "uniform"
 
@@ -122,17 +118,18 @@ class UniformParticipation(ParticipationPolicy):
         return self.n_selected
 
     def init(self):
-        return make_generator(self.seed).get_state()
+        return {"key": prng.prng_key(self.seed)}
 
     def mask(self, pstate, round_idx):
-        gen = _generator_at(pstate)
-        return selection_mask(gen, self.m, self.alpha), gen.get_state()
+        key, sub = prng.split(pstate["key"])
+        return selection_mask(sub, self.m, self.alpha), {"key": key}
 
 
 class WeightedParticipation(ParticipationPolicy):
     """Weighted sampling without replacement (Gumbel top-k): Gumbel noise
     on the log-weights, the top |C| kept. `weights` are per-client
-    sampling weights (e.g. local sample counts)."""
+    sampling weights (e.g. local sample counts). The state is a threefry
+    key, split each round as the uniform policy's."""
 
     name = "weighted"
 
@@ -150,22 +147,22 @@ class WeightedParticipation(ParticipationPolicy):
         return self.n_selected
 
     def init(self):
-        return make_generator(self.seed).get_state()
+        return {"key": prng.prng_key(self.seed)}
+
+    def gumbel_keys(self, sub) -> torch.Tensor:
+        """The round's Gumbel keys, log-weights plus `prng.gumbel(sub)`."""
+        return self.log_w + torch.from_numpy(prng.gumbel(sub, self.m))
 
     def mask(self, pstate, round_idx):
+        key, sub = prng.split(pstate["key"])
         n_sel = self.n_selected
         if n_sel == self.m:
-            return torch.ones((self.m,), dtype=torch.bool), pstate
-        gen = _generator_at(pstate)
-        # u in [tiny, 1), as jax.random.gumbel draws it: u = 0 would give
-        # an infinite key
-        u = torch.rand((self.m,), generator=gen).clamp_min_(
-            torch.finfo(torch.float32).tiny)
-        z = self.log_w - torch.log(-torch.log(u))
+            return torch.ones((self.m,), dtype=torch.bool), {"key": key}
+        z = self.gumbel_keys(sub)
         # the n_sel-th largest key (the reference's top_k(z, n_sel)[0][-1]);
         # kthvalue finds it a few times faster than a top-k sort
         kth = torch.kthvalue(z, self.m - n_sel + 1).values
-        return z >= kth, gen.get_state()
+        return z >= kth, {"key": key}
 
 
 class CyclicParticipation(ParticipationPolicy):

@@ -16,7 +16,7 @@ import argparse
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import make_generator
+from repro_torch.core.prng import prng_key
 from repro_torch.data import linreg_noniid, to_torch
 from repro_torch.device import resolve_device
 from repro_torch.models import LeastSquares
@@ -40,7 +40,7 @@ def run(device="cuda"):
     for algo_name, hp in RUNS:
         fed = FedConfig(algorithm=algo_name, num_clients=M, k0=K0, **hp)
         algo = make_algorithm(fed, model.loss, model=model)
-        state = algo.init(model.init(device), make_generator(1),
+        state = algo.init(model.init(device), prng_key(1),
                           init_batch=batch)
         res = run_rounds(algo, state, batch, MAX_ROUNDS, tol=TOL)
         lines.append(

@@ -1,15 +1,22 @@
 """Serving driver for the port: prefill a batch of requests, then decode
-greedily, token by token.
+greedily.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-Counterpart of `repro.launch.serve`, with its flags (but `--no-scan`: the
-decode is always a per-token loop) and its closing log lines. Runs on the
-CUDA device unless `--device cpu` is given, in which case the plain
-PyTorch versions stand in for the CUDA kernels. Parameters come from the
-model's own initialiser, drawn from a generator on the run's device
-seeded by `--seed`; the prompts are drawn from the same generator.
+Counterpart of `repro.launch.serve`, with its flags and its closing log
+lines. The decode runs through `core/graphs.py::scan_steps`, as the
+reference's runs through its `scan_steps`: on the card one decode step is
+captured as a CUDA graph and replayed for every token, with the cache,
+the token and the position (a 0-d tensor) updated in place; `--no-scan`
+keeps the per-token loop of eager steps. The capture is timed apart
+(`capture_s`, its own log line) and `decode_s` excludes it, where the
+reference's `decode_s` includes the scan's compile. Runs on the CUDA
+device unless `--device cpu` is given, in which case the plain PyTorch
+versions stand in for the CUDA kernels and the same step runs eagerly.
+Parameters come from the model's own initialiser, drawn from a generator
+on the run's device seeded by `--seed`; the prompts are drawn from the
+same generator.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config, list_architectures
+from repro_torch.core.graphs import scan_steps
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import get_logger
 from repro_torch.models import Transformer
@@ -31,12 +39,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(model: Transformer, prompts, gen: int, window=None) -> dict:
+def generate(model: Transformer, prompts, gen: int, window=None,
+             scan: bool = True) -> dict:
     """Prefill `prompts` (B, P) and decode `gen` tokens greedily (the
-    prefill's argmax first). Returns {"tokens": (B, gen), "logits":
-    (gen, B, V) the logits each token was taken from, "prefill_s",
-    "decode_s"}, the times on the host clock around work that ends in a
-    device sync."""
+    prefill's argmax first): with `scan`, the gen - 1 decode steps through
+    `scan_steps` (one captured step, replayed, on the card), else one
+    eager step a token. Returns {"tokens": (B, gen), "logits": (gen, B, V)
+    the logits each token was taken from, "prefill_s", "decode_s",
+    "capture_s"}, the times on the host clock around work that ends in a
+    device sync; `decode_s` excludes `capture_s` (0 without a capture)."""
     B, P = prompts.shape
     dev = model.device
     _sync(dev)
@@ -45,17 +56,33 @@ def generate(model: Transformer, prompts, gen: int, window=None) -> dict:
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tokens = logits.argmax(-1)[:, None]
-    out, seen = [tokens], [logits]
+    out, seen, capture = [tokens], [logits[None]], 0.0
     t0 = time.perf_counter()
-    for i in range(gen - 1):
-        logits, cache = model.decode_step(cache, tokens, P + i, window=window)
-        tokens = logits.argmax(-1)[:, None]
-        out.append(tokens)
-        seen.append(logits)
+    if gen > 1 and scan:
+        def step(carry):
+            c, t, pos = carry
+            lg, c = model.decode_step(c, t, pos, window=window)
+            t = lg.argmax(-1)[:, None]
+            return (c, t, pos + 1), (t, lg)
+
+        run = scan_steps(step, gen - 1)
+        pos = torch.tensor(P, dtype=torch.int32, device=dev)
+        _, (rest, lgs) = run((cache, tokens.clone(), pos))
+        capture = run.capture_s
+        out.append(rest[..., 0].T)  # (gen-1, B, 1) -> (B, gen-1)
+        seen.append(lgs)
+    elif gen > 1:
+        for i in range(gen - 1):
+            logits, cache = model.decode_step(cache, tokens, P + i,
+                                              window=window)
+            tokens = logits.argmax(-1)[:, None]
+            out.append(tokens)
+            seen.append(logits[None])
     _sync(dev)
-    t_decode = time.perf_counter() - t0
-    return {"tokens": torch.cat(out, dim=1), "logits": torch.stack(seen),
-            "prefill_s": t_prefill, "decode_s": t_decode}
+    t_decode = time.perf_counter() - t0 - capture
+    return {"tokens": torch.cat(out, dim=1), "logits": torch.cat(seen),
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "capture_s": capture}
 
 
 def serve(args, params=None, prompts=None):
@@ -81,8 +108,12 @@ def serve(args, params=None, prompts=None):
         prompts = torch.as_tensor(prompts, device=device).long()
     window = cfg.sliding_window if args.long_context else None
 
-    res = generate(model, prompts, args.gen, window=window)
+    res = generate(model, prompts, args.gen, window=window,
+                   scan=not args.no_scan)
     B, P = prompts.shape
+    if not args.no_scan:
+        log.info("capture_s %.3fs (decode step warm-up and CUDA-graph "
+                 "capture, outside decode)", res["capture_s"])
     log.info("prefill %.3fs (%d tokens)  decode %.3fs (%.1f tok/s/req)",
              res["prefill_s"], B * P, res["decode_s"],
              (args.gen - 1) / max(res["decode_s"], 1e-9))
@@ -99,6 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--long-context", action="store_true")
+    ap.add_argument("--no-scan", action="store_true",
+                    help="per-token decode loop of eager steps, no capture")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap

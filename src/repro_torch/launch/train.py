@@ -54,7 +54,8 @@ from repro_torch.config import ALGORITHMS, FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.clock import CLOCKS, make_clock
 from repro_torch.core.engine import run_rounds
-from repro_torch.core.selection import POLICIES, make_generator, make_policy
+from repro_torch.core.prng import prng_key
+from repro_torch.core.selection import POLICIES, make_policy
 from repro_torch.data import linreg_noniid, logreg_data, to_torch
 from repro_torch.device import resolve_device
 from repro_torch.models import (
@@ -201,7 +202,7 @@ def train(args) -> dict:
                     h_policy=args.h_policy, collapsed=not args.unrolled,
                     lr=args.lr)
     algo = make_algorithm(fed, loss_fn, model=model)
-    state = algo.init(params0, make_generator(args.seed + 1),
+    state = algo.init(params0, prng_key(args.seed + 1),
                       init_batch=batch)
     if args.unrolled and args.algo == "fedgia":
         log.info("unrolled FedGiA round: the k0-step ADMM loop in torch "

@@ -8,7 +8,11 @@ streaming softmax in plain PyTorch, as the reference decodes with it: the
 reference has no kernel there.
 
 The KV cache is updated in place (the reference returns a new one): the
-tensors of `cache` are written and the same dict is returned.
+tensors of `cache` are written and the same dict is returned, with no
+host value read, so a decode step can be captured in a CUDA graph
+(`core/graphs.py::scan_steps`). The cache may be float8 (the reference's
+`cache_dtype`): values are cast by the reference's rule and read back
+block by block, upcast to float32.
 """
 from __future__ import annotations
 
@@ -23,6 +27,40 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, he_init
 
 NEG_INF = -1e30
+
+# ml_dtypes (the reference's cast) makes a value that rounds past
+# float8_e4m3fn's largest finite 448 NaN (the type has no inf), where
+# torch's cast saturates at 448: magnitudes above 464, the midpoint to
+# the next step, and ±inf, become NaN (bits 0x7F) here too. float8_e5m2
+# casts the same way in both (to ±inf).
+_NAN_ABOVE = {torch.float8_e4m3fn: 464.0}
+_FP8_NAN_BITS = 0x7F
+
+
+def _is_fp8(t) -> bool:
+    return t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _bits(t):
+    """A float8 tensor as its uint8 bits (indexed writes and pads, which
+    PyTorch does not offer for float8 on every device), else itself."""
+    return t.view(torch.uint8) if _is_fp8(t) else t
+
+
+def cast_to_cache(x, dtype):
+    """x cast to the cache's dtype by the reference's rule (above)."""
+    out = x.to(dtype)
+    limit = _NAN_ABOVE.get(dtype)
+    if limit is not None:
+        over = ~(x.float().abs() <= limit)  # NaN-safe: inf, NaN are over
+        out.view(torch.uint8).masked_fill_(over, _FP8_NAN_BITS)
+    return out
+
+
+def _pad_tokens(x, pad):
+    """Zero-pad the token axis (dim 1) of a (B, T, Kv, d) tensor."""
+    out = F.pad(_bits(x), (0, 0, 0, 0, 0, pad))
+    return out.view(x.dtype) if _is_fp8(x) else out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +79,8 @@ def blocked_attention(q, k, v, q_positions, kv_positions, *, window=None,
     q_positions: (S,) absolute positions of queries
     kv_positions: (T,) absolute positions of keys (-1 = invalid slot)
     Causal: key visible iff 0 <= kv_pos <= q_pos (and q_pos - kv_pos < window).
+    k and v may be float8 (a quantized cache): each block is upcast to
+    float32 as it is read, as the reference reads it.
     Returns (B, S, H, dv).
     """
     B, S, H, dqk = q.shape
@@ -56,8 +96,8 @@ def blocked_attention(q, k, v, q_positions, kv_positions, *, window=None,
     nb = -(-T // block_k)
     pad = nb * block_k - T
     if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k = _pad_tokens(k, pad)
+        v = _pad_tokens(v, pad)
         kv_positions = F.pad(kv_positions, (0, pad), value=-1)
     kb = k.reshape(B, nb, block_k, Kv, dqk).permute(1, 0, 3, 2, 4)  # nb,B,Kv,bk,d
     vb = v.reshape(B, nb, block_k, Kv, dv).permute(1, 0, 3, 2, 4)
@@ -118,15 +158,18 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 
 def _write_cache(cache, k_new, v_new, positions):
     """Ring-buffer write, in place: entries land at position % W.
-    positions: (S,). When S > W only the LAST W entries are written
-    (unique slots, as in the reference)."""
+    positions: (S,), on the device (a decode step's comes from a 0-d
+    tensor, so nothing here reads a host value). When S > W only the LAST
+    W entries are written (unique slots, as in the reference). A float8
+    cache takes `cast_to_cache`'s values, written as bits."""
     W = cache["k"].shape[1]
     S = k_new.shape[1]
     if S > W:
         k_new, v_new, positions = k_new[:, -W:], v_new[:, -W:], positions[-W:]
     idx = positions % W
-    cache["k"][:, idx] = k_new.to(cache["k"].dtype)
-    cache["v"][:, idx] = v_new.to(cache["v"].dtype)
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = cache[name]
+        _bits(buf)[:, idx] = _bits(cast_to_cache(new, buf.dtype))
     cache["slot_pos"][idx] = positions.to(torch.int32)
     cache["pos"].copy_(positions[-1] + 1)
     return cache

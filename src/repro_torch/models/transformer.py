@@ -6,7 +6,9 @@ each group's layers, which the reference stacks on a leading axis, are
 entries of a list ("groups.dense.0.attn.wq" is layer 0 of the reference's
 `groups/dense/attn/wq`). Layers run in a Python loop. The cache keeps the
 reference's layout, each group's tensors stacked on a leading layer axis,
-and is updated in place.
+and is updated in place. A decode step reads no host value (its position
+is a 0-d tensor on the device), so `launch/serve.py` captures it once as
+a CUDA graph and replays it for every token.
 
 Modes:
   train    — full causal attention, no cache
@@ -130,18 +132,21 @@ class Transformer(ParamTree):
         return self
 
     # ----------------------------------------------------------------- cache
-    def _block_cache(self, kind: str, batch: int, cache_len: int):
+    def _block_cache(self, kind: str, batch: int, cache_len: int, dtype):
         if kind == "rwkv":
-            return rwkv_lib.init_rwkv_state(self.cfg, batch, self.dtype,
+            return rwkv_lib.init_rwkv_state(self.cfg, batch, dtype,
                                             self.device)
-        return attn_lib.init_gqa_cache(self.cfg, batch, cache_len,
-                                       self.dtype, self.device)
+        return attn_lib.init_gqa_cache(self.cfg, batch, cache_len, dtype,
+                                       self.device)
 
-    def init_cache(self, batch: int, cache_len: int):
-        """{group: {name: tensor stacked over the group's layers}}."""
+    def init_cache(self, batch: int, cache_len: int, dtype=None):
+        """{group: {name: tensor stacked over the group's layers}}. `dtype`
+        (default: the model's) is the K/V cache's, e.g.
+        `torch.float8_e4m3fn` for a quantized cache, as the reference's."""
+        dtype = dtype or self.dtype
         out = {}
         for g in self.layer_groups:
-            single = self._block_cache(g.kind, batch, cache_len)
+            single = self._block_cache(g.kind, batch, cache_len, dtype)
             out[g.name] = {k: a[None].repeat((g.count,) + (1,) * a.dim())
                            for k, a in single.items()}
         return out
@@ -212,22 +217,27 @@ class Transformer(ParamTree):
 
     # ------------------------------------------------------------- serving
     def prefill(self, tokens, *, cache_len: int,
-                window: Optional[int] = None):
+                window: Optional[int] = None, cache_dtype=None):
         """Returns (logits of the last position (B,V), cache). Only the
         last position goes through the head: the reference takes
-        `logits[:, -1]` of the full product, the same values."""
-        cache = self.init_cache(tokens.shape[0], cache_len)
+        `logits[:, -1]` of the full product, the same values.
+        `cache_dtype`: see `init_cache`."""
+        cache = self.init_cache(tokens.shape[0], cache_len, cache_dtype)
         mode = AttnMode("prefill", window=window)
         x = self._hidden(tokens, cache, None, mode)
         return self._logits(x[:, -1]), cache
 
-    def decode_step(self, cache, tokens, pos: int,
+    def decode_step(self, cache, tokens, pos,
                     window: Optional[int] = None):
-        """tokens: (B,1) int; pos: the new token's absolute position."""
-        # a fill on the device: torch.tensor([pos]) would copy from
-        # pageable host memory, which waits for the card every step
-        positions = torch.full((1,), pos, dtype=torch.long,
-                               device=tokens.device)
+        """tokens: (B,1) int; pos: the new token's absolute position, a
+        0-d integer tensor on the model's device (the reference's traced
+        int32: a captured step reads it at replay) or an int."""
+        if torch.is_tensor(pos):
+            positions = pos.reshape(1).to(torch.long)
+        else:  # a fill on the device: torch.tensor([pos]) would copy
+            # from pageable host memory, which waits for the card
+            positions = torch.full((1,), pos, dtype=torch.long,
+                                   device=tokens.device)
         mode = AttnMode("decode", window=window)
         x = self._hidden(tokens, cache, positions, mode)
         return self._logits(x)[:, -1], cache

@@ -9,8 +9,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.selection import make_generator
-
 
 def _tensor(v, device) -> torch.Tensor:
     """One array as a tensor, bit for bit. numpy has no bfloat16 of its
@@ -69,14 +67,14 @@ def _index(tree, i):
     return np.asarray(tree)[i]
 
 
-def state_from_numpy(state: dict, device, seed: int) -> dict:
-    """A JAX `FedGiA` state as numpy -> the port's state. The JAX `rng`
-    key has no torch counterpart: it is dropped and the port's selection
-    generator is seeded with `seed` instead. `round` becomes an int."""
+def state_from_numpy(state: dict, device) -> dict:
+    """A JAX `FedGiA` state as numpy -> the port's state. The threefry
+    key `rng` goes across as its (2,) uint32 words (the port draws from
+    the same key chain, `core/prng.py`); `round` becomes an int."""
     out = {}
     for k, v in state.items():
         if k == "rng":
-            continue
-        out[k] = int(v) if k == "round" else params_from_numpy(v, device)
-    out["rng"] = make_generator(seed)
+            out[k] = np.array(v, np.uint32)
+        else:
+            out[k] = int(v) if k == "round" else params_from_numpy(v, device)
     return out

@@ -39,10 +39,10 @@ from repro_torch.core import fedgia as fedgia_mod
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.clock import ComputeClock
 from repro_torch.core.engine import run_rounds
+from repro_torch.core.prng import prng_key
 from repro_torch.core.selection import (
     AvailabilityParticipation,
     UniformParticipation,
-    make_generator,
     make_policy,
 )
 from repro_torch.data import linreg_noniid, to_torch
@@ -90,7 +90,7 @@ def _make(raw, key):
     fed = FedConfig(num_clients=M, k0=3, **ALGO_SETUPS[key])
     algo = make_algorithm(fed, model.loss, model=model)
     batch = to_torch(raw, "cpu")
-    state = algo.init(model.init("cpu"), make_generator(1), init_batch=batch)
+    state = algo.init(model.init("cpu"), prng_key(1), init_batch=batch)
     return algo, state, batch
 
 

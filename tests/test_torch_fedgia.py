@@ -28,6 +28,7 @@ from repro.models import LeastSquares as JaxLeastSquares
 from repro.utils import pytree as jpt
 from repro_torch.config import FedConfig
 from repro_torch.core import api, hparams, selection
+from repro_torch.core.prng import prng_key
 from repro_torch.core.engine import flatten_state
 from repro_torch.core.fedgia import FedGiA
 from repro_torch.data import to_torch
@@ -63,7 +64,7 @@ def _pair(raw, k0=3, sigma_t=0.2, alpha=0.5, **kw):
     model = LeastSquares(N)
     fed = FedConfig(num_clients=M, k0=k0, alpha=alpha, sigma_t=sigma_t, **kw)
     algo = FedGiA(fed, model.loss, model=model)
-    state = state_from_numpy(jax.device_get(jstate), "cpu", seed=1)
+    state = state_from_numpy(jax.device_get(jstate), "cpu")
     return jalgo, jstate, jb, algo, state, to_torch(raw, "cpu")
 
 
@@ -101,22 +102,25 @@ def test_sigma_and_diag_h_match_reference():
 @pytest.mark.parametrize("alpha", [1e-9, 0.1, 0.5, 0.99, 1.0])
 def test_selection_counts_match_reference(m, alpha):
     assert selection.num_selected(m, alpha) == jax_selection.num_selected(m, alpha)
-    mask = selection.selection_mask(selection.make_generator(0), m, alpha)
+    mask = selection.selection_mask(prng_key(0), m, alpha)
     assert mask.dtype == torch.bool and mask.shape == (m,)
     assert int(mask.sum()) == selection.num_selected(m, alpha)
 
 
 def test_selection_stream_is_seeded_and_full_selection_draws_nothing():
-    a = [selection.selection_mask(selection.make_generator(3), 64, 0.5)
-         for _ in range(2)]
-    assert torch.equal(a[0], a[1])
-    gen = selection.make_generator(3)
-    m1 = selection.selection_mask(gen, 64, 0.5)
-    m2 = selection.selection_mask(gen, 64, 0.5)
-    assert not torch.equal(m1, m2)  # the generator advances per round
-    state = gen.get_state()
-    assert bool(selection.selection_mask(gen, 64, 1.0).all())
-    assert torch.equal(gen.get_state(), state)
+    """The split is a function of the key and the round alone; the key
+    splits every round, with every client selected too, as the
+    reference's (fedgia.py:323-328)."""
+    a = [selection.round_split(prng_key(3), 0, 64, 0.5) for _ in range(2)]
+    assert np.array_equal(a[0][0], a[1][0]) and torch.equal(a[0][1],
+                                                            a[1][1])
+    key, m1 = selection.round_split(prng_key(3), 0, 64, 0.5)
+    _, m2 = selection.round_split(key, 1, 64, 0.5)
+    assert not torch.equal(m1, m2)  # the key advances per round
+    key_all, m_all = selection.round_split(prng_key(3), 0, 64, 1.0)
+    assert bool(m_all.all()) and np.array_equal(key_all, key)
+    assert selection.round_split(prng_key(3), 0, 64, 0.5,
+                                 draw=False)[1] is None
 
 
 def test_api_primitives_match_reference():
@@ -146,7 +150,8 @@ def test_api_primitives_match_reference():
 def test_params_and_state_from_numpy(raw):
     _, jstate, _, _, state, _ = _pair(raw, h_policy="diag_ema")
     host = jax.device_get(jstate)
-    assert "rng" in host and isinstance(state["rng"], torch.Generator)
+    assert state["rng"].dtype == np.uint32
+    np.testing.assert_array_equal(state["rng"], np.asarray(host["rng"]))
     assert state["round"] == 0 and isinstance(state["round"], int)
     for k in ("x", "z", "pi", "h"):
         np.testing.assert_array_equal(state[k]["x"].numpy(), host[k]["x"])
@@ -162,7 +167,7 @@ def test_params_and_state_from_numpy(raw):
 def test_init_matches_reference(raw, policy):
     _, jstate, _, algo, _, batch = _pair(raw, **POLICIES[policy])
     state = algo.init(LeastSquares(N).init("cpu"),
-                      selection.make_generator(1), init_batch=batch)
+                      prng_key(1), init_batch=batch)
     _close(state["r"], jstate["r"], "r")
     _close(state["sigma"], jstate["sigma"], "sigma")
     for k in ("x", "z", "pi"):
@@ -180,7 +185,7 @@ def test_auto_lipschitz_is_refused():
     fed = FedConfig(num_clients=M, auto_lipschitz=True)
     algo = FedGiA(fed, LeastSquares(N).loss, model=LeastSquares(N))
     with pytest.raises(NotImplementedError):
-        algo.init(LeastSquares(N).init("cpu"), selection.make_generator(0))
+        algo.init(LeastSquares(N).init("cpu"), prng_key(0))
 
 
 # ------------------------------------------------------------- round_flat
@@ -206,6 +211,33 @@ def test_round_flat_matches_reference(raw, policy):
     assert ts["round"] == int(js["round"]) == 3
     for k in ("f_xbar", "grad_sq_norm", "cr", "local_grad_evals", "selected"):
         _close(float(tmet[k]), float(jmet[k]), f"{policy}: {k}")
+    # the key splits every round, with an engine mask too
+    np.testing.assert_array_equal(ts["rng"], np.asarray(js["rng"]))
+
+
+@pytest.mark.parametrize("policy", list(POLICIES))
+def test_round_flat_own_split_matches_reference(raw, policy):
+    """No mask injected: each side draws FedGiA's α = 0.5 split from its
+    own key chain (split, then fold_in of the round), the same clients
+    bit for bit, so the state follows the reference's at the per-round
+    tolerance."""
+    jalgo, jstate, jb, algo, state, batch = _pair(raw, **POLICIES[policy])
+    jspec = jpt.ravel_spec(jstate["x"])
+    spec = pt.ravel_spec(state["x"])
+    js = jax_flatten(jalgo, jstate, jspec)
+    ts = flatten_state(algo, state, spec)
+    for r in range(3):
+        _, sel_key = jax.random.split(js["rng"])
+        want = jax_selection.selection_mask(
+            jax.random.fold_in(sel_key, js["round"]), M, 0.5)
+        _, got = selection.round_split(ts["rng"], ts["round"], M, 0.5)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        js, jmet = jalgo.round_flat(js, jb, jspec)
+        ts, tmet = algo.round_flat(ts, batch, spec)
+        assert float(tmet["selected"]) == float(jmet["selected"]) == M // 2
+        np.testing.assert_array_equal(ts["rng"], np.asarray(js["rng"]))
+        for k in ["x", "z", "pi"] + (["h"] if "h" in js else []):
+            _close(ts[k], js[k], f"{policy} round {r}: state[{k!r}]")
 
 
 @pytest.mark.parametrize("policy", ["scalar", "diag_ema"])
@@ -242,7 +274,7 @@ def test_kernel_args_are_what_round_flat_updates_with(raw, policy):
     _, _, _, algo, state, batch = _pair(raw, **POLICIES[policy])
     spec = pt.ravel_spec(state["x"])
     ts = flatten_state(algo, state, spec)
-    probe = dict(ts, rng=selection.copy_generator(state["rng"]))
+    probe = dict(ts, rng=state["rng"].copy())
     xbar, sel, _, _, gbar = algo.round_inputs(probe, batch, spec)
     *args, k0 = algo.kernel_args(probe, xbar, gbar, sel)
     assert k0 == algo.fed.k0 and args[6] == M
@@ -254,8 +286,8 @@ def test_kernel_args_are_what_round_flat_updates_with(raw, policy):
     assert args[0] is xbar and sel.dtype == torch.bool
     x_new, pi_new, z_new = fedgia_update_flat(*args, k0=k0, want_x=False)
     assert x_new is None
-    new, _ = algo.round_flat(dict(ts, rng=selection.copy_generator(
-        state["rng"])), batch, spec)
+    new, _ = algo.round_flat(dict(ts, rng=state["rng"].copy()), batch,
+                             spec)
     assert torch.equal(new["pi"], pi_new) and torch.equal(new["z"], z_new)
 
 
@@ -264,7 +296,7 @@ def _flat_port(raw, **kw):
     model = LeastSquares(N)
     algo = FedGiA(FedConfig(num_clients=M, **kw), model.loss, model=model)
     batch = to_torch(raw, "cpu")
-    state = algo.init(model.init("cpu"), selection.make_generator(1),
+    state = algo.init(model.init("cpu"), prng_key(1),
                       init_batch=batch)
     spec = pt.ravel_spec(state["x"])
     return algo, flatten_state(algo, state, spec), batch, spec

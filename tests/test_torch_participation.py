@@ -10,13 +10,14 @@ client axis).
     the policy's state back to the stop's;
   * masked-out clients keep their per-client state and their data is not
     read by the aggregate;
-  * against the reference: the reference's own uniform masks (threefry,
-    which the port cannot draw, ROADMAP queue 3 item a) are stacked into a
-    (T, m) trace and BOTH packages run under
-    `AvailabilityParticipation(m, trace)`, so both take the same masks;
-    every round's metrics and the final state are then held at the port's
-    per-round tolerances (rtol 1e-5, atol 1e-6: XLA:CPU's fused
-    multiply-adds, ROADMAP queue 3 item f).
+  * against the reference: each package draws its own uniform masks
+    from the same seed (the port's threefry chain, `core/prng.py`, gives
+    the reference's masks bit for bit), and the reference's masks
+    stacked into a (T, m) trace are run by BOTH packages under
+    `AvailabilityParticipation(m, trace)`; every
+    round's metrics and the final state are held at the port's per-round
+    tolerances (rtol 1e-5, atol 1e-6: XLA:CPU's fused multiply-adds,
+    ROADMAP queue 3 item f).
 """
 import jax
 import jax.numpy as jnp
@@ -33,11 +34,12 @@ from repro.models import LeastSquares as JaxLeastSquares
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.engine import run_rounds
+from repro_torch.core import prng
+from repro_torch.core.prng import prng_key
 from repro_torch.core.selection import (
     AvailabilityParticipation,
     CyclicParticipation,
     UniformParticipation,
-    make_generator,
     make_policy,
 )
 from repro_torch.data import to_torch
@@ -81,7 +83,7 @@ def _make(raw, key):
     fed = FedConfig(num_clients=M, k0=3, **ALGO_SETUPS[key])
     algo = make_algorithm(fed, model.loss, model=model)
     batch = to_torch(raw, "cpu")
-    state = algo.init(model.init("cpu"), make_generator(1), init_batch=batch)
+    state = algo.init(model.init("cpu"), prng_key(1), init_batch=batch)
     return algo, state, batch
 
 
@@ -101,8 +103,17 @@ def _assert_bitwise(res, ref, what):
                                       err_msg=f"{what}/{k}")
     for (k, a), (_, b) in zip(_leaves(res.state), _leaves(ref.state)):
         assert torch.equal(a, b), f"{what}: state[{k}]"
-    assert torch.equal(res.state["rng"].get_state(),
-                       ref.state["rng"].get_state()), what
+    assert np.array_equal(res.state["rng"], ref.state["rng"]), what
+
+
+def _same_key(a, b):
+    return np.array_equal(a["key"], b["key"])
+
+
+def _split_times(key, n):
+    for _ in range(n):
+        key = prng.split(key)[0]
+    return key
 
 
 @pytest.mark.parametrize("algo_key", sorted(ALGO_SETUPS))
@@ -119,8 +130,9 @@ def test_alpha1_policy_is_bitwise_no_policy(raw, algo_key, scan):
 @pytest.mark.parametrize("algo_key", sorted(ALGO_SETUPS))
 def test_masked_chunked_matches_legacy_loop_bitwise(raw, algo_key):
     """alpha = 0.5: the same policy masks in both drivers, bit for bit,
-    every algorithm (the baselines get masks only from the policy), and
-    FedGiA's own generator is left alone."""
+    every algorithm (the baselines get masks only from the policy).
+    FedGiA's own key splits once a round under the policy too, as the
+    reference's; the baselines' is left alone."""
     algo, state, batch = _make(raw, algo_key)
     pol = UniformParticipation(M, 0.5, seed=3)
     res = run_rounds(algo, state, batch, ROUNDS, chunk_size=CHUNK,
@@ -130,9 +142,10 @@ def test_masked_chunked_matches_legacy_loop_bitwise(raw, algo_key):
     assert res.rounds_run == ROUNDS
     _assert_bitwise(res, ref, algo_key)
     np.testing.assert_array_equal(res.history["selected"], 4.0)
-    assert torch.equal(res.policy_state, ref.policy_state)
-    assert torch.equal(res.state["rng"].get_state(),
-                       state["rng"].get_state())
+    assert _same_key(res.policy_state, ref.policy_state)
+    splits = ROUNDS if algo_key.startswith("fedgia") else 0
+    assert np.array_equal(res.state["rng"],
+                          _split_times(state["rng"], splits))
     assert res.draw_s > 0 and ref.draw_s > 0
 
 
@@ -206,8 +219,8 @@ def test_masked_early_stop_agrees(raw, kind):
         want = pol.init()
         for t in range(ref.rounds_run):
             want = pol.mask(want, t)[1]
-        assert torch.equal(res.policy_state, want)
-        assert torch.equal(ref.policy_state, want)
+        assert _same_key(res.policy_state, want)
+        assert _same_key(ref.policy_state, want)
 
 
 @pytest.fixture(scope="module")
@@ -222,6 +235,53 @@ def reference_trace():
     trace = np.stack(rows)
     assert (trace.sum(axis=1) == 4).all()
     return trace
+
+
+def _reference_run(raw, algo_key, participation):
+    jb = {k: jnp.asarray(v) for k, v in raw.items()}
+    jmodel = JaxLeastSquares(N)
+    jalgo = jax_make_algorithm(
+        JaxFedConfig(num_clients=M, k0=3, **ALGO_SETUPS[algo_key]),
+        jmodel.loss, model=jmodel)
+    jstate = jalgo.init(jmodel.init(jax.random.PRNGKey(0)),
+                        jax.random.PRNGKey(1), init_batch=jb)
+    return jax_run_rounds(jalgo, jstate, jb, ROUNDS, chunk_size=CHUNK,
+                          participation=participation)
+
+
+def _hold_per_round(got, want, algo_key):
+    assert got.rounds_run == want.rounds_run == ROUNDS
+    for k in ("f_xbar", "grad_sq_norm", "selected", "cr"):
+        np.testing.assert_allclose(got.history[k], want.history[k],
+                                   rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{algo_key}/{k}")
+    for key, leaf in _leaves(got.state):
+        k = key.split(".")[0]
+        np.testing.assert_allclose(
+            leaf.numpy(), np.asarray(want.state[k]["x"]), rtol=RTOL,
+            atol=ATOL, err_msg=f"{algo_key}: state[{key}]")
+    np.testing.assert_array_equal(got.state["rng"],
+                                  np.asarray(want.state["rng"]))
+
+
+@pytest.mark.parametrize("algo_key", sorted(ALGO_SETUPS))
+def test_own_uniform_draws_match_reference(raw, algo_key):
+    """No injected masks: each package draws UniformParticipation(M, 0.5,
+    seed=2) itself. The masks are the same bit for bit (`selected` is
+    compared too), so every round is held at the per-round tolerances,
+    and the final policy state is the reference's key."""
+    want = _reference_run(raw, algo_key,
+                          jax_selection.UniformParticipation(M, 0.5, seed=2))
+    algo, state, batch = _make(raw, algo_key)
+    got = run_rounds(algo, state, batch, ROUNDS, chunk_size=CHUNK,
+                     participation=UniformParticipation(M, 0.5, seed=2))
+    np.testing.assert_array_equal(got.history["selected"], 4.0)
+    _hold_per_round(got, want, algo_key)
+    ref_key = jax.random.PRNGKey(2)
+    for _ in range(ROUNDS):
+        ref_key = jax.random.split(ref_key)[0]
+    np.testing.assert_array_equal(got.policy_state["key"],
+                                  np.asarray(ref_key))
 
 
 @pytest.mark.parametrize("algo_key", sorted(ALGO_SETUPS))

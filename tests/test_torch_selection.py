@@ -1,21 +1,23 @@
 """The port's participation policies (`repro_torch.core.selection`) against
 the reference's `repro.core.selection` (mirrors tests/test_selection.py).
 
-The deterministic policies are held to the reference's masks bit for
-bit: cyclic (a function of the round index), straggler (the reference's
-numpy trace) and periodic. The sampled ones draw from a CPU
-`torch.Generator` where the reference draws from threefry (ROADMAP
-queue 3, item a), so uniform and weighted are held to the reference's
-properties: the cardinality every round, determinism under a seed, and
-the same frequency statistics as tests/test_selection.py.
+Every policy is held to the reference's masks: cyclic (a function of
+the round index), straggler (the reference's numpy trace) and periodic
+bit for bit, and the sampled ones through the port's threefry key chains
+(`core/prng.py`): uniform bit for bit, weighted mask for mask on the
+tested seeds, its Gumbel keys within 2**-19 of the reference's (two
+float32 ulps at the largest key of a draw, |z| < 16: numpy's `log` and
+XLA:CPU's round apart). The reference's frequency statistics
+(tests/test_selection.py) hold as well.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import selection as jax_selection
-from repro_torch.core import selection
+from repro_torch.core import prng, selection
 from repro_torch.core.selection import (
     AvailabilityParticipation,
     CyclicParticipation,
@@ -136,12 +138,50 @@ def test_uniform_state_is_not_changed_by_a_draw():
     again (the engine puts back the state at the eq. (35) stop)."""
     pol = UniformParticipation(16, 0.25, seed=7)
     s0 = pol.init()
-    copy = s0.clone()
+    copy = s0["key"].copy()
     a, s1 = pol.mask(s0, 0)
-    assert torch.equal(s0, copy)
+    assert np.array_equal(s0["key"], copy)
     b, _ = pol.mask(s0, 0)
     assert torch.equal(a, b)
-    assert not torch.equal(s1, s0)
+    assert not np.array_equal(s1["key"], s0["key"])
+
+
+@pytest.mark.parametrize("m,alpha,seed", [(8, 0.5, 3), (128, 0.5, 1),
+                                          (100, 0.1, 0), (1000, 0.25, 9),
+                                          (16384, 0.5, 0), (16, 1.0, 2)])
+def test_uniform_is_the_references_bitwise(m, alpha, seed):
+    """The same threefry chain: the key split once a round, the mask the
+    ranks of `permutation(sub, m)` below |C|, for every round; the state
+    is the reference's key word for word."""
+    pol = UniformParticipation(m, alpha, seed=seed)
+    ref = jax_selection.UniformParticipation(m, alpha, seed=seed)
+    ps, rs = pol.init(), ref.init()
+    for r in range(4):
+        mask, ps = pol.mask(ps, r)
+        want, rs = ref.mask(rs, jnp.int32(r))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(ps["key"], np.asarray(rs["key"]))
+
+
+@pytest.mark.parametrize("m,alpha,seed", [(8, 0.25, 0), (128, 0.5, 1),
+                                          (1000, 0.1, 4), (16384, 0.5, 0)])
+def test_weighted_is_the_references(m, alpha, seed):
+    """The same keys and masks as the reference, with unequal weights;
+    the Gumbel keys z within 2**-19."""
+    w = np.random.default_rng(seed).uniform(0.1, 10.0, m).astype(np.float32)
+    pol = WeightedParticipation(m, alpha, w, seed=seed)
+    ref = jax_selection.WeightedParticipation(m, alpha, w, seed=seed)
+    ps, rs = pol.init(), ref.init()
+    for r in range(4):
+        _, sub = prng.split(ps["key"])
+        z = pol.gumbel_keys(sub).numpy()
+        z_ref = np.asarray(ref.log_w + jax.random.gumbel(
+            jax.random.split(rs["key"])[1], (m,)))
+        np.testing.assert_allclose(z, z_ref, rtol=0, atol=2.0 ** -19)
+        mask, ps = pol.mask(ps, r)
+        want, rs = ref.mask(rs, jnp.int32(r))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(ps["key"], np.asarray(rs["key"]))
 
 
 def test_uniform_is_uniform_over_clients():
@@ -168,22 +208,19 @@ def test_weighted_cardinality_and_bias():
 
 
 def test_weighted_is_gumbel_top_k():
-    """The mask is the reference's rule on the port's draw: Gumbel keys
-    on the log-weights, every key >= the n_sel-th largest kept (ties
-    kept too, as the reference's `z >= kth`)."""
+    """The mask is the reference's rule on the round's draw: Gumbel keys
+    on the log-weights from the split-off key, every key >= the n_sel-th
+    largest kept (ties kept too, as the reference's `z >= kth`)."""
     weights = np.arange(1.0, 33.0)
     pol = WeightedParticipation(32, 0.25, weights, seed=5)
     state = pol.init()
     for r in range(20):
         mask, nxt = pol.mask(state, r)
-        gen = torch.Generator()
-        gen.set_state(state)
-        u = torch.rand((32,), generator=gen).clamp_min_(
-            torch.finfo(torch.float32).tiny)
+        key, sub = prng.split(state["key"])
         z = torch.log(torch.tensor(weights, dtype=torch.float32)) \
-            - torch.log(-torch.log(u))
+            + torch.from_numpy(prng.gumbel(sub, 32))
         assert torch.equal(mask, z >= torch.topk(z, 8).values[-1])
-        assert torch.equal(nxt, gen.get_state())
+        assert np.array_equal(nxt["key"], key)
         state = nxt
 
 
@@ -200,9 +237,9 @@ def test_weighted_zero_weight_is_never_drawn_and_u_zero_is_finite(
     pol = WeightedParticipation(4, 0.5, [0.0, 1.0, 1.0, 1.0], seed=1)
     assert torch.isfinite(pol.log_w).all()
     assert not _roll(pol, 200)[:, 0].any()
-    real = torch.rand
-    monkeypatch.setattr(torch, "rand",
-                        lambda *a, **k: real(*a, **k).mul_(0.0))
+    monkeypatch.setattr(prng, "random_bits",
+                        lambda key, n: np.zeros((n,), np.uint32))
+    assert np.isfinite(prng.gumbel(prng.prng_key(0), 4)).all()
     mask, _ = pol.mask(pol.init(), 0)
     assert int(mask.sum()) >= 2
 

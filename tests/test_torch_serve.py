@@ -110,6 +110,8 @@ def test_serving_path_imports_neither_jax_nor_repro():
         "import sys, repro_torch.launch.serve, repro_torch.configs\n"
         "import repro_torch.kernels.flash_attention, "
         "repro_torch.kernels.rwkv6_scan, repro_torch.utils.convert\n"
+        "import repro_torch.core.prng, repro_torch.core.graphs, "
+        "repro_torch.examples.serve_requests\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -1,7 +1,9 @@
 """The port's whole slice: run_rounds, the CLI and the package rules.
 
 Whole-run parity runs at alpha = 1, where the branch split is all ones on
-both sides (no RNG stream to reproduce), with the eq. (35) stop on. The
+both sides, and at the paper's alpha = 0.5, where each side draws its own
+split from the same threefry key chain (`core/prng.py`, the same clients
+bit for bit), with the eq. (35) stop on. The
 JAX side is `run_rounds` with `use_kernel=False` (its default on the
 CPU). Both stop at the same round. The final f and x̄ agree at rtol 1e-4
 (float32 noise accumulated over the run). The final |grad|^2 agrees at
@@ -27,7 +29,7 @@ from repro_torch import device as device_mod
 from repro_torch.config import FedConfig
 from repro_torch.core.engine import flatten_state, run_rounds, unflatten_state
 from repro_torch.core.fedgia import FedGiA
-from repro_torch.core.selection import copy_generator, make_generator
+from repro_torch.core.prng import prng_key
 from repro_torch.data import to_torch
 from repro_torch.launch import train as train_mod
 from repro_torch.models import LeastSquares
@@ -43,27 +45,54 @@ def raw():
     return linreg_noniid(0, D, N, M)
 
 
-def _port(raw, **kw):
+def _port(raw, alpha=1.0, **kw):
     model = LeastSquares(N)
-    algo = FedGiA(FedConfig(num_clients=M, k0=5, alpha=1.0, sigma_t=0.2, **kw),
-                  model.loss, model=model)
+    algo = FedGiA(FedConfig(num_clients=M, k0=5, alpha=alpha, sigma_t=0.2,
+                            **kw), model.loss, model=model)
     batch = to_torch(raw, "cpu")
-    state = algo.init(model.init("cpu"), make_generator(1), init_batch=batch)
+    state = algo.init(model.init("cpu"), prng_key(1), init_batch=batch)
     return algo, state, batch
 
 
-@pytest.mark.parametrize("h_policy", ["scalar", "diag_ema"])
-def test_run_rounds_matches_reference_with_stop(raw, h_policy):
+def _reference_run(raw, alpha, h_policy):
     jb = {k: jnp.asarray(v) for k, v in raw.items()}
     jmodel = JaxLeastSquares(N)
     jalgo = make_algorithm(
-        JaxFedConfig(algorithm="fedgia", num_clients=M, k0=5, alpha=1.0,
+        JaxFedConfig(algorithm="fedgia", num_clients=M, k0=5, alpha=alpha,
                      sigma_t=0.2,
                      h_policy=h_policy, use_kernel=False),
         jmodel.loss, model=jmodel)
     jstate = jalgo.init(jmodel.init(jax.random.PRNGKey(0)),
                         jax.random.PRNGKey(1), init_batch=jb)
-    want = jax_run_rounds(jalgo, jstate, jb, 300, tol=TOL)
+    return jax_run_rounds(jalgo, jstate, jb, 300, tol=TOL)
+
+
+@pytest.mark.parametrize("h_policy", ["scalar", "diag_ema"])
+@pytest.mark.parametrize("scan", [True, False], ids=["chunked", "legacy"])
+def test_own_split_run_matches_reference_every_round(raw, h_policy, scan):
+    """alpha = 0.5, no injected masks: the same clients every round, so
+    the whole run is held to the alpha = 1 runs' tolerances (below) at
+    EVERY round, not just the last, and the final key is the
+    reference's."""
+    want = _reference_run(raw, 0.5, h_policy)
+    algo, state, batch = _port(raw, alpha=0.5, h_policy=h_policy)
+    got = run_rounds(algo, state, batch, 300, tol=TOL, scan=scan)
+    assert want.stopped_early and got.stopped_early
+    assert got.rounds_run == want.rounds_run
+    np.testing.assert_array_equal(got.history["selected"], M // 2)
+    for k, rtol in (("f_xbar", 1e-4), ("grad_sq_norm", 1e-2)):
+        np.testing.assert_allclose(got.history[k], want.history[k],
+                                   rtol=rtol, err_msg=k)
+    np.testing.assert_allclose(got.state["x"]["x"].numpy(),
+                               np.asarray(want.state["x"]["x"]),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got.state["rng"],
+                                  np.asarray(want.state["rng"]))
+
+
+@pytest.mark.parametrize("h_policy", ["scalar", "diag_ema"])
+def test_run_rounds_matches_reference_with_stop(raw, h_policy):
+    want = _reference_run(raw, 1.0, h_policy)
     algo, state, batch = _port(raw, h_policy=h_policy)
     got = run_rounds(algo, state, batch, 300, tol=TOL)
     assert want.stopped_early and got.stopped_early
@@ -85,17 +114,17 @@ def test_run_rounds_leaves_the_callers_state_alone(raw):
     algo.fed = FedConfig(num_clients=M, k0=5, alpha=0.5, sigma_t=0.2,
                          h_policy="scalar")
     before = {k: state[k]["x"].clone() for k in ("x", "z", "pi")}
-    gen_state = state["rng"].get_state()
+    key = state["rng"].copy()
     res = run_rounds(algo, state, batch, 4)
     assert res.rounds_run == 4 and not res.stopped_early
     for k, v in before.items():
         assert torch.equal(state[k]["x"], v), k
-    assert torch.equal(state["rng"].get_state(), gen_state)
-    assert not torch.equal(res.state["rng"].get_state(), gen_state)
+    assert np.array_equal(state["rng"], key)
+    assert not np.array_equal(res.state["rng"], key)
     # the same rounds without donation give the same result, bitwise
     spec = ravel_spec(state["x"])
     flat = flatten_state(algo, state, spec)
-    flat["rng"] = copy_generator(state["rng"])
+    flat["rng"] = state["rng"].copy()
     for _ in range(4):
         flat, _ = algo.round_flat(flat, batch, spec, donate_kernel=False)
     again = unflatten_state(algo, flat, spec)

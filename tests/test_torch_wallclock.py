@@ -17,10 +17,14 @@ Within the port:
 Against the reference: the constant and trace clocks tick on the host in
 float32, so their masks and times are the reference's device ticks BIT
 FOR BIT; runs under them (the trace carrying the reference's own
-lognormal durations, recomputed in JAX here: the port's lognormal clock
-draws from a torch generator, ROADMAP queue 3 item a) hold `sim_time`,
+lognormal durations, recomputed in JAX here) hold `sim_time`,
 `staleness`, `selected` and `cr` exactly and the rest at rtol 1e-5,
-atol 1e-6 (XLA:CPU's fused multiply-adds, queue 3 item f).
+atol 1e-6 (XLA:CPU's fused multiply-adds, queue 3 item f). The port's
+own lognormal clock draws from the reference's threefry chain
+(`core/prng.py`): its durations are the reference's within 8 float32
+ulps (numpy's `log1p` and `exp` against XLA:CPU's), the arrival masks
+and staleness are equal on the tested seeds, and `sim_time`, a running
+sum of durations, is held at rtol 1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -45,10 +49,10 @@ from repro_torch.core.clock import (
     make_clock,
 )
 from repro_torch.core.engine import run_rounds
+from repro_torch.core.prng import prng_key
 from repro_torch.core.selection import (
     AvailabilityParticipation,
     ParticipationPolicy,
-    make_generator,
 )
 from repro_torch.data import linreg_noniid, to_torch
 from repro_torch.launch import train as train_mod
@@ -90,7 +94,7 @@ def _make(raw, key):
     fed = FedConfig(num_clients=M, k0=3, **ALGO_SETUPS[key])
     algo = make_algorithm(fed, model.loss, model=model)
     batch = to_torch(raw, "cpu")
-    state = algo.init(model.init("cpu"), make_generator(1), init_batch=batch)
+    state = algo.init(model.init("cpu"), prng_key(1), init_batch=batch)
     return algo, state, batch
 
 
@@ -214,7 +218,8 @@ def test_lognormal_clock_chunked_matches_legacy(raw):
     sim = res.history["sim_time"]
     assert (np.diff(sim) >= 0).all() and sim[0] == 0.0
     for k, v in res.clock_state.items():
-        assert torch.equal(v, ref.clock_state[k]), k
+        assert np.array_equal(np.asarray(v),
+                              np.asarray(ref.clock_state[k])), k
 
 
 def test_clock_stop_puts_back_the_clock_state(raw):
@@ -441,6 +446,45 @@ def test_weighted_reference_parity(raw, algo_key, weighting):
     want = _reference(raw, algo_key,
                       clock=jax_clock.ComputeClock(M, compute_s=SPEEDS), **kw)
     assert_matches_reference(got, want, f"{algo_key}/{weighting}")
+
+
+@pytest.mark.parametrize("seed", [0, 4, 11])
+def test_lognormal_ticks_match_reference(seed):
+    """The port's lognormal clock, tick by tick, against the reference's:
+    the key word for word, the durations within 8 ulps, the arrival masks
+    equal and the simulated time at rtol 1e-6."""
+    ours = LognormalClock(M, compute_s=SPEEDS, sigma=0.6, seed=seed)
+    theirs = jax_clock.LognormalClock(M, compute_s=SPEEDS, sigma=0.6,
+                                      seed=seed)
+    cs, jcs = ours.init(), theirs.init()
+    for t in range(30):
+        d, _ = ours._draw(cs, t)
+        jd, _ = theirs._draw(jcs, jnp.int32(t))
+        np.testing.assert_array_max_ulp(d.numpy(), np.asarray(jd), maxulp=8)
+        mask, now, cs = ours.tick(cs, t)
+        jmask, jnow, jcs = theirs.tick(jcs, jnp.int32(t))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+        np.testing.assert_allclose(float(now), float(jnow), rtol=1e-6)
+        np.testing.assert_array_equal(cs["key"], np.asarray(jcs["key"]))
+
+
+@pytest.mark.parametrize("algo_key", ["fedgia", "fedavg"])
+def test_lognormal_clock_run_matches_reference(raw, algo_key):
+    """Each package's own lognormal clock (no trace injected): the same
+    arrivals, so staleness, selected and cr exactly, sim_time at rtol
+    1e-6 and the rest at the per-round tolerances."""
+    speeds = 1.0 + (np.arange(M) % 3)
+    kw = dict(max_staleness=3, stale_weighting="exp", stale_decay=0.5)
+    algo, state, batch = _make(raw, algo_key)
+    got = run_rounds(algo, state, batch, ROUNDS, chunk_size=CHUNK,
+                     clock=LognormalClock(M, compute_s=speeds, sigma=0.6,
+                                          seed=4), **kw)
+    want = _reference(raw, algo_key, clock=jax_clock.LognormalClock(
+        M, compute_s=speeds, sigma=0.6, seed=4), **kw)
+    np.testing.assert_allclose(got.history["sim_time"],
+                               want.history["sim_time"], rtol=1e-6)
+    got.history["sim_time"] = want.history["sim_time"]
+    assert_matches_reference(got, want, algo_key)
 
 
 @pytest.mark.parametrize("algo_key", ["fedgia", "fedavg"])
