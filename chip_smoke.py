@@ -125,6 +125,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      active against dense, and FedPD (lr 0.001) offloaded against
      active, each bitwise, with the offload row's device peak and
      host-resident bytes.
+2f. Uplink codecs, faults, the guard and checkpoints on the population
+   run's data (FedGiA_D, 20 rounds, tol 0), counts reset just before
+   each run and read just after:
+   * the device threefry (`core/prng.py`'s torch forms): rows 0, 1,
+     8191 and 16383 of a (16384, 1024) draw of `random_bits`, `uniform`
+     and `randint` 2^16 bit for bit the numpy forms, each draw timed;
+   * `compression="none"` bitwise the run without it; bf16, int8
+     (stochastic, error feedback) and top-k 0.1 (error feedback),
+     replayed against eager (bitwise), ms a round against uncompressed;
+     on round 5's operands the card's bf16 decode, int8 levels q and
+     top-k kept lanes equal the CPU's;
+   * crash, nan, replay and explode at 0.02 with screening (clip 100), a
+     quorum of m/4 and the watchdog, for FedGiA_D and FedAvg under
+     uniform alpha 0.5: every round's fault hits on the card equal the
+     numpy chains' draw, each round's `screened` count is that draw's
+     survivors, and `screened`, `degraded`, `rollback` and the state are
+     equal between the chunked driver and `--no-scan`;
+   * the int8 + EF run checkpointed every 8 rounds and resumed from 16:
+     history and state bitwise the uninterrupted run's;
+   * `wallclock_bench.run_compression` and `run_faults` on the card and
+     on the CPU, held row by row as phase 2e's rows (the int8 row,
+     stochastic, to both reaching the target; a row that reaches it on
+     neither side, top-k, by its rounds, times and bytes).
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each), each
@@ -185,6 +208,7 @@ import dataclasses
 import json
 import logging
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1188,15 +1212,35 @@ def client_store_phase(pop, train, counters, launches, card):
 
 def fp64_witness(row, rounds):
     """The stop metric a round of a runner's row (`async_bench` or
-    `wallclock_bench`) re-run on the CPU in float64, tol 0, for `rounds`
-    rounds: how far float32 arithmetic moves it near the eq. (35) stop."""
+    `wallclock_bench`, its compression and fault rows included) re-run on
+    the CPU in float64, tol 0, for `rounds` rounds: how far float32
+    arithmetic moves it near the stop."""
     from repro_torch.benchmarks import async_bench, wallclock_bench
     from repro_torch.benchmarks.common import M_CLIENTS, make_problem
     from repro_torch.config import FedConfig
     from repro_torch.core import api, clock, engine, prng, selection
 
     m = M_CLIENTS
-    if "spread" in row:
+    algo_key, metric = row["algo"], "grad_sq_norm"
+    if "codec" in row:  # the compression and fault rows: stop on f
+        from repro_torch.core import faults
+
+        bench, algo_key, metric = wallclock_bench, "fedgia_d", "f_xbar"
+        if row["algo"] == "fedgia_d_bw":
+            kw = dict(clock=clock.ComputeClock(
+                m, compute_s=bench.COMPRESS_COMPUTE_S,
+                bandwidth_bps=bench.BANDWIDTH_BPS),
+                **dict(bench.CODECS)[row["codec"]])
+        else:
+            kw = dict(clock=clock.ComputeClock(
+                m, bench.straggler_speeds(m, bench.FAULT_SPREAD)))
+            if row["algo"] == "fedgia_d_faulty":
+                kw.update(faults=faults.make_faults(
+                    bench.FAULT_KINDS, [bench.FAULT_RATE], num_clients=m),
+                    screening=faults.Screening(bench.FAULT_CLIP),
+                    quorum=bench.FAULT_QUORUM)
+        kw.update(max_staleness=bench.MAX_STALENESS)
+    elif "spread" in row:
         bench = wallclock_bench
         kw = dict(clock=clock.ComputeClock(
             m, wallclock_bench.straggler_speeds(m, row["spread"])),
@@ -1210,12 +1254,12 @@ def fp64_witness(row, rounds):
     batch = {k: v.double() if v.is_floating_point() else v
              for k, v in batch.items()}
     fed = FedConfig(num_clients=m, k0=bench.K0, state_dtype="float64",
-                    **bench.ALGOS[row["algo"]])
+                    **bench.ALGOS[algo_key])
     algo = api.make_algorithm(fed, model.loss, model=model)
     params = {k: v.double() for k, v in model.init("cpu").items()}
     state = algo.init(params, prng.prng_key(1), init_batch=batch)
     res = engine.run_rounds(algo, state, batch, rounds, scan=False, **kw)
-    return res.history["grad_sq_norm"].tolist()
+    return res.history[metric].tolist()
 
 
 def hold_rows(gpu, cpu, exact, what, tol=PAPER_TOL):
@@ -1519,6 +1563,338 @@ def async_phase(pop, counters, launches, card, ops, ref):
         del res, a, b, state
     say(f"phase 2e took {time.perf_counter() - t_phase!r} s")
     return anchor_entry
+
+
+def numpy_fault_hits(fm, round_idx, m, prng):
+    """The fault model's hits of round `round_idx` for rows 0..m-1 from
+    the numpy forms of the threefry chains (the per-row keys hashed at
+    once: the numpy hash takes a (2, m) key)."""
+    import numpy as np
+
+    base = prng.fold_in(prng.prng_key(fm.seed), round_idx)
+    hits = {}
+    rows = np.arange(m, dtype=np.uint32)
+    zeros = np.zeros(m, np.uint32)
+    for j, s in enumerate(fm.specs):
+        kkey = prng.fold_in(base, j)
+        a, b = prng.threefry2x32(kkey, zeros, rows)  # fold_in of each row
+        w0, w1 = prng.threefry2x32(np.stack([a, b]), zeros, zeros)
+        bits = ((w0 ^ w1) >> np.uint32(9)) | np.uint32(0x3F800000)
+        u = bits.view(np.float32) - np.float32(1.0)
+        hits[s.kind] = u < np.float32(s.rate)
+    return hits
+
+
+def numpy_randint16(prng, key, n):
+    """`randint(key, (n,), 0, 1 << 16, uint32)` from the numpy forms: the
+    low 16 bits of the split key's second block (the span's multiplier
+    (2**16 mod 2**16)**2 is 0)."""
+    import numpy as np
+
+    _, k2 = prng.split(key)
+    return (prng.random_bits(k2, n) & np.uint32(0xFFFF)).astype(np.int64)
+
+
+def uplink_phase(pop, counters, launches, card):
+    """Phase 2f: the device threefry, the codecs, the faults, the guard
+    and checkpoint-resume at the population size, and wallclock_bench's
+    compression and fault rows against the CPU. Adds the launches of its
+    runs to `launches`."""
+    import numpy as np
+
+    from repro_torch.benchmarks import wallclock_bench
+    from repro_torch.config import FedConfig
+    from repro_torch.core import api as api_mod
+    from repro_torch.core import compress, engine, faults, prng, selection
+    from repro_torch.utils import pytree as pt
+
+    t_phase = time.perf_counter()
+    algo, batch = pop["algorithm"], pop["batch"]
+    model, dev = algo.model, batch["A"].device
+    m, n = batch["A"].shape[0], model.n
+    rounds = int(POPULATION[POPULATION.index("--rounds") + 1])
+    state0 = algo.init(model.init(dev), prng.prng_key(1), init_batch=batch)
+
+    def gia_run(what, want_rounds=rounds, **kw):
+        """A FedGiA_D population run, its launches read apart: one
+        fedgia_update_batched a round, nothing else."""
+        reset_counts(counters)
+        res = engine.run_rounds(algo, state0, batch, want_rounds, **kw)
+        got = read_counts(counters)
+        if res.rounds_run != want_rounds or \
+                got["fedgia_update_batched"] != want_rounds or \
+                sum(got.values()) != want_rounds:
+            raise SystemExit(f"{what}: {res.rounds_run} rounds, launches "
+                             f"{got}, want {want_rounds}")
+        launches["fedgia_update_batched"] += want_rounds
+        if not np.isfinite(res.history["f_xbar"]).all():
+            raise SystemExit(f"{what}: non-finite f")
+        return res
+
+    def same(a, b, what):
+        """Two runs' histories and final states, bit for bit."""
+        if a.rounds_run != b.rounds_run or set(a.history) != set(b.history):
+            raise SystemExit(f"{what}: rounds {a.rounds_run} vs "
+                             f"{b.rounds_run}, keys {sorted(a.history)} vs "
+                             f"{sorted(b.history)}")
+        for k in a.history:
+            if not np.array_equal(a.history[k], b.history[k],
+                                  equal_nan=True):
+                raise SystemExit(f"{what}: history {k} differs")
+        hold_replayed_to_eager(a.state, b.state, what, bitwise_only=True,
+                               label=what)
+
+    # device threefry -------------------------------------------------------
+    base = compress.round_key(prng.prng_key(2), 5)
+    keys = prng.fold_in_t(prng.key_t(base, dev)[None],
+                          torch.arange(m, device=dev))
+    draws = {"random_bits": prng.random_bits_t(keys, n),
+             "uniform": prng.uniform_t(keys, n),
+             "randint 2^16": prng.randint_u32_t(keys, n, 0, 1 << 16)}
+    for row in (0, 1, m // 2 - 1, m - 1):
+        key = prng.fold_in(base, row)
+        if not np.array_equal(keys[row].cpu().numpy(),
+                              key.astype(np.int64)):
+            raise SystemExit(f"threefry: row {row}'s key differs")
+        want = {"random_bits": prng.random_bits(key, n).astype(np.int64),
+                "uniform": prng.uniform(key, n),
+                "randint 2^16": numpy_randint16(prng, key, n)}
+        for name, got in draws.items():
+            g = got[row].cpu().numpy()
+            if g.tobytes() != want[name].tobytes():
+                raise SystemExit(f"threefry {name}: row {row} differs from "
+                                 f"the numpy form")
+    times = {name: median_ms(lambda fn=fn: fn())
+             for name, fn in (
+                 ("fold_in", lambda: prng.fold_in_t(
+                     prng.key_t(base, dev)[None],
+                     torch.arange(m, device=dev))),
+                 ("random_bits", lambda: prng.random_bits_t(keys, n)),
+                 ("uniform", lambda: prng.uniform_t(keys, n)),
+                 ("randint 2^16", lambda: prng.randint_u32_t(
+                     keys, n, 0, 1 << 16)))}
+    words = m * n
+    say(f"device threefry ({m}, {n}) on {card}: rows 0, 1, {m // 2 - 1}, "
+        f"{m - 1} of random_bits, uniform and randint 2^16 bit for bit the "
+        f"numpy forms; ms a draw (CUDA events, median of {REPS}): "
+        + ", ".join(f"{k} {v!r}" for k, v in times.items())
+        + f"; a kernel's bound: {words * 4} bytes of words written = "
+        f"{bound(words * 4)!r} ms (uniform, bits), randint's two blocks "
+        f"{bound(words * 4)!r} ms of writes as well")
+    del draws, keys
+
+    # codecs ----------------------------------------------------------------
+    say(f"codecs on the FedGiA_D population run (m={m}, N={n}, diag_ema, "
+        f"alpha 0.5), {rounds} rounds, tol 0, on {card}:")
+    plain_res = gia_run("uncompressed")
+    none_res = gia_run("compression none", compression="none")
+    same(none_res, plain_res, "compression='none' vs no codec")
+    ms_plain = plain_res.wall_s / rounds * 1e3
+    say(f"  uncompressed: {ms_plain!r} ms a replayed round; "
+        f"compression='none': {none_res.wall_s / rounds * 1e3!r} ms, bitwise "
+        f"the run without it")
+    per = {}
+    for codec, kw in (("bf16", dict(compression="bf16")),
+                      ("int8", dict(compression="int8", error_feedback=True)),
+                      ("topk", dict(compression="topk", topk_frac=0.1,
+                                    error_feedback=True))):
+        res = gia_run(codec, **kw)
+        eager = gia_run(f"{codec} eager", scan=False, **kw)
+        same(res, eager, f"{codec}: replayed vs eager")
+        per[codec] = res.wall_s / rounds * 1e3
+        say(f"  {codec}: {per[codec]!r} ms a replayed round ("
+            f"{eager.wall_s / rounds * 1e3!r} eager), against "
+            f"{ms_plain!r} uncompressed; f={float(res.history['f_xbar'][-1])!r}")
+        # the 5th round's operands: u = z (+ ef) after 4 rounds
+        four = gia_run(f"{codec} to round 4", want_rounds=4, **kw)
+        spec = pt.ravel_spec(four.state["x"])
+        flat = engine.flatten_state(algo, four.state, spec)
+        comp = compress.as_compressor(kw["compression"],
+                                      error_feedback=kw.get("error_feedback",
+                                                            False),
+                                      topk_frac=kw.get("topk_frac", 0.1))
+        u = flat["z"] + flat["ef"] if comp.error_feedback else flat["z"]
+        ck = prng.key_t(compress.round_key(flat["rng"], flat["round"]), dev)
+        rkeys = prng.fold_in_t(ck[None], torch.arange(m, device=dev))
+        if codec == "bf16":
+            got = comp.encode_decode(u)
+            want = comp.encode_decode(u.cpu())
+            diff = int((got.cpu().view(torch.int32)
+                        != want.view(torch.int32)).sum())
+            what = "decode"
+        elif codec == "int8":
+            got = comp.quantize(u, rkeys)[0]
+            want = comp.quantize(u.cpu(), rkeys.cpu())[0]
+            diff = int((got.cpu() != want).sum())
+            what = "levels q"
+        else:
+            got = torch.sort(comp.kept(u, spec.size), -1).values
+            want = torch.sort(comp.kept(u.cpu(), spec.size), -1).values
+            diff = int((got.cpu() != want).sum())
+            what = "kept lanes"
+        say(f"  {codec} on round 5's operands ({tuple(u.shape)}): card vs "
+            f"CPU {what}: {diff} differing (0 required)")
+        if diff:
+            raise SystemExit(f"{codec}: the card's {what} differ from the "
+                             f"CPU's on {diff} elements")
+        del four, flat, u, rkeys, got, want, res, eager
+
+    # faults, screening, quorum, watchdog -------------------------------------
+    quorum = m // 4
+    kinds = ["crash", "nan", "replay", "explode"]
+    say(f"faults at the population size: {','.join(kinds)} at rate 0.02, "
+        f"screening with clip 100, quorum {quorum}, the watchdog; uniform "
+        f"alpha 0.5; {rounds} rounds, chunked against --no-scan, on {card}:")
+    fm = faults.make_faults(kinds, [0.02], num_clients=m, seed=3)
+    rows = torch.arange(m, device=dev)
+    for t in range(rounds):
+        got = fm.draw(torch.tensor(t, device=dev), rows)
+        want = numpy_fault_hits(fm, t, m, prng)
+        for kind in kinds:
+            if not np.array_equal(got[kind].cpu().numpy(), want[kind]):
+                raise SystemExit(f"faults: round {t} {kind} hits differ "
+                                 f"from the numpy draw")
+    say(f"  the card's fault draws of rounds 0..{rounds - 1} are the numpy "
+        f"chains' for every row and kind")
+    pol = selection.make_policy("uniform", m, 0.5)
+    kw = dict(participation=pol, faults=fm,
+              screening=faults.Screening(clip_norm=100.0), quorum=quorum,
+              watchdog=True)
+    fedavg = api_mod.make_algorithm(
+        FedConfig(algorithm="fedavg", num_clients=m, lr=0.01), model.loss,
+        model=model)
+    for name, run_algo in (("fedgia", algo), ("fedavg", fedavg)):
+        st = (state0 if run_algo is algo else run_algo.init(
+            model.init(dev), prng.prng_key(1), init_batch=batch))
+        out = {}
+        for tag, scan in (("chunked", True), ("--no-scan", False)):
+            reset_counts(counters)
+            res = engine.run_rounds(run_algo, st, batch, rounds, scan=scan,
+                                    **kw)
+            got = read_counts(counters)
+            want = rounds if name == "fedgia" else 0
+            if res.rounds_run != rounds or sum(got.values()) != want:
+                raise SystemExit(f"{name} faults ({tag}): {res.rounds_run} "
+                                 f"rounds, launches {got}")
+            launches["fedgia_update_batched"] += want
+            out[tag] = res
+            say(f"  {name} {tag}: {res.wall_s / rounds * 1e3!r} ms a round "
+                f"(draws {res.draw_s / rounds * 1e3!r}); screened "
+                f"{res.history['screened'].astype(int).tolist()}; degraded "
+                f"{int(res.history['degraded'].sum())}; rollback "
+                f"{int(res.history['rollback'].sum())}; f="
+                f"{float(res.history['f_xbar'][-1])!r}")
+        a, b = out["chunked"], out["--no-scan"]
+        for k in ("screened", "degraded", "rollback", "selected"):
+            if not np.array_equal(a.history[k], b.history[k]):
+                raise SystemExit(f"{name} faults: {k} differs between the "
+                                 f"chunked driver and --no-scan")
+        same(a, b, f"{name} faults: chunked vs --no-scan")
+        # the screened counts are the numpy draws' survivors
+        pstate = pol.init()
+        for t in range(rounds):
+            hits = numpy_fault_hits(fm, t, m, prng)
+            up = np.ones(m, bool)
+            if name == "fedavg":
+                mask, pstate = pol.mask(pstate, t)
+                up = mask.numpy()
+            arrive = up & ~hits["crash"] & ~hits["nan"]
+            if int(a.history["screened"][t]) != int(arrive.sum()):
+                raise SystemExit(f"{name} faults: round {t} screened "
+                                 f"{a.history['screened'][t]}, the numpy "
+                                 f"draws leave {int(arrive.sum())}")
+        say(f"  {name}: screened, degraded, rollback and the state equal "
+            f"between the drivers; each round's screened count is the "
+            f"numpy draws' survivors")
+        del out, a, b
+
+    # checkpoint and resume ---------------------------------------------------
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    if d.exists():
+        shutil.rmtree(d)
+    kw = dict(compression="int8", error_feedback=True, chunk_size=8)
+    ref_run = gia_run("int8+EF uninterrupted", **kw)
+    cut = gia_run("int8+EF with checkpoints", checkpoint_every=8,
+                  checkpoint_dir=str(d), **kw)
+    same(cut, ref_run, "checkpointed run vs uninterrupted")
+    from repro_torch.checkpoint import latest_step
+    if latest_step(str(d)) != 16:
+        raise SystemExit(f"checkpoints: latest step {latest_step(str(d))}")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    res = engine.run_rounds(algo, state0, batch, rounds, checkpoint_every=8,
+                            checkpoint_dir=str(d), resume=True, **kw)
+    resume_s = time.perf_counter() - t0
+    got = read_counts(counters)
+    if got["fedgia_update_batched"] != rounds - 16 or \
+            sum(got.values()) != rounds - 16:
+        raise SystemExit(f"resume: launches {got}, want {rounds - 16}")
+    launches["fedgia_update_batched"] += rounds - 16
+    same(res, ref_run, "resumed from step 16 vs uninterrupted")
+    size = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+    say(f"  int8+EF population run, checkpoints every 8 rounds ({size} "
+        f"bytes on disk for two), resumed from step 16 in {resume_s!r} s: "
+        f"history and final state bitwise the uninterrupted run's")
+    shutil.rmtree(d)
+    del ref_run, cut, res
+
+    # wallclock_bench's compression and fault rows ---------------------------
+    say(f"wallclock_bench's compression and fault rows (m="
+        f"{wallclock_bench.M_CLIENTS}) on {card} and on the CPU:")
+    reset_counts(counters)
+    gpu = (wallclock_bench.run_compression("cuda", collect_history=True)
+           + wallclock_bench.run_faults("cuda", collect_history=True))
+    got = read_counts(counters)
+    cpu = (wallclock_bench.run_compression("cpu", collect_history=True)
+           + wallclock_bench.run_faults("cpu", collect_history=True))
+    keys = ("algo", "codec", "cr", "sim_time_s", "staleness_seen", "time_s",
+            "obj", "converged")
+    print_rows(gpu, keys, "cuda")
+    print_rows(cpu, keys, "cpu")
+    wallclock_bench.check_uplink(gpu)
+    want = sum(r["cr"] // 2 for r in gpu)
+    if got["fedgia_update_batched"] != want or sum(got.values()) != want:
+        raise SystemExit(f"wallclock uplink rows: launches {got}, want {want}")
+    launches["fedgia_update_batched"] += want
+    # the stochastic int8 row: a last-ulp difference in an upload flips a
+    # level, which error feedback carries, so card and CPU are held to
+    # both reaching the target (tests/test_torch_compress.py bounds it);
+    # a row that reaches it on neither side (top-k, which diverges in the
+    # reference too) is held by its rounds, simulated time and bytes, and
+    # its f after hundreds of diverging rounds printed
+    held = []
+    for g, c in zip(gpu, cpu):
+        if g["codec"] == "int8":
+            say(f"  int8 row: CR {g['cr']} (cuda) vs {c['cr']} (cpu), Obj "
+                f"{g['obj']!r} vs {c['obj']!r}, both converged: "
+                f"{g['converged'] and c['converged']}")
+            if not (g["converged"] and c["converged"]):
+                raise SystemExit(f"wallclock int8 row did not converge: "
+                                 f"{g} {c}")
+        elif not (g["converged"] or c["converged"]):
+            keys = ("cr", "sim_time_s", "staleness_seen", "bytes_up_total",
+                    "bytes_down_total")
+            same_rounds = [a[2:] for a in g["history"]] == \
+                [b[2:] for b in c["history"]]
+            apart = next((i for i, (a, b) in enumerate(
+                zip(g["history"], c["history"]))
+                if abs(a[0] - b[0]) > ROW_OBJ_RTOL * abs(b[0])), None)
+            say(f"  {g['codec']} row (no convergence on either side): "
+                f"{', '.join(keys)} equal: "
+                f"{all(g[k] == c[k] for k in keys)}; staleness and sim_time "
+                f"equal every round: {same_rounds}; f apart by more than "
+                f"{ROW_OBJ_RTOL} from round {apart}; last f {g['obj']!r} "
+                f"(cuda) vs {c['obj']!r} (cpu)")
+            if not (same_rounds and all(g[k] == c[k] for k in keys)):
+                raise SystemExit(f"wallclock {g['codec']} row: {g} {c}")
+        else:
+            held.append((g, c))
+    exact = ("algo", "codec", "cr", "sim_time_s", "staleness_seen",
+             "converged")
+    hold_rows([g for g, _ in held], [c for _, c in held], exact,
+              "wallclock uplink rows", tol=wallclock_bench.COMPRESS_TARGET_F)
+    say(f"phase 2f took {time.perf_counter() - t_phase!r} s")
+    return {"threefry_ms": times, "codec_ms": per, "uncompressed_ms": ms_plain}
 
 
 def main():
@@ -1880,6 +2256,9 @@ def main():
 
     # 2e. async and clocked rounds ------------------------------------------
     per_client_anchor = async_phase(pop, counters, launches, card, ops, ref)
+
+    # 2f. uplink codecs, faults, guard, checkpoints ---------------------------
+    uplink_phase(pop, counters, launches, card)
 
     # 3. serving path, full width -------------------------------------------
     # the default decode is one captured CUDA-graph step replayed a token;

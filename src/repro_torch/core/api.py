@@ -4,8 +4,11 @@ single-device subset of `repro/core/api.py`).
 Client-stacked tensors carry the client index on axis 0. The reference's
 sharded reductions (psum over a mesh axis) have no counterpart here yet.
 The `_active` twins reduce a round's packed participant tile
-(`store="active"` / `"offload"`, `utils.pytree.ActiveSet`). The stale-x̄
-state of the async rounds (`StaleXbar`) and its views close the module.
+(`store="active"` / `"offload"`, `utils.pytree.ActiveSet`). The uplink
+stages (the codec of `core/compress.py`, the faults and screening of
+`core/faults.py`) run between a round's local work and its eq. (11).
+The stale-x̄ state of the async rounds (`StaleXbar`) and its views close
+the module.
 """
 from __future__ import annotations
 
@@ -13,6 +16,9 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.core import compress, prng
+from repro_torch.core import faults as faults_mod
 
 LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, dict]]
@@ -48,9 +54,11 @@ def client_scalar_mean(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(x)
 
 
-def client_scalar_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of a per-client scalar array over all clients."""
-    return torch.sum(x)
+def client_scalar_sum(x: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum of a per-client scalar array over all clients (with `mask`,
+    over the masked-in clients only)."""
+    return torch.sum(x if mask is None else torch.where(mask, x, 0))
 
 
 def client_scalar_max(x: torch.Tensor) -> torch.Tensor:
@@ -178,6 +186,144 @@ def flat_round_aggregate_active(contrib_tile: torch.Tensor,
         out = out + (torch.mean(active.scatter(extra, extra_mean_tile),
                                 dim=0),)
     return out
+
+
+# --------------------------------------------------------------------------
+# The uplink: codec (core/compress.py), then faults and screening
+# (core/faults.py), between a round's local work and eq. (11).
+# --------------------------------------------------------------------------
+def codec_key(state, device) -> torch.Tensor:
+    """The round's codec base key (`compress.round_key`) as a (2,) int64
+    tensor on `device`: the chunked driver's upload
+    (``state["codec_key"]``, computed on the host a chunk ahead, since it
+    keeps the key there), else the fold of the state's host key with its
+    round counter, before the round's split."""
+    if "codec_key" in state:
+        return state["codec_key"]
+    return prng.key_t(compress.round_key(state["rng"], state["round"]),
+                      device)
+
+
+def _compress_row_ids(m: int, device) -> torch.Tensor:
+    """GLOBAL client row ids of the (m,) client axis: client i's codec
+    and fault keys fold in i, in every store."""
+    return torch.arange(m, dtype=torch.int64, device=device)
+
+
+def compress_upload(compressor, contrib: torch.Tensor,
+                    ef: Optional[torch.Tensor], spec, *,
+                    key: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None,
+                    row_ids: Optional[torch.Tensor] = None):
+    """The round's uplink through a codec. Returns ``(decoded, ef')``:
+    the server-visible fp32 decode of each client's upload and the
+    advanced error-feedback residual (None when ``ef`` is None).
+
+    Per client i the upload is u_i = contrib_i + e_i, the server sees
+    C(u_i) and the residual becomes u_i - C(u_i), so the decoded uploads
+    and the final residual telescope to the raw uploads. With ``mask``,
+    masked-out clients did not upload: their residual stays. The decode
+    of the lane-padded tail is forced back to zero. ``key`` (stochastic
+    codecs): the round's base key (`codec_key`); client keys fold in the
+    GLOBAL row ids (``row_ids``: the active store's resident ids)."""
+    u = contrib if ef is None else contrib + ef
+    keys = None
+    if compressor.stochastic:
+        assert key is not None, (
+            f"{compressor.name} uses stochastic rounding and needs the "
+            "round key (compress.round_key)")
+        ids = row_ids if row_ids is not None else _compress_row_ids(
+            u.shape[0], u.device)
+        keys = prng.fold_in_t(key[None], ids)
+    dec = compressor.encode_decode(u, keys=keys, n=spec.size)
+    if spec.padded_size != spec.size:
+        lane = torch.arange(u.shape[-1], device=u.device) < spec.size
+        dec = torch.where(lane, dec, 0.0)
+    if ef is None:
+        return dec, None
+    ef_new = u - dec
+    if mask is not None:
+        ef_new = masked_update(mask, ef_new, ef)
+    return dec, ef_new
+
+
+def compress_upload_active(compressor, contrib_tile: torch.Tensor,
+                           ef: Optional[torch.Tensor], active, spec, *,
+                           key: Optional[torch.Tensor] = None):
+    """Active-store twin of :func:`compress_upload`: the codec runs on the
+    packed (capacity, N) participant tile, the participants' residual
+    rows are gathered from the resident ``ef``, advanced and scattered
+    back (padding rows dropped, frozen clients untouched), and the
+    stochastic keys come from the tile's resident row ids, so tile and
+    dense rounds quantize each client alike. Returns ``(decoded_tile,
+    ef')``: the whole resident residual, or under the offloaded store
+    (``active.tile_state``) the residual tile, which its engine writes
+    back."""
+    ef_t = None if ef is None else active.gather_state(ef)
+    dec_t, ef_new_t = compress_upload(compressor, contrib_tile, ef_t, spec,
+                                      key=key, row_ids=active.idx)
+    if ef is None:
+        return dec_t, None
+    return dec_t, active.scatter_state(ef, ef_new_t)
+
+
+def harden_upload(contrib: torch.Tensor, mask: Optional[torch.Tensor], spec,
+                  *, faults=None, screening=None,
+                  fault_prev: Optional[torch.Tensor] = None, round_idx=None):
+    """The round's fault injection and screening, between the codec's
+    decode and eq. (11): the `FaultModel` corrupts the (m, N) upload
+    (crashed rows leave the mask; the replay buffer advances), then the
+    `Screening` finite check and clip. Returns ``(contrib', mask',
+    prev', n_screened)``: every row finite and non-arriving rows zero,
+    the screened mask (within ``mask``), the advanced replay buffer
+    (None without one) and the count of rows that survived (float32)."""
+    row_ids = _compress_row_ids(contrib.shape[0], contrib.device)
+    prev_new = None
+    if faults is not None:
+        contrib, mask, prev_new = faults.apply(
+            contrib, mask, fault_prev, round_idx, row_ids,
+            payload_cols=spec.size)
+    if screening is not None:
+        contrib, mask = faults_mod.screen_rows(contrib, mask, screening)
+    ones = torch.ones(contrib.shape[0], dtype=torch.float32,
+                      device=contrib.device)
+    return contrib, mask, prev_new, client_scalar_sum(ones, mask=mask)
+
+
+def harden_upload_active(contrib_tile: torch.Tensor, active, spec, *,
+                         faults=None, screening=None,
+                         fault_prev: Optional[torch.Tensor] = None,
+                         round_idx=None):
+    """Active-store twin of :func:`harden_upload` on the packed tile,
+    keyed on its resident row ids (the dense round's faults). The rows
+    screened out leave the `ActiveSet` itself: ``valid``, ``count`` and
+    the dense ``mask`` shrink to the survivors, so the unchanged
+    `flat_round_aggregate_active` sums exactly the screened set (and
+    SCAFFOLD's rider with it). The replay buffer goes through
+    ``gather_state``/``scatter_state`` like the EF residual. Returns
+    ``(tile', active', prev', n_screened)``."""
+    ok = active.valid
+    prev_new = None
+    if faults is not None:
+        prev_t = (active.gather_state(fault_prev)
+                  if fault_prev is not None else None)
+        contrib_tile, ok, prev_t_new = faults.apply(
+            contrib_tile, ok, prev_t, round_idx, active.idx,
+            payload_cols=spec.size)
+        if prev_t_new is not None:
+            prev_new = active.scatter_state(fault_prev, prev_t_new)
+    if screening is not None:
+        contrib_tile, ok = faults_mod.screen_rows(contrib_tile, ok,
+                                                  screening)
+    dense_ok = active.scatter(
+        torch.zeros(active.num_clients, dtype=torch.bool,
+                    device=ok.device), ok)
+    count = torch.sum(ok.to(torch.float32))
+    active2 = dataclasses.replace(
+        active, valid=ok, count=count,
+        mask=torch.logical_and(active.mask, dense_ok))
+    return contrib_tile, active2, prev_new, client_scalar_sum(
+        ok.to(torch.float32))
 
 
 def per_client_value_and_grad(loss_fn: LossFn):

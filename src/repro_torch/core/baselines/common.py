@@ -12,6 +12,13 @@ are aggregated, and the per-client state of the others is frozen.
 integer tensors on the run's device inside the chunked driver
 (`core/engine.py`), so that a replayed CUDA graph reads each round's
 own counter; every function here takes either.
+
+The uplink (`compressor=`, `faults=`, `screening=` of each round) runs
+between a round's local work and eq. (11): `FlatBaseline.upload` and
+`upload_active` put the round's contribution through the codec
+(`compress_contrib`, with the error-feedback residual ``ef``) and then
+the fault injection and screening, whose mask replaces the round's for
+the aggregation only.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ class FlatBaseline:
     each), the stacked per-client gradient, the initial state and the
     end of a round. A subclass adds its `round_flat`."""
 
-    flat_client_keys = ()
+    # the engine's codec residual and fault replay buffer, where it makes
+    # them: (m, N) flat client buffers like the algorithms' own
+    flat_client_keys = ("ef", "fault_prev")
     flat_global_keys = ("x",)
     # store="active": frozen clients are never read or written, so a
     # round runs on the participants' packed tile (`round_flat_active`)
@@ -59,17 +68,59 @@ class FlatBaseline:
             return api.stale_xbar_view(stale, state["x"], mask)[0]
         return api.stale_xbar_view_active(stale, state["x"], active)[0]
 
-    def _result(self, state, aggregate, grad_evals, **updates):
+    def upload(self, state, contrib, spec, mask, compressor=None,
+               faults=None, screening=None):
+        """The dense round's uplink: the (m, N) contribution through the
+        codec (masked-out clients keep their residual), then the faults
+        and screening. Returns (the aggregated buffer, the aggregation's
+        mask, the uplink's state updates, n_screened or None)."""
+        up, ef_new = compress_contrib(compressor, state, contrib, spec,
+                                      mask=mask)
+        updates = {} if ef_new is None else {"ef": ef_new}
+        n_scr = None
+        if faults is not None or screening is not None:
+            up, mask, fprev_new, n_scr = api.harden_upload(
+                up, mask, spec, faults=faults, screening=screening,
+                fault_prev=state.get("fault_prev"),
+                round_idx=state["round"])
+            if fprev_new is not None:
+                updates["fault_prev"] = fprev_new
+        return up, mask, updates, n_scr
+
+    def upload_active(self, state, contrib_tile, spec, active,
+                      compressor=None, faults=None, screening=None):
+        """`upload` on the packed participant tile: the codec and the
+        faults key on the tile's resident row ids, and the screened rows
+        leave the returned `ActiveSet`. Returns (the aggregated tile, the
+        aggregation's ActiveSet, the state updates, n_screened or
+        None)."""
+        up, ef_new = compress_contrib_active(compressor, state,
+                                             contrib_tile, spec, active)
+        updates = {} if ef_new is None else {"ef": ef_new}
+        n_scr = None
+        if faults is not None or screening is not None:
+            up, active, fprev_new, n_scr = api.harden_upload_active(
+                up, active, spec, faults=faults, screening=screening,
+                fault_prev=state.get("fault_prev"),
+                round_idx=state["round"])
+            if fprev_new is not None:
+                updates["fault_prev"] = fprev_new
+        return up, active, updates, n_scr
+
+    def _result(self, state, aggregate, grad_evals, n_scr=None, **updates):
         """(new state, metrics) of a round from the outputs of
         `api.flat_round_aggregate` or its `_active` twin (x̄', |grad|^2,
         f, participants): both
         counters advanced (`step` by the k0 local steps), `updates` (the
-        per-client state) stored, `grad_evals` gradients a client."""
+        per-client state) stored, `grad_evals` gradients a client, and
+        `screened` where the uplink screened (`n_scr`)."""
         x_new, gsq, f_mean, n_sel = aggregate
         new_state = dict(state, x=x_new, round=state["round"] + 1,
                          step=state["step"] + self.fed.k0, **updates)
         metrics = round_metrics_flat(gsq, f_mean, n_sel, state["round"])
         metrics["local_grad_evals"] = float(grad_evals)
+        if n_scr is not None:
+            metrics["screened"] = n_scr
         return new_state, metrics
 
 
@@ -105,6 +156,36 @@ def participation_vec(losses: torch.Tensor, mask=None) -> torch.Tensor:
     masked-out clients."""
     ones = torch.ones_like(losses)
     return ones if mask is None else torch.where(mask, ones, 0.0)
+
+
+def compress_contrib(compressor, state, contrib, spec, mask=None):
+    """The baselines' codec hook: the (m, N) contribution through
+    `compressor` just before eq. (11). Returns ``(decoded, ef')``;
+    ``(contrib, None)`` uncompressed. The residual comes from and
+    advances ``state["ef"]``; the stochastic key is the round's key
+    folded with the round counter (`api.codec_key`), which does not
+    advance the key. With ``mask``, frozen clients keep their
+    residual."""
+    if compressor is None:
+        return contrib, None
+    ef = state.get("ef") if compressor.error_feedback else None
+    key = (api.codec_key(state, contrib.device) if compressor.stochastic
+           else None)
+    return api.compress_upload(compressor, contrib, ef, spec, key=key,
+                               mask=mask)
+
+
+def compress_contrib_active(compressor, state, contrib_tile, spec, active):
+    """Active-store twin of `compress_contrib` on the packed tile
+    (`api.compress_upload_active`): ``ef'`` is the whole resident
+    residual, non-participant rows untouched."""
+    if compressor is None:
+        return contrib_tile, None
+    ef = state.get("ef") if compressor.error_feedback else None
+    key = (api.codec_key(state, contrib_tile.device)
+           if compressor.stochastic else None)
+    return api.compress_upload_active(compressor, contrib_tile, ef, active,
+                                      spec, key=key)
 
 
 def round_metrics_flat(gsq, f_mean, n_sel, round_idx):

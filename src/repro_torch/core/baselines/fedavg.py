@@ -34,25 +34,29 @@ class FedAvg(FlatBaseline):
             x = x - lr * grads.to(x.dtype)
         return x, losses0, grads0
 
-    def round_flat(self, state, batch, spec, mask=None, stale=None,
-                   donate_kernel=False):
+    def round_flat(self, state, batch, spec, mask=None, stale=None, compressor=None, donate_kernel=False,
+                   faults=None, screening=None):
         """One round on the flat state (`state["x"]` an (N,) buffer): k0 GD
         steps from the broadcast x̄ on the (m, N) trajectory buffer, then
         eq. (11) and the diagnostics in `api.flat_round_aggregate`. The
         metrics read the first step's losses and gradients (at x̄).
         With `stale` (async rounds) the steps start from each client's
         stale anchor and eq. (11) takes the staleness weights; `stale`
-        advances in place. `donate_kernel` is accepted for uniformity and
+        advances in place. The trajectories go up through `upload` (codec,
+        faults, screening). `donate_kernel` is accepted for uniformity and
         ignored."""
         xc = self._anchors(state, self.fed.num_clients, mask, stale)
         x, losses0, grads0 = self._local(state, batch, spec, xc)
+        x, mask, updates, n_scr = self.upload(state, x, spec, mask,
+                                              compressor, faults, screening)
         agg = api.flat_round_aggregate(
             x, grads0, losses0, participation_vec(losses0, mask), spec,
             mask=mask, weights=api.stale_weights(stale))
-        return self._result(state, agg, self.fed.k0)
+        return self._result(state, agg, self.fed.k0, n_scr, **updates)
 
-    def round_flat_active(self, state, batch, spec, active, stale=None,
-                          donate_kernel=False):
+    def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
+                          donate_kernel=False, faults=None,
+                          screening=None):
         """`round_flat` on the packed participant tile (store="active"):
         the k0 trajectories exist only for the (capacity,) gathered
         clients. FedAvg has no per-client state, so nothing is scattered
@@ -62,7 +66,9 @@ class FedAvg(FlatBaseline):
                            active=active)
         x, losses0, grads0 = self._local(state, active.gather_tree(batch),
                                          spec, xc)
+        x, active, updates, n_scr = self.upload_active(
+            state, x, spec, active, compressor, faults, screening)
         agg = api.flat_round_aggregate_active(
             x, grads0, losses0, active, spec,
             weights=api.stale_weights(stale))
-        return self._result(state, agg, self.fed.k0)
+        return self._result(state, agg, self.fed.k0, n_scr, **updates)

@@ -24,7 +24,7 @@ from repro_torch.core.baselines.common import (
 
 class FedPD(FlatBaseline):
     name = "fedpd"
-    flat_client_keys = ("lam",)
+    flat_client_keys = ("lam", "ef", "fault_prev")
 
     def init(self, params0, rng, init_batch=None):
         state = super().init(params0, rng)
@@ -51,8 +51,8 @@ class FedPD(FlatBaseline):
             anchor = xi + eta * lam
         return anchor, lam, losses0, grads0
 
-    def round_flat(self, state, batch, spec, mask=None, stale=None,
-                   donate_kernel=False):
+    def round_flat(self, state, batch, spec, mask=None, stale=None, compressor=None, donate_kernel=False,
+                   faults=None, screening=None):
         """One round on the flat state (`lam` an (m, N) buffer): k0
         primal-dual steps per client from the broadcast x̄, then eq. (11)
         over the clients' anchors. Under `mask`, a masked-out client keeps
@@ -66,14 +66,19 @@ class FedPD(FlatBaseline):
                                                    state["lam"])
         if mask is not None:
             lam = api.masked_update(mask, lam, state["lam"])
+        # the faults and screening shrink the aggregation's mask only: a
+        # client whose upload was lost still advanced its duals
+        anchor, mask, updates, n_scr = self.upload(
+            state, anchor, spec, mask, compressor, faults, screening)
         agg = api.flat_round_aggregate(
             anchor, grads0, losses0, participation_vec(losses0, mask), spec,
             mask=mask, weights=api.stale_weights(stale))
-        return self._result(state, agg, fed.k0 * fed.inner_steps,
-                            lam=lam)
+        return self._result(state, agg, fed.k0 * fed.inner_steps, n_scr,
+                            lam=lam, **updates)
 
-    def round_flat_active(self, state, batch, spec, active, stale=None,
-                          donate_kernel=False):
+    def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
+                          donate_kernel=False, faults=None,
+                          screening=None):
         """`round_flat` on the packed participant tile (store="active"):
         the participants' duals are GATHERED from the resident (m, N)
         `lam`, advanced on the (capacity, N) tile and SCATTERED back in
@@ -87,8 +92,10 @@ class FedPD(FlatBaseline):
             state, active.gather_tree(batch), spec, xc,
             active.gather_state(state["lam"]))
         lam = active.scatter_state(state["lam"], lam_t)
+        anchor, active, updates, n_scr = self.upload_active(
+            state, anchor, spec, active, compressor, faults, screening)
         agg = api.flat_round_aggregate_active(
             anchor, grads0, losses0, active, spec,
             weights=api.stale_weights(stale))
-        return self._result(state, agg, fed.k0 * fed.inner_steps,
-                            lam=lam)
+        return self._result(state, agg, fed.k0 * fed.inner_steps, n_scr,
+                            lam=lam, **updates)

@@ -36,8 +36,8 @@ class FedProx(FlatBaseline):
                 x = x - lr * g.to(x.dtype)
         return x, losses0, grads0
 
-    def round_flat(self, state, batch, spec, mask=None, stale=None,
-                   donate_kernel=False):
+    def round_flat(self, state, batch, spec, mask=None, stale=None, compressor=None, donate_kernel=False,
+                   faults=None, screening=None):
         """One round on the flat state: k0 steps of `inner_steps` proximal
         GD iterations toward the broadcast x̄, then eq. (11) and the
         diagnostics (see `FedAvg.round_flat`). The metrics read the first
@@ -45,14 +45,18 @@ class FedProx(FlatBaseline):
         straggler starts from, and proxes toward, its stale anchor."""
         xc = self._anchors(state, self.fed.num_clients, mask, stale)
         x, losses0, grads0 = self._local(state, batch, spec, xc)
+        x, mask, updates, n_scr = self.upload(state, x, spec, mask,
+                                              compressor, faults, screening)
         agg = api.flat_round_aggregate(
             x, grads0, losses0, participation_vec(losses0, mask), spec,
             mask=mask, weights=api.stale_weights(stale))
         return self._result(state, agg,
-                            self.fed.k0 * self.fed.inner_steps)
+                            self.fed.k0 * self.fed.inner_steps, n_scr,
+                            **updates)
 
-    def round_flat_active(self, state, batch, spec, active, stale=None,
-                          donate_kernel=False):
+    def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
+                          donate_kernel=False, faults=None,
+                          screening=None):
         """`round_flat` on the packed participant tile (store="active"):
         the proximal trajectories exist only for the gathered clients.
         See `FedAvg.round_flat_active`."""
@@ -60,8 +64,11 @@ class FedProx(FlatBaseline):
                            active=active)
         x, losses0, grads0 = self._local(state, active.gather_tree(batch),
                                          spec, xc)
+        x, active, updates, n_scr = self.upload_active(
+            state, x, spec, active, compressor, faults, screening)
         agg = api.flat_round_aggregate_active(
             x, grads0, losses0, active, spec,
             weights=api.stale_weights(stale))
         return self._result(state, agg,
-                            self.fed.k0 * self.fed.inner_steps)
+                            self.fed.k0 * self.fed.inner_steps, n_scr,
+                            **updates)

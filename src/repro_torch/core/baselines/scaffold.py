@@ -25,7 +25,7 @@ from repro_torch.core.baselines.common import (
 
 class Scaffold(FlatBaseline):
     name = "scaffold"
-    flat_client_keys = ("ci",)
+    flat_client_keys = ("ci", "ef", "fault_prev")
     flat_global_keys = ("x", "c")
 
     def init(self, params0, rng, init_batch=None):
@@ -53,8 +53,8 @@ class Scaffold(FlatBaseline):
         denom = fed.k0 * lr
         return y, ci - c[None] + (xc - y) / denom, losses0, grads0
 
-    def round_flat(self, state, batch, spec, mask=None, stale=None,
-                   donate_kernel=False):
+    def round_flat(self, state, batch, spec, mask=None, stale=None, compressor=None, donate_kernel=False,
+                   faults=None, screening=None):
         """One round on the flat state: the local steps and control update
         from the broadcast x̄ (`_local`), then eq. (11) over the
         trajectories with the variates' delta mean riding the same
@@ -68,15 +68,22 @@ class Scaffold(FlatBaseline):
         y, ci_new, losses0, grads0 = self._local(state, batch, spec, xc, ci)
         if mask is not None:
             ci_new = api.masked_update(mask, ci_new, ci)
+        dmean = ci_new - ci
+        y, mask, updates, n_scr = self.upload(state, y, spec, mask,
+                                              compressor, faults, screening)
+        if n_scr is not None:
+            # a lost or rejected upload takes the client's variate delta
+            # with it (the client still advanced its ci)
+            dmean = torch.where(mask[:, None], dmean, 0.0)
         *agg, dci = api.flat_round_aggregate(
             y, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask, weights=api.stale_weights(stale),
-            extra_mean=ci_new - ci)
-        return self._result(state, agg, self.fed.k0,
-                            c=state["c"] + dci, ci=ci_new)
+            mask=mask, weights=api.stale_weights(stale), extra_mean=dmean)
+        return self._result(state, agg, self.fed.k0, n_scr,
+                            c=state["c"] + dci, ci=ci_new, **updates)
 
-    def round_flat_active(self, state, batch, spec, active, stale=None,
-                          donate_kernel=False):
+    def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
+                          donate_kernel=False, faults=None,
+                          screening=None):
         """`round_flat` on the packed participant tile (store="active"):
         the participants' variates are GATHERED from the resident (m, N)
         `ci`, advanced on the (capacity, N) tile and SCATTERED back in
@@ -90,9 +97,13 @@ class Scaffold(FlatBaseline):
         y, ci_new_t, losses0, grads0 = self._local(
             state, active.gather_tree(batch), spec, xc, ci_t)
         ci = active.scatter_state(state["ci"], ci_new_t)
+        # the screened ActiveSet's `valid` zeroes the screened rows out of
+        # the variate rider too
+        y, active, updates, n_scr = self.upload_active(
+            state, y, spec, active, compressor, faults, screening)
         *agg, dci = api.flat_round_aggregate_active(
             y, grads0, losses0, active, spec,
             weights=api.stale_weights(stale),
             extra_mean_tile=ci_new_t - ci_t)
-        return self._result(state, agg, self.fed.k0,
-                            c=state["c"] + dci, ci=ci)
+        return self._result(state, agg, self.fed.k0, n_scr,
+                            c=state["c"] + dci, ci=ci, **updates)

@@ -21,14 +21,24 @@ up to a few ulps of `log1p`, so the same arrivals on the tested seeds
 `tick` never changes its argument, so the engine can put back the state
 of any round (the eq. (35) stop).
 
-Only the event-driven ticks are ported: the byte-accurate clock
-(`bandwidth_bps`, `with_wire`), the overlapped round's pricing
-(`with_overlap`) and the deadline clock (`deadline_s`) raise
-`NotImplementedError`.
+The byte-accurate clock (`bandwidth_bps`): the engine installs the
+codec's exact per-client wire size (`with_wire`, `core/compress.py`),
+and a work item pays ``(compute + comm_s) + (bytes_up + bytes_down) /
+bandwidth_bps``, the reference's float32 operations in its order, so
+the durations are its own bit for bit. Without `bandwidth_bps` no byte
+term is ever made, and the times are those of the plain clock. The
+deadline clock (`deadline_s`) cuts each round `deadline_s` simulated
+seconds after the last, whoever has finished: a round may see no
+arrival, which the engine's quorum turns into a recorded no-op.
+
+The overlapped round's pricing (`with_overlap`) waits for the
+multi-device client axis and raises `NotImplementedError`.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
+
+import copy
 
 import numpy as np
 import torch
@@ -39,12 +49,6 @@ from repro_torch.core import prng
 TickResult = Tuple[torch.Tensor, torch.Tensor, Any]
 
 _NOT_PORTED = {
-    "bandwidth_bps": "the byte-accurate clock waits for the codecs "
-                     "(ROADMAP queue 1, item 6)",
-    "deadline_s": "the deadline clock waits for the quorum rounds "
-                  "(ROADMAP queue 1, item 6)",
-    "with_wire": "the byte-accurate clock waits for the codecs "
-                 "(ROADMAP queue 1, item 6)",
     "with_overlap": "the overlapped round's pricing waits for the "
                     "multi-device client axis (ROADMAP queue 1, item 9)",
 }
@@ -69,7 +73,8 @@ def _per_client(x, m: int, name: str) -> torch.Tensor:
 class ComputeClock:
     """Constant per-client durations: ``compute_s + comm_s`` seconds a
     work item (each strictly positive: a zero-duration client would arrive
-    every round without advancing simulated time)."""
+    every round without advancing simulated time), plus the wire's byte
+    time under ``bandwidth_bps`` (scalar or per-client bytes a second)."""
 
     name = "constant"
 
@@ -77,25 +82,57 @@ class ComputeClock:
                  bandwidth_bps=None, deadline_s=None):
         if m < 1:
             raise ValueError("need at least one client")
-        if bandwidth_bps is not None:
-            _not_ported("bandwidth_bps")
-        if deadline_s is not None:
-            _not_ported("deadline_s")
+        if deadline_s is not None and not float(deadline_s) > 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.m = m
         self.compute_s = _per_client(compute_s, m, "compute_s")
         self.comm_s = _per_client(comm_s, m, "comm_s")
-        self.durations_s = self._combine(self.compute_s)
-        if not bool((self.durations_s > 0).all()):
+        total = self.compute_s + self.comm_s
+        if not bool((total > 0).all()):
             raise ValueError(f"work-item durations must be > 0, got "
-                             f"{self.durations_s.tolist()}")
+                             f"{total.tolist()}")
+        self.bandwidth_bps = None
+        if bandwidth_bps is not None:
+            self.bandwidth_bps = _per_client(bandwidth_bps, m,
+                                             "bandwidth_bps")
+            if not bool((self.bandwidth_bps > 0).all()):
+                raise ValueError(
+                    f"bandwidth_bps must be > 0, got {bandwidth_bps}")
+        self.bytes_up = 0
+        self.bytes_down = 0
+        self._recompute_durations()
 
     def _combine(self, compute: torch.Tensor) -> torch.Tensor:
         """A work item's duration from its compute time: compute, then
-        communication, in series."""
-        return compute + self.comm_s
+        communication, in series, as ``(compute + comm_s) + wire_s``."""
+        d = compute + self.comm_s
+        if self.wire_s is not None:
+            d = d + self.wire_s
+        return d
 
-    def with_wire(self, bytes_up: int, bytes_down: int):
-        _not_ported("with_wire")
+    def _recompute_durations(self):
+        self.wire_s = None  # no byte term without a bandwidth
+        if self.bandwidth_bps is not None:
+            self.wire_s = (torch.tensor(self.bytes_up + self.bytes_down,
+                                        dtype=torch.float32)
+                           / self.bandwidth_bps)
+        self.durations_s = self._combine(self.compute_s)
+
+    def with_wire(self, bytes_up: int, bytes_down: int) -> "ComputeClock":
+        """A copy of this clock whose work items pay the byte time of
+        ``bytes_up + bytes_down`` at ``bandwidth_bps``; the engine calls
+        it once a run with the codec's wire size, and the caller's clock
+        is left as it was."""
+        if self.bandwidth_bps is None:
+            raise ValueError(
+                "with_wire needs bandwidth_bps — construct the clock "
+                "with bandwidth_bps= to enable byte-accurate comm time")
+        clone = copy.copy(self)
+        clone.bytes_up = int(bytes_up)
+        clone.bytes_down = int(bytes_down)
+        clone._recompute_durations()
+        return clone
 
     def with_overlap(self):
         _not_ported("with_overlap")
@@ -112,12 +149,17 @@ class ComputeClock:
 
     def tick(self, cstate, round_idx: int) -> TickResult:
         """One server event: simulated time advances to the earliest
-        client finish, the arrival mask is who has finished by then, and
-        the arrived clients start a new work item. Returns ``(mask, now,
-        cstate')``: the (m,) bool mask (at least one True), the round's
+        client finish (or, under `deadline_s`, by the deadline), the
+        arrival mask is who has finished by then, and the arrived clients
+        start a new work item. Returns ``(mask, now, cstate')``: the (m,)
+        bool mask (at least one True without a deadline), the round's
         simulated time and the next state."""
         busy = cstate["busy_until"]
-        now = torch.maximum(cstate["now"], torch.min(busy))
+        if self.deadline_s is None:
+            now = torch.maximum(cstate["now"], torch.min(busy))
+        else:
+            now = cstate["now"] + torch.tensor(self.deadline_s,
+                                               dtype=torch.float32)
         mask = busy <= now
         d, cstate = self._draw(cstate, round_idx)
         cs2 = dict(cstate)
@@ -192,9 +234,10 @@ def make_clock(kind: str, m: int, *, compute_s=None, comm_s=0.0,
                sigma: float = 0.5, seed: int = 0, trace=None,
                bandwidth_bps=None,
                deadline_s=None) -> Optional[ComputeClock]:
-    """CLI-level factory (`--clock`, `--client-speeds`, `--clock-sigma`).
-    ``kind="none"`` returns None: the rounds stay policy-driven.
-    ``compute_s`` defaults to `default_speeds`."""
+    """CLI-level factory (`--clock`, `--client-speeds`, `--clock-sigma`,
+    `--bandwidth-bps`, `--deadline-s`). ``kind="none"`` returns None: the
+    rounds stay policy-driven. ``compute_s`` defaults to
+    `default_speeds`."""
     if kind == "none":
         return None
     if compute_s is None:
@@ -233,3 +276,16 @@ class ClockArrivals:
     def mask(self, cstate, round_idx: int):
         mask, _, cs2 = self.clock.tick(cstate, round_idx)
         return mask, cs2
+
+    def wire(self, mask: torch.Tensor):
+        """The round's wire totals under a byte-accurate clock, each
+        arrival one upload (the codec's wire) and one fp32 download:
+        ``{"bytes_up": ..., "bytes_down": ...}`` as float32 (the
+        reference's ``n_arrived * float32(bytes)``); empty without a
+        bandwidth, so a plain clock's history keeps its keys."""
+        if self.clock.bandwidth_bps is None:
+            return {}
+        n = torch.sum(mask.to(torch.float32))
+        return {k: n * torch.tensor(getattr(self.clock, k),
+                                    dtype=torch.float32)
+                for k in ("bytes_up", "bytes_down")}

@@ -58,18 +58,45 @@ reference does: the first chunks run the lengths of
 is timed, and the fastest per round drives the rest. The rounds executed
 do not depend on the timings, so with tol <= 0 the final state is the
 fixed-chunk run's, bit for bit.
+
+The uplink (`compression=`, `faults=`, `screening=`): each round's
+contribution goes through the codec of `core/compress.py` and the fault
+injection and screening of `core/faults.py` before eq. (11), inside the
+round, on the device; the engine makes the codec's error-feedback
+residual ``ef`` and the replay buffer ``fault_prev`` as (m, N) client
+buffers. The stochastic codecs' key is the round's key before its split:
+the chunked driver, which keeps the key on the host, computes a chunk's
+keys there and uploads them beside its masks.
+
+The guard (`quorum=`, `watchdog=`, the reference's `_make_guard`): after
+each round, `torch.where` merges put back the state before the round (a
+quorum no-op, ``degraded``) or the watchdog's best snapshot
+(``rollback``); the key and the round counter always advance. The merges
+read nothing back, so a captured chunk replays them as the legacy loop
+runs them.
+
+Checkpoints (`checkpoint_every=`, `checkpoint_dir=`, `resume=`): the
+chunked driver cuts its chunks at the checkpoint rounds and saves its
+whole carry there (the state, the host key, the policy or clock state,
+the stale-x̄ buffers, the watchdog slot, the stop flag and the history
+so far) with a fingerprint of the run's configuration; the offload loop
+saves its own. A resumed run's history and state are the uninterrupted
+run's bit for bit.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import json
 import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from repro_torch.core import api, graphs, selection
+from repro_torch import checkpoint as ckpt_io
+from repro_torch.core import api, compress, graphs, selection
 from repro_torch.core.clock import ClockArrivals
 from repro_torch.kernels import launch_counters
 from repro_torch.utils import pytree as pt
@@ -135,6 +162,15 @@ def _stack(values):
     return np.asarray(values, np.float32)
 
 
+def _concat(saved, history):
+    """A resumed run's history: the checkpoint's rows, then this call's."""
+    if not saved:
+        return history
+    if not history:
+        return dict(saved)
+    return {k: np.concatenate([saved[k], history[k]]) for k in saved}
+
+
 AUTO_CHUNK_CANDIDATES = (8, 32, 128)
 
 
@@ -144,7 +180,12 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                aggregate: str = "dense", async_rounds: bool = False,
                max_staleness: int = 0, clock=None,
                stale_weighting: str = "uniform",
-               stale_decay: float = 1.0) -> RoundResult:
+               stale_decay: float = 1.0, compression=None,
+               error_feedback: bool = False, topk_frac: float = 0.1,
+               faults=None, screening=None, quorum: int = 0,
+               watchdog: bool = False, watchdog_patience: int = 3,
+               watchdog_factor: float = 2.0, checkpoint_every: int = 0,
+               checkpoint_dir=None, resume: bool = False) -> RoundResult:
     """Run up to `num_rounds` communication rounds of `algo`.
 
     tol > 0 enables the paper's stopping rule (eq. 35). `scan=True` runs
@@ -178,6 +219,31 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     `stale_decay` > 0) turns eq. (11) into the staleness-weighted mean;
     anything but "uniform" needs async rounds.
 
+    `compression` ("none", "bf16", "int8", "topk" or a
+    `compress.Compressor`), `error_feedback`, `topk_frac`: the uplink
+    codec (module docstring). "none" without error feedback is no codec
+    at all, so that run is the uncompressed one bit for bit; a clock with
+    `bandwidth_bps` prices the codec's wire (`ComputeClock.with_wire`) and
+    the history gains `bytes_up` and `bytes_down`. `faults` (a
+    `faults.FaultModel`) and `screening` (a `faults.Screening`) corrupt
+    and screen the uploads on the device; the history gains `screened`.
+
+    `quorum`: a round whose accepted uploads (`screened`, else
+    `selected`) fall below it is a recorded no-op (`degraded`): every
+    state entry but the key and the round counter, and the stale-x̄
+    state, go back to the round's start. It needs a source of
+    non-arrival, and >= 1 under a deadline clock. `watchdog`: after
+    `watchdog_patience` committed rounds in a row with f̄ above
+    `watchdog_factor` times the best seen (NaN counts), the state rolls
+    back to the best round's (`rollback`); not with store="offload".
+
+    `checkpoint_every`, `checkpoint_dir`, `resume`: the module
+    docstring's checkpoints, in the chunked driver (a fixed chunk_size)
+    and the offload loop. `resume=True` goes on from the newest
+    checkpoint under `checkpoint_dir` (a fresh start where there is
+    none) and raises where it was written under another configuration;
+    `num_rounds` may differ.
+
     The caller's `state` is left as it was: its tensors are copied into
     fresh flat buffers at entry and its key is copied, so every
     round can run the in-place (donated) kernel, as the reference donates
@@ -194,12 +260,49 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     m = algo.fed.num_clients
     async_rounds = _check_async(m, participation, async_rounds,
                                 max_staleness, clock, stale_weighting)
-    arrivals = participation if clock is None else ClockArrivals(clock)
-    cap = _check_store(algo, store, aggregate, arrivals, auto)
+    cap = _check_store(algo, store, aggregate,
+                       participation if clock is None else ClockArrivals(
+                           clock), auto)
     packed = aggregate == "packed"
+    compressor, wire_comp = _check_uplink(
+        algo, participation, clock, store, scan, auto, compression,
+        error_feedback, topk_frac, faults, screening, quorum, watchdog,
+        watchdog_patience, watchdog_factor, checkpoint_every,
+        checkpoint_dir, resume)
     spec = ravel_spec(state["x"])
+    if clock is not None and clock.bandwidth_bps is not None:
+        # the logical model size: the wire never carries the padding
+        clock = clock.with_wire(compress.uplink_bytes(wire_comp, spec.size),
+                                compress.downlink_bytes(spec.size))
+    arrivals = participation if clock is None else ClockArrivals(clock)
+    ckpt = None
+    if checkpoint_every > 0 or resume:
+        ckpt = _Checkpoints(checkpoint_dir, checkpoint_every, resume,
+                            _config_fingerprint(
+            algo=getattr(algo, "name", type(algo).__name__),
+            num_clients=m, tol=tol, tol_metric=tol_metric, flat=True,
+            store=store, aggregate=aggregate, overlap="off",
+            async_rounds=bool(async_rounds), max_staleness=max_staleness,
+            stale_weighting=stale_weighting, stale_decay=stale_decay,
+            participation=participation, clock=clock, compression=wire_comp,
+            error_feedback=bool(error_feedback), topk_frac=topk_frac,
+            faults=faults, screening=screening, quorum=quorum,
+            watchdog=bool(watchdog), watchdog_patience=watchdog_patience,
+            watchdog_factor=watchdog_factor))
     flat = flatten_state(algo, state, spec)
     flat["rng"] = state["rng"].copy()
+    buf = (m, spec.padded_size)
+    if compressor is not None and compressor.error_feedback \
+            and "ef" not in flat:
+        flat["ef"] = torch.zeros(buf, dtype=spec.dtype,
+                                 device=flat["x"].device)
+    if faults is not None and faults.needs_prev and "fault_prev" not in flat:
+        # the replay fault's last honest upload, made like "ef"
+        flat["fault_prev"] = torch.zeros(buf, dtype=spec.dtype,
+                                         device=flat["x"].device)
+    uplink = Uplink(compressor, faults, screening,
+                    _Guard.make(quorum, watchdog, watchdog_patience,
+                                watchdog_factor), ckpt)
     stale = None
     if async_rounds:
         stale = api.init_stale_xbar(flat["x"], m, max_staleness,
@@ -213,11 +316,11 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     if store == "offload":
         return _with_clock(_run_offload_loop(
             algo, flat, batch, spec, num_rounds, tol, tol_metric, arrivals,
-            cap, packed, stale), clock)
+            cap, packed, stale, uplink), clock)
     if not scan:
         return _with_clock(_run_legacy_loop(
             algo, flat, batch, spec, num_rounds, tol, tol_metric, arrivals,
-            cap, packed, stale), clock)
+            cap, packed, stale, uplink), clock)
     plan = []
     if auto:
         rest = num_rounds
@@ -246,7 +349,8 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
             lengths.add(num_rounds % chunk)
     return _with_clock(_Chunked(
         algo, flat, batch, spec, tol, tol_metric, max(lengths), arrivals,
-        cap, packed, stale).run(num_rounds, chunk, plan, lengths), clock)
+        cap, packed, stale, uplink).run(num_rounds, chunk, plan, lengths),
+        clock)
 
 
 def _check_async(m, participation, async_rounds, max_staleness, clock,
@@ -325,21 +429,293 @@ def _check_store(algo, store, aggregate, participation, auto):
     return cap
 
 
-def _round(algo, st, batch, spec, mask, slots, cap, packed, stale=None):
+def _check_uplink(algo, participation, clock, store, scan, auto,
+                  compression, error_feedback, topk_frac, faults, screening,
+                  quorum, watchdog, watchdog_patience, watchdog_factor,
+                  checkpoint_every, checkpoint_dir, resume):
+    """The reference's checks of the codec, fault, guard and checkpoint
+    arguments, with its messages. Returns (the round's compressor, None
+    for the identity codec without error feedback; the codec whose wire
+    the byte clock prices)."""
+    m = algo.fed.num_clients
+    masked = participation is not None or clock is not None
+    compressor = compress.as_compressor(
+        compression, error_feedback=error_feedback, topk_frac=topk_frac)
+    wire_comp = compressor
+    if compressor is not None and compressor.identity \
+            and not compressor.error_feedback:
+        # the identity codec without error feedback IS the uncompressed
+        # round: no codec runs at all
+        compressor = None
+    if faults is not None and faults.num_clients != m:
+        raise ValueError(
+            f"fault model covers {faults.num_clients} clients, algorithm "
+            f"has {m}")
+    if quorum:
+        if not 0 < quorum <= m:
+            raise ValueError(f"quorum must be in [0, m={m}], got {quorum}")
+        if not masked and faults is None and screening is None:
+            raise ValueError(
+                "quorum needs a source of non-arrival to guard against — "
+                "pass participation=, clock=, faults= or screening=")
+    if clock is not None and clock.deadline_s is not None and quorum < 1:
+        raise ValueError(
+            "a deadline clock (ComputeClock(deadline_s=)) can cut rounds "
+            "with ZERO arrivals — pass quorum >= 1 so they degrade to "
+            "recorded no-ops instead of a 0-client mean")
+    if watchdog:
+        if watchdog_patience < 1:
+            raise ValueError(
+                f"watchdog_patience must be >= 1, got {watchdog_patience}")
+        if watchdog_factor <= 1.0:
+            raise ValueError(
+                "watchdog_factor must be > 1 (a divergence threshold "
+                f"RELATIVE to the best f̄ seen), got {watchdog_factor}")
+        if store == "offload":
+            raise ValueError(
+                "the watchdog keeps a full state snapshot in the carry — "
+                "under store='offload' that would double the host-resident "
+                "buffers; run the watchdog with store='dense'/'active'")
+    if checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0, got {checkpoint_every}")
+    if checkpoint_every > 0 or resume:
+        if checkpoint_dir is None:
+            raise ValueError(
+                "checkpoint_every/resume need a checkpoint_dir= to write "
+                "to / restore from")
+        if auto:
+            raise ValueError(
+                "chunk_size='auto' picks chunk boundaries from wall-clock "
+                "timings — pass a fixed chunk_size when checkpointing so "
+                "the save points are deterministic")
+        if not scan and store != "offload":
+            raise ValueError(
+                "checkpointing rides the chunked scan driver (or the "
+                "host-driven offload loop) — drop scan=False")
+    return compressor, wire_comp
+
+
+@dataclasses.dataclass
+class Uplink:
+    """What a run adds to its rounds beyond the policy and the store: the
+    codec, the fault model and the screening (passed to every round), the
+    guard and the checkpoints."""
+
+    compressor: Any = None
+    faults: Any = None
+    screening: Any = None
+    guard: Any = None
+    ckpt: Any = None
+
+    @property
+    def round_kw(self):
+        return {"compressor": self.compressor, "faults": self.faults,
+                "screening": self.screening}
+
+    @property
+    def needs_key(self) -> bool:
+        """Whether a round needs the codec's key (a stochastic codec)."""
+        return self.compressor is not None and self.compressor.stochastic
+
+
+_KEEP = ("rng", "round")  # the entries a guard never puts back
+
+
+def _where(flag, new, old):
+    return {k: torch.where(flag, v, old[k]) if k in old else v
+            for k, v in new.items()}
+
+
+class _Guard:
+    """The reference's post-round quorum and watchdog (`_make_guard`) as
+    `torch.where` merges on the device, so a captured chunk replays them.
+
+    * quorum: a round whose accepted uploads (`screened` where the uplink
+      screened, else `selected`) fall below `quorum` puts back every
+      state entry but the key and the round counter, and the stale-x̄
+      state; its row records `degraded`. The rounds write some buffers
+      in place (the donated kernel, the active store's scatters, the
+      stale views), so `before` copies the state first.
+    * watchdog: the slot holds the best f̄, the count of diverged
+      committed rounds and a snapshot of the state at the best round;
+      after `patience` in a row above `factor` times the best (NaN
+      counts) the state rolls back to the snapshot and the row records
+      `rollback`. A degraded round leaves the count alone. The slot's
+      tensors are updated in place (static buffers of a captured chunk).
+    """
+
+    def __init__(self, quorum, watchdog, patience, factor):
+        self.quorum, self.watchdog = int(quorum), bool(watchdog)
+        self.patience, self.factor = int(patience), float(factor)
+
+    @classmethod
+    def make(cls, quorum, watchdog, patience, factor):
+        if not quorum and not watchdog:
+            return None
+        return cls(quorum, watchdog, patience, factor)
+
+    def slot(self, st):
+        """The watchdog's initial slot (copies of the state), or None."""
+        if not self.watchdog:
+            return None
+        dev = st["x"].device
+        return {"best": torch.full((), float("inf"), dtype=torch.float32,
+                                   device=dev),
+                "bad": torch.zeros((), dtype=torch.int32, device=dev),
+                "snap": {k: v.clone() for k, v in st.items()
+                         if torch.is_tensor(v) and k not in _KEEP}}
+
+    def before(self, st, stale):
+        """What a quorum no-op puts back: copies of the state's tensors
+        and of the stale-x̄ state (None without a quorum)."""
+        if not self.quorum:
+            return None
+        old = {k: v.clone() for k, v in st.items()
+               if torch.is_tensor(v) and k not in _KEEP}
+        sl = None
+        if stale is not None:
+            sl = {"age": stale.age.clone(),
+                  "last_used": stale.last_used.clone()}
+            if not stale.always_fresh:
+                sl["anchor"] = stale.anchor.clone()
+        return old, sl
+
+    def after(self, saved, st, stale, ws, met):
+        """The guarded round's state and metrics; `ws` and `stale`
+        advance in place."""
+        met = dict(met)
+        ok = None
+        if self.quorum:
+            old, sl = saved
+            n_eff = met.get("screened", met["selected"])
+            ok = n_eff >= self.quorum
+            st = _where(ok, st, old)
+            if sl is not None:
+                for k, v in sl.items():
+                    live = getattr(stale, k)
+                    live.copy_(torch.where(ok, live, v))
+            met["degraded"] = torch.logical_not(ok)
+        if self.watchdog:
+            f = met["f_xbar"]
+            best, bad, snap = ws["best"], ws["bad"], ws["snap"]
+            improved = f < best if ok is None else torch.logical_and(
+                ok, f < best)
+            best2 = torch.where(improved, f, best)
+            snap2 = _where(improved, {k: st[k] for k in snap}, snap)
+            # NaN fails the <= and counts as diverged
+            diverged = torch.logical_not(f <= self.factor * best2)
+            if ok is not None:
+                diverged = torch.logical_and(ok, diverged)
+            bad2 = torch.where(diverged, bad + 1, 0).to(bad.dtype)
+            if ok is not None:
+                bad2 = torch.where(ok, bad2, bad)
+            roll = bad2 >= self.patience
+            st = dict(st, **_where(torch.logical_not(roll),
+                                   {k: st[k] for k in snap}, snap2))
+            best.copy_(best2)
+            bad.copy_(torch.where(roll, 0, bad2))
+            for k, v in snap2.items():
+                snap[k].copy_(v)
+            met["rollback"] = roll
+        return st, met
+
+
+def _config_fingerprint(**knobs) -> str:
+    """The reference's round-semantics fingerprint of a checkpointing run
+    (`num_rounds` left out: extending a run is what resuming is for).
+    Dataclass knobs (the fault model, the screening) hash by repr,
+    objects (the policy, the clock, the codec) by type, name and
+    deadline."""
+    def desc(v):
+        if v is None or isinstance(v, (bool, int, float, str)):
+            return v
+        if dataclasses.is_dataclass(v):
+            return repr(v)
+        return [type(v).__name__, getattr(v, "name", None),
+                getattr(v, "deadline_s", None)]
+
+    payload = {k: desc(v) for k, v in knobs.items()}
+    return hashlib.sha256(
+        json.dumps(payload, sort_keys=True).encode()).hexdigest()
+
+
+class _Checkpoints:
+    """A run's checkpoint directory, period and fingerprint."""
+
+    def __init__(self, directory, every, resume, fingerprint):
+        self.dir, self.every = directory, int(every)
+        self.resume, self.fp = bool(resume), fingerprint
+
+    def latest(self):
+        """The step to resume from (None: a fresh start). Vets the
+        fingerprint from the json alone, before any tree is read: another
+        configuration's carry may not even have this one's structure."""
+        if not self.resume:
+            return None
+        step = ckpt_io.latest_step(self.dir)
+        if step is not None and \
+                ckpt_io.load_extra(self.dir, step).get("fingerprint") \
+                != self.fp:
+            raise ValueError(
+                f"resume: checkpoint ckpt_{step:08d} under {self.dir!r} "
+                "was written by a run with a different configuration "
+                "(fingerprint mismatch) — resuming it would not continue "
+                "the run it started")
+        return step
+
+    def history_like(self, step):
+        """Empty arrays of the saved history's keys and dtypes (its json
+        lists them), the placeholders its load needs."""
+        dtypes = ckpt_io.load_extra(self.dir, step)["history"]
+        return {k: np.zeros((0,), np.dtype(d)) for k, d in dtypes.items()}
+
+    def load(self, step, like):
+        return ckpt_io.load_checkpoint(self.dir, step, like)[0]
+
+    def save(self, step, tree):
+        """Save a carry whose "history" is a dict of numpy arrays."""
+        ckpt_io.save_checkpoint(self.dir, step, tree, extra={
+            "fingerprint": self.fp,
+            "history": {k: str(v.dtype) for k, v in tree["history"].items()}})
+
+
+def _restore(live, saved):
+    """Copy a loaded tree's tensors into the live static ones."""
+    if torch.is_tensor(live):
+        live.copy_(saved)
+    elif isinstance(live, dict):
+        for k in live:
+            _restore(live[k], saved[k])
+
+
+def _round(algo, st, batch, spec, mask, slots, cap, packed, stale=None,
+           uplink=None, ws=None, key=None):
     """One round of the dense store (`cap` None) or, on the round's
     `ActiveSet` of (mask, slots), of the active store; an async round
     when `stale` is given (it advances in place, and the metrics gain
-    the staleness)."""
+    the staleness). `uplink` carries the codec, faults and screening to
+    the round and guards it (with the watchdog slot `ws`); `key` is the
+    codec's key where the state holds none (the chunked driver)."""
+    uplink = uplink or Uplink()
+    guard = uplink.guard
+    saved = guard.before(st, stale) if guard is not None else None
+    st_in = st if key is None else dict(st, codec_key=key)
     if cap is None:
-        st, met = algo.round_flat(st, batch, spec, mask=mask, stale=stale,
-                                  donate_kernel=True)
+        st, met = algo.round_flat(st_in, batch, spec, mask=mask, stale=stale,
+                                  donate_kernel=True, **uplink.round_kw)
     else:
         st, met = algo.round_flat_active(
-            st, batch, spec, pt.active_set(mask, slots, cap, packed=packed),
-            stale=stale, donate_kernel=True)
-    if stale is None:
-        return st, met
-    return st, _with_staleness_metrics(met, stale)
+            st_in, batch, spec, pt.active_set(mask, slots, cap,
+                                              packed=packed),
+            stale=stale, donate_kernel=True, **uplink.round_kw)
+    if key is not None:
+        st = {k: v for k, v in st.items() if k != "codec_key"}
+    if stale is not None:
+        met = _with_staleness_metrics(met, stale)
+    if guard is not None:
+        st, met = guard.after(saved, st, stale, ws, met)
+    return st, met
 
 
 def _with_staleness_metrics(met, stale):
@@ -352,26 +728,44 @@ def _with_staleness_metrics(met, stale):
     return met
 
 
-def _sim_time(arrivals, astate):
-    """The round's simulated time under a clock (the tick's new `now`),
-    else None."""
-    return astate["now"] if isinstance(arrivals, ClockArrivals) else None
+def _host_metrics(arrivals, astate, mask):
+    """A round's metrics that the host knows from its draw: under a clock
+    the simulated time (`sim_time`, the tick's new `now`) and, with a
+    bandwidth, the wire's totals (`bytes_up`, `bytes_down`)."""
+    if not isinstance(arrivals, ClockArrivals):
+        return {}
+    return {"sim_time": astate["now"], **arrivals.wire(mask)}
 
 
-def _history(hist, sims):
-    """Stack the per-round metrics, with the clock's times as
-    `sim_time`."""
+def _history(hist, extras):
+    """Stack the per-round metrics and the host's (`_host_metrics`)."""
     history = {k: _stack([h[k] for h in hist]) for k in hist[0]}
-    if sims:
-        history["sim_time"] = _stack(sims)
+    for k in (extras[0] if extras else ()):
+        history[k] = _stack([e[k] for e in extras])
     return history
 
 
+def _counters_on(flat, device, guard):
+    """Under a guard the legacy loop carries its integer counters but the
+    round as 0-d tensors, which a quorum or rollback puts back on the
+    device. Returns their names."""
+    if guard is None:
+        return ()
+    names = tuple(k for k, v in flat.items()
+                  if isinstance(v, int) and k not in _KEEP)
+    for k in names:
+        flat[k] = torch.tensor(flat[k], device=device)
+    return names
+
+
 def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
-                     participation, cap, packed, stale=None):
+                     participation, cap, packed, stale=None, uplink=None):
     device = flat["x"].device
+    uplink = uplink or Uplink()
+    counters = _counters_on(flat, device, uplink.guard)
+    ws = uplink.guard.slot(flat) if uplink.guard is not None else None
     pstate = participation.init() if participation is not None else None
-    hist, sims = [], []
+    hist, extras = [], []
     stopped = False
     draw = 0.0
     t0 = time.perf_counter()
@@ -383,12 +777,10 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
             if cap is not None:
                 slots = pt.pack_slots(mask, cap).to(device)
             draw += time.perf_counter() - td
+            extras.append(_host_metrics(participation, pstate, mask))
             mask = mask.to(device)
-            now = _sim_time(participation, pstate)
-            if now is not None:
-                sims.append(now)
         flat, met = _round(algo, flat, batch, spec, mask, slots, cap, packed,
-                           stale)
+                           stale, uplink, ws)
         hist.append(met)
         if tol > 0 and float(met[tol_metric]) < tol:
             stopped = True
@@ -396,8 +788,10 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+    for k in counters:
+        flat[k] = int(flat[k])
     return RoundResult(unflatten_state(algo, flat, spec),
-                       _history(hist, sims), len(hist), stopped, wall,
+                       _history(hist, extras), len(hist), stopped, wall,
                        draw_s=draw, policy_state=pstate, stale=stale)
 
 
@@ -422,10 +816,10 @@ def _add_counts(deltas):
 
 class _Chunked:
     """The chunked driver: static buffers that every chunk reads and
-    writes in place (the state, the chunk's selection masks, the per-round
-    history and, with tol > 0, the stop flag and the count of rounds run),
-    and one chunk program per chunk length, captured as a CUDA graph on
-    the card.
+    writes in place (the state, the chunk's selection masks and codec
+    keys, the per-round history, the watchdog slot and, with tol > 0, the
+    stop flag and the count of rounds run), and one chunk program per
+    chunk length, captured as a CUDA graph on the card.
 
     Every integer counter of the state (`round`; the baselines' `step`,
     which their learning-rate schedule reads) is carried on the device,
@@ -437,7 +831,10 @@ class _Chunked:
     participation policy, and otherwise only for an algorithm that
     selects in the round (`algo.selects_in_round`, from its own key);
     the others get `mask=None`. The key stays on the host: the driver
-    splits it a chunk ahead, once a round, where the algorithm selects.
+    splits it a chunk ahead, once a round, where the algorithm selects,
+    and, under a stochastic codec, folds each round's key before its
+    split with the round counter (`compress.round_key`) and uploads the
+    chunk's (rounds, 2) codec keys beside its masks.
 
     Launch counts: a capture makes no launch, so the counts that the
     wrappers add while a chunk is captured are taken back, and each
@@ -445,19 +842,27 @@ class _Chunked:
 
     Async rounds: the `api.StaleXbar` buffers are static buffers of the
     chunk too (every round writes them in place). A clock ticks on the
-    host beside the mask draws, and its simulated times stay there.
+    host beside the mask draws, and its simulated times (and wire bytes)
+    stay there.
+
+    Checkpoints (`uplink.ckpt`): the chunks are cut at multiples of
+    `checkpoint_every`, and the whole carry is saved there (`_carry`);
+    a resume restores it into the static buffers before the capture.
     """
 
     def __init__(self, algo, flat, batch, spec, tol, tol_metric, longest,
-                 participation, cap=None, packed=False, stale=None):
+                 participation, cap=None, packed=False, stale=None,
+                 uplink=None):
         """`longest`: the most rounds a chunk of this run can have, which
         sizes the static mask and history buffers. `participation`: the
         arrival process (a policy, or a clock as `ClockArrivals`). `cap`:
         the active store's tile capacity (None: the dense store); the
         chunk's packed ids (`ActiveSet.slots`) then ride beside its
-        masks. `stale`: the async rounds' state."""
+        masks. `stale`: the async rounds' state. `uplink`: the codec,
+        faults, screening, guard and checkpoints."""
         self.algo, self.batch, self.spec = algo, batch, spec
         self.cap, self.packed, self.stale = cap, packed, stale
+        self.uplink = uplink or Uplink()
         self.tol, self.tol_metric, self.longest = tol, tol_metric, longest
         self.key = flat["rng"]
         self.round0 = flat["round"]
@@ -472,8 +877,11 @@ class _Chunked:
                               if isinstance(v, int))
         for k in self.counters:
             self.st[k] = torch.tensor(flat[k], device=dev)
+        guard = self.uplink.guard
+        self.ws = guard.slot(self.st) if guard is not None else None
         self.selects = (participation is not None
                         or getattr(algo, "selects_in_round", False))
+        self.keyed = self.uplink.needs_key
         if self.selects:
             m = algo.fed.num_clients
             self.masks = torch.ones((longest, m), dtype=torch.bool,
@@ -486,6 +894,11 @@ class _Chunked:
                 self.host_slots = torch.zeros((longest, cap),
                                               dtype=torch.int64,
                                               pin_memory=self.cuda)
+        if self.keyed:
+            self.keys = torch.zeros((longest, 2), dtype=torch.int64,
+                                    device=dev)
+            self.host_keys = torch.zeros((longest, 2), dtype=torch.int64,
+                                         pin_memory=self.cuda)
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.hist = {}
@@ -499,8 +912,10 @@ class _Chunked:
     def _round(self, st, i):
         mask = self.masks[i] if self.selects else None
         slots = self.slots[i] if self.cap is not None else None
+        key = self.keys[i] if self.keyed else None
         st, met = _round(self.algo, st, self.batch, self.spec, mask, slots,
-                         self.cap, self.packed, self.stale)
+                         self.cap, self.packed, self.stale, self.uplink,
+                         self.ws, key)
         for k, v in met.items():
             if torch.is_tensor(v):
                 self.hist[k][i].copy_(v)
@@ -576,6 +991,12 @@ class _Chunked:
         def warm():
             copies = {k: v.clone() for k, v in self.st.items()}
             stale = None if self.stale is None else self.stale.clone()
+            ws = None
+            if self.ws is not None:
+                ws = dict(self.ws, best=self.ws["best"].clone(),
+                          bad=self.ws["bad"].clone(),
+                          snap={k: v.clone()
+                                for k, v in self.ws["snap"].items()})
             mask = slots = None
             if self.cap is not None:
                 slots = torch.arange(self.cap, device=self.device)
@@ -583,8 +1004,10 @@ class _Chunked:
                     0, slots, True)
             elif self.selects:
                 mask = torch.ones_like(self.masks[0])
+            key = self.keys[0] if self.keyed else None
             return _round(self.algo, copies, self.batch, self.spec, mask,
-                          slots, self.cap, self.packed, stale)[1]
+                          slots, self.cap, self.packed, stale, self.uplink,
+                          ws, key)[1]
 
         met = self._on_capture_streams(warm) if self.cuda else warm()
         _set_counts(counts)
@@ -606,55 +1029,95 @@ class _Chunked:
         return self.graphs[length]
 
     # ---------------------------------------------------------- the run
-    def _upload_masks(self, length, first_round):
+    def _upload(self, length, first_round):
         """Draw the chunk's masks, from the policy (its rounds counted from
         `first_round`) or else from the algorithm's key chain
         (`selection.round_split`, which splits the key every round even
         under a policy), pack each into its `ActiveSet.slots` under the
-        active store, and send them to the static buffers. Returns the
-        (key, policy state) before each round and after the last, so a
-        stop can put back the state at it, the host seconds the draws and
-        packs took, and, under a clock, the rounds' simulated times."""
+        active store, make each round's codec key from the key before its
+        split, and send them to the static buffers. Returns the (key,
+        policy state) before each round and after the last, so a stop can
+        put back the state at it, the host seconds the draws and packs
+        took, and the rounds' host metrics (`_host_metrics`)."""
         if self.cuda:
             self.uploaded.synchronize()  # the last upload has left
-        m, alpha = self.masks.shape[1], self.algo.fed.alpha
+        m, alpha = self.algo.fed.num_clients, self.algo.fed.alpha
         t0 = time.perf_counter()
-        states, sims = [], []
+        states, extras = [], []
         for i in range(length):
             states.append((self.key, self.pstate))
+            r = self.round0 + first_round + i
+            if self.keyed:
+                self.host_keys[i] = torch.from_numpy(
+                    compress.round_key(self.key, r).astype(np.int64))
+            if not self.selects:
+                continue
             if self.splits:
                 self.key, mask = selection.round_split(
-                    self.key, self.round0 + first_round + i, m, alpha,
-                    draw=self.policy is None)
+                    self.key, r, m, alpha, draw=self.policy is None)
             if self.policy is None:
                 self.host_masks[i] = mask
             else:
                 self.host_masks[i], self.pstate = self.policy.mask(
                     self.pstate, first_round + i)
-                now = _sim_time(self.policy, self.pstate)
-                if now is not None:
-                    sims.append(now)
+                extras.append(_host_metrics(self.policy, self.pstate,
+                                            self.host_masks[i]))
             if self.cap is not None:
                 self.host_slots[i] = pt.pack_slots(self.host_masks[i],
                                                    self.cap)
         states.append((self.key, self.pstate))
         draw = time.perf_counter() - t0
-        self.masks[:length].copy_(self.host_masks[:length],
-                                  non_blocking=self.cuda)
+        if self.selects:
+            self.masks[:length].copy_(self.host_masks[:length],
+                                      non_blocking=self.cuda)
         if self.cap is not None:
             self.slots[:length].copy_(self.host_slots[:length],
                                       non_blocking=self.cuda)
+        if self.keyed:
+            self.keys[:length].copy_(self.host_keys[:length],
+                                     non_blocking=self.cuda)
         if self.cuda:
             self.uploaded.record()
-        return states, draw, sims
+        return states, draw, extras
+
+    def _carry(self, rounds_run, history):
+        """The whole carry that a checkpoint holds."""
+        stale = None
+        if self.stale is not None:
+            stale = {"age": self.stale.age,
+                     "last_used": self.stale.last_used,
+                     "anchor": (None if self.stale.always_fresh
+                                else self.stale.anchor)}
+        return {"state": self.st, "key": self.key, "pstate": self.pstate,
+                "stale": stale, "watchdog": self.ws, "done": self.done,
+                "count": self.count, "rounds_run": rounds_run,
+                "history": history}
+
+    def _resume(self):
+        """Restore the newest checkpoint into the static buffers. Returns
+        (its step, the rounds run, the history so far), or None."""
+        ckpt = self.uplink.ckpt
+        step = ckpt.latest() if ckpt is not None else None
+        if step is None:
+            return None
+        like = self._carry(0, ckpt.history_like(step))
+        saved = ckpt.load(step, like)
+        for name in ("state", "watchdog", "done", "count"):
+            _restore(like[name], saved[name])
+        if self.stale is not None:
+            _restore(like["stale"], saved["stale"])
+        self.key, self.pstate = saved["key"], saved["pstate"]
+        return step, saved["rounds_run"], saved["history"]
 
     def run(self, num_rounds, chunk, plan, lengths):
         """Run the rounds in chunks of `chunk`, after the timed chunks of
         `plan` (chunk_size="auto": the fastest per round among them then
         sets `chunk`). On the card each length of `lengths` is captured
-        before the timed window."""
+        before the timed window. Under checkpoints the chunks end at
+        every multiple of `checkpoint_every`, where the carry is saved."""
         t0 = time.perf_counter()
         self._warm_up()
+        resumed = self._resume()
         if self.cuda:
             for length in lengths:  # others (a remainder that tol > 0 may
                 self._graph(length)  # never reach) are captured on use
@@ -662,16 +1125,25 @@ class _Chunked:
         capture = time.perf_counter() - t0
 
         plan, timings = list(plan), []
-        chunks, sims, rounds_run, stopped, draw = [], [], 0, False, 0.0
+        chunks, extras, rounds_run, stopped, draw = [], [], 0, False, 0.0
+        executed, saved = 0, {}
+        if resumed is not None:
+            executed, rounds_run, saved = resumed
+            stopped = self.tol > 0 and bool(self.done)
+        ckpt = self.uplink.ckpt
+        every = ckpt.every if ckpt is not None else 0
         t0 = time.perf_counter()
-        while rounds_run < num_rounds and not stopped:
+        while executed < num_rounds and not stopped:
             timed = bool(plan)
             length = plan.pop(0) if timed else min(chunk,
-                                                   num_rounds - rounds_run)
+                                                   num_rounds - executed)
+            if every:  # cut the chunk at the next checkpoint round
+                length = min(length, (executed // every + 1) * every
+                             - executed)
             tc = time.perf_counter()
-            if self.selects:
-                states, dt, chunk_sims = self._upload_masks(length,
-                                                            rounds_run)
+            chunk_extras = []
+            if self.selects or self.keyed:
+                states, dt, chunk_extras = self._upload(length, executed)
                 draw += dt
             if self.cuda:
                 tg = time.perf_counter()
@@ -697,19 +1169,20 @@ class _Chunked:
                 for d in per_round[:live]:
                     _add_counts(d)
             chunks.append({k: v[:live].clone() for k, v in self.hist.items()})
-            if self.selects:
-                sims += chunk_sims[:live]
+            extras += chunk_extras[:live]
             rounds_run += live
+            executed += length
             if stopped and self.selects:
                 self.key, self.pstate = states[live]
+            if every and executed % every == 0:
+                self.uplink.ckpt.save(executed, self._carry(
+                    rounds_run, _concat(saved, self._history(chunks,
+                                                             extras))))
         if self.cuda:
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
 
-        history = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()
-                   for k in self.hist}
-        if sims:
-            history["sim_time"] = _stack(sims)
+        history = _concat(saved, self._history(chunks, extras))
         flat = dict(self.st, rng=self.key)
         for k in self.counters:
             flat[k] = int(self.st[k])
@@ -717,6 +1190,16 @@ class _Chunked:
                            history, rounds_run, stopped, wall, capture,
                            chunk_size=chunk, draw_s=draw,
                            policy_state=self.pstate, stale=self.stale)
+
+    def _history(self, chunks, extras):
+        """The chunks' device metrics and the host's, as numpy."""
+        if not chunks:
+            return {}
+        history = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()
+                   for k in self.hist}
+        for k in (extras[0] if extras else ()):
+            history[k] = _stack([e[k] for e in extras])
+        return history
 
 
 def _nbytes(tensors):
@@ -742,10 +1225,9 @@ class _Staged:
 
 
 def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
-                      participation, cap, packed, stale=None):
+                      participation, cap, packed, stale=None, uplink=None):
     """Host-driven round loop of ``run_rounds(store="offload")``
-    (counterpart of the reference's `_run_offload_loop`, without its
-    quorum and checkpoint branches).
+    (counterpart of the reference's `_run_offload_loop`).
 
     The resident `flat_client_keys` buffers and, for a participant tile,
     the per-client batch live in host memory (`pt.OffloadStore`, pinned
@@ -776,6 +1258,15 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     x̄ that `api.stale_xbar_view_active` hands back: the same row select
     as the active store's, so the loop stays bitwise "active".
 
+    Quorum (`uplink.guard`; the watchdog is refused for this store): the
+    round's accepted-upload count comes back to the host before the
+    write-back, one read a round, and a degraded round writes nothing
+    back: the store, the stale anchor and ages and the globals but the
+    key and the round counter keep their values. Checkpoints
+    (`uplink.ckpt`): after the stop check of every `checkpoint_every`-th
+    round the loop saves the globals, the store, the stale state, the
+    policy state after the round's draw and the history.
+
     Steps 1-2 are DOUBLE-BUFFERED for what does not depend on the round:
     the next round's mask, ids and batch tile are drawn, gathered and
     copied while the current round runs on the card; the state tiles wait
@@ -794,6 +1285,8 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     device = flat["x"].device
     cuda = device.type == "cuda"
     m = algo.fed.num_clients
+    uplink = uplink or Uplink()
+    quorum = uplink.guard.quorum if uplink.guard is not None else 0
     population = getattr(algo, "active_tile", "participants") == "population"
     keys = [k for k in algo.flat_client_keys if k in flat]
     store = pt.OffloadStore({k: flat.pop(k) for k in keys}, pinned=cuda)
@@ -849,6 +1342,7 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
         st = staged[s]
         td = time.perf_counter()
         mask, pstate = participation.mask(pstate, i)
+        st.host_metrics = _host_metrics(participation, pstate, mask)
         st.mask[0].copy_(mask)
         st.slots[0].copy_(pt.pack_slots(mask, cap))
         aset = pt.active_set(st.mask[0], st.slots[0], cap)
@@ -864,10 +1358,29 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
                 st.uploaded.record()
         return aset
 
-    hist, sims, stopped, pstate_run = [], [], False, None
+    def carry(history):
+        """What a checkpoint of the loop holds."""
+        sl = None
+        if stale is not None:
+            sl = {"age": stale.age, "last_used": stale.last_used,
+                  "anchor": anchor_h}
+        return {"gstate": gstate, "store": store.buffers, "stale": sl,
+                "pstate": pstate, "history": history}
+
+    hist, host_mets, stopped, pstate_run = [], [], False, None
+    ckpt, start, saved = uplink.ckpt, 0, {}
+    step = ckpt.latest() if ckpt is not None else None
+    if step is not None:
+        snap = ckpt.load(step, carry(ckpt.history_like(step)))
+        _restore(store.buffers, snap["store"])
+        _restore(carry({})["stale"], snap["stale"])
+        gstate, pstate, saved = snap["gstate"], snap["pstate"], \
+            snap["history"]
+        start = step
     t0 = time.perf_counter()
-    aset_h = stage(0, 0)
-    for i in range(num_rounds):
+    if start < num_rounds:
+        aset_h = stage(start, start % 2)
+    for i in range(start, num_rounds):
         st = staged[i % 2]
         tc = time.perf_counter()
         if not population:
@@ -893,19 +1406,34 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
             if not population:  # the rows the host write refreshes
                 refresh = torch.logical_or(
                     aset.mask, stale.age > stale.max_staleness)
+        ages = None
+        if quorum and stale is not None:
+            ages = (stale.age.clone(), stale.last_used.clone())
         out, met = algo.round_flat_active(dict(gstate, **state_tiles),
                                           round_batch, spec, aset,
-                                          stale=stale, donate_kernel=True)
+                                          stale=stale, donate_kernel=True,
+                                          **uplink.round_kw)
         if stale is not None:
             met = _with_staleness_metrics(met, stale)
         tiles = {k: out.pop(k) for k in keys}
         if anchor_h is not None and population:
             tiles["anchor"] = stale.anchor
-        gstate = out
+        degraded = False
+        if quorum:
+            # the commit waits on the round's count: one read a round
+            n_eff = met.get("screened", met["selected"])
+            degraded = bool(n_eff < quorum)
+            met = dict(met, degraded=torch.tensor(degraded, device=device))
+        if degraded:  # a recorded no-op: only the key and round advance
+            gstate = {k: (out[k] if k in _KEEP else gstate[k]) for k in out}
+            if ages is not None:
+                stale.age.copy_(ages[0])
+                stale.last_used.copy_(ages[1])
+            tiles, refresh = {}, None
+        else:
+            gstate = out
         pstate_run = pstate
-        now = _sim_time(participation, pstate)
-        if now is not None:
-            sims.append(now)
+        host_mets.append(st.host_metrics)
         if cuda:
             done = torch.cuda.Event()
             done.record()
@@ -920,7 +1448,7 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
                 dest[k].copy_(t, non_blocking=cuda)
         if cuda:
             side.synchronize()
-        if not population:
+        if not population and not degraded:
             store.scatter_tiles(aset_h, back)
             if refresh is not None:
                 # the active store's row select, on the host copy
@@ -930,6 +1458,11 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
         if tol > 0 and float(met[tol_metric]) < tol:
             stopped = True
             break
+        if ckpt is not None and ckpt.every and (i + 1) % ckpt.every == 0:
+            # after the stop check: a run that stops at a checkpoint
+            # round saves nothing there, so its resume stops there again
+            ckpt.save(i + 1, dict(carry(_concat(saved, _history(
+                hist, host_mets))), pstate=pstate_run))
         if i + 1 < num_rounds:
             aset_h = next_h
     if cuda:
@@ -945,7 +1478,9 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
         state[k] = b.to(device)
     if anchor_h is not None:
         stale.anchor, stale.view = anchor_h.to(device), None
-    return RoundResult(unflatten_state(algo, state, spec),
-                       _history(hist, sims), len(hist), stopped, wall,
-                       draw_s=draw, policy_state=pstate_run, extras=extras,
-                       stale=stale)
+    history = _concat(saved, _history(hist, host_mets) if hist else {})
+    rounds = start + len(hist)
+    return RoundResult(unflatten_state(algo, state, spec), history, rounds,
+                       stopped, wall, draw_s=draw,
+                       policy_state=pstate_run if hist else pstate,
+                       extras=extras, stale=stale)

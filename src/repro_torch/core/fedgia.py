@@ -1,8 +1,8 @@
 """FedGiA — the paper's Algorithm 1 on the flat client-state buffer.
 
-Counterpart of `repro/core/fedgia.py`, single-device flat path (no
-compressor, faults, screening or overlap); its active-set round is the
-dense round on the round's mask. One round:
+Counterpart of `repro/core/fedgia.py`, single-device flat path, barrier
+rounds (the overlapped round waits for the multi-device client axis);
+its active-set round is the dense round on the round's mask. One round:
 
   1. aggregate   x̄ = (1/m) Σ z_i              (eq. 11)
   2. grads       ḡ_i = (1/m) ∇f_i(x̄)          (computed ONCE per round)
@@ -15,6 +15,12 @@ With `collapsed=True` and a diagonal H (scalar or diag_ema) the k0-step
 recursion runs in closed form as one fused pass: the CUDA `fedgia_update`
 kernel on the card, its plain version on the CPU. Otherwise (gram H, or
 `collapsed=False`) the paper-faithful k0-step loop runs in torch.
+
+Uplink (`compressor=`, `faults=`, `screening=`): eq. (11) averages what
+the server receives, the whole population's z through the codec
+(`api.compress_upload`, with the error-feedback residual ``ef``) and
+then the fault injection and screening (`api.harden_upload`, with the
+replay buffer ``fault_prev``), over the rows that arrive finite.
 
 Async rounds (`stale=`, an `api.StaleXbar`): eq. (11) takes the
 staleness weights, and each client's gradient and branch run against its
@@ -33,7 +39,7 @@ from repro_torch.core import api, hparams, selection
 from repro_torch.kernels.fedgia_update import fedgia_update_flat
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 class FedGiA:
@@ -41,8 +47,9 @@ class FedGiA:
     # the ADMM/GD split is drawn every round (`round_flat(mask=...)`)
     selects_in_round = True
     # model-shaped state the engine ravels into (m, N) / (N,) buffers
-    # (gram_chol is client-stacked but not model-shaped)
-    flat_client_keys = ("z", "pi", "h")
+    # (gram_chol is client-stacked but not model-shaped); "ef" and
+    # "fault_prev" are the engine's codec residual and replay buffer
+    flat_client_keys = ("z", "pi", "h", "ef", "fault_prev")
     flat_global_keys = ("x",)
     # store="active": the GD branch rewrites every client every round
     active_tile = "population"
@@ -135,12 +142,38 @@ class FedGiA:
         return pi_new, z_new
 
     # ------------------------------------------------------------ flat round
-    def round_inputs(self, state, batch, spec, mask=None, stale=None):
-        """Steps (1)-(3) of a round on the flat `state`: x̄ (eq. 11), the
-        (m,) branch select, and the per-client losses, raveled gradients
-        and ḡ. `mask=None` draws the select from `state["rng"]` and the
-        round index (`selection.round_split`). Returns (xbar, sel, losses,
-        grads_flat, gbar).
+    def upload(self, state, spec, stale=None, compressor=None, faults=None,
+               screening=None):
+        """Eq. (11) over what the server receives: the population's z
+        through the codec, then the faults and screening, averaged over
+        the rows that arrive finite (with the staleness weights). Returns
+        (xbar, ef', fault_prev', n_screened), the last three None where
+        their stage is off."""
+        z_up, sc_mask = state["z"], None
+        ef_new = fprev_new = n_scr = None
+        if compressor is not None:
+            ef = state.get("ef") if compressor.error_feedback else None
+            key = (api.codec_key(state, z_up.device) if compressor.stochastic
+                   else None)
+            z_up, ef_new = api.compress_upload(compressor, z_up, ef, spec,
+                                               key=key)
+        if faults is not None or screening is not None:
+            z_up, sc_mask, fprev_new, n_scr = api.harden_upload(
+                z_up, None, spec, faults=faults, screening=screening,
+                fault_prev=state.get("fault_prev"),
+                round_idx=state["round"])
+        xbar = api.client_mean(z_up, mask=sc_mask,
+                               weights=api.stale_weights(stale))
+        return xbar, ef_new, fprev_new, n_scr
+
+    def round_inputs(self, state, batch, spec, mask=None, stale=None,
+                     xbar=None):
+        """Steps (1)-(3) of a round on the flat `state`: x̄ (eq. 11; given
+        as `xbar` where `upload` made it), the (m,) branch select, and the
+        per-client losses, raveled gradients and ḡ. `mask=None` draws the
+        select from `state["rng"]` and the round index
+        (`selection.round_split`). Returns (xbar, sel, losses, grads_flat,
+        gbar).
 
         With `stale` (async rounds; `mask` is then the arrival mask) x̄
         is the staleness-weighted mean and the stale state advances in
@@ -149,8 +182,9 @@ class FedGiA:
         `stale` or under `stale.always_fresh`, else the (m, N) per-client
         view."""
         m = self.fed.num_clients
-        xbar = api.client_mean(state["z"],  # (1) eq. (11)
-                               weights=api.stale_weights(stale))
+        if xbar is None:  # (1) eq. (11)
+            xbar = api.client_mean(state["z"],
+                                   weights=api.stale_weights(stale))
         if mask is None:  # (3) client selection
             if stale is not None:
                 raise ValueError("stale-x̄ rounds need the engine's "
@@ -184,7 +218,8 @@ class FedGiA:
                 self.fed.num_clients, self.fed.k0)
 
     def round_flat(self, state, batch, spec, mask=None, stale=None,
-                   donate_kernel: bool = False):
+                   compressor=None, donate_kernel: bool = False,
+                   faults=None, screening=None):
         """One communication round on the FLAT client-state buffer:
         `state["z"]`, `state["pi"]`, `state["h"]` are (m, N) buffers and
         `state["x"]` is (N,) (`engine.flatten_state`). Returns
@@ -199,6 +234,12 @@ class FedGiA:
         branches run against each client's anchor (`round_inputs`); the
         stale state advances in place.
 
+        `compressor`, `faults`, `screening`: the uplink stages of
+        `upload`; the new state carries the advanced ``ef`` and
+        ``fault_prev``, and the metrics gain ``screened`` (the rows that
+        arrived finite) where faults or screening are on. The codec's key
+        is the round's key before its split (`api.codec_key`).
+
         `donate_kernel=True` runs the in-place kernel: π' is written into
         the buffer of `state["pi"]` and z' into this round's own ḡ, so
         the caller must treat the input state's `pi` as consumed. Under
@@ -212,6 +253,8 @@ class FedGiA:
         sigma = state["sigma"]
         if stale is not None and mask is None:
             raise ValueError("stale-x̄ rounds need the engine's arrival mask")
+        xbar, ef_new, fprev_new, n_scr = self.upload(
+            state, spec, stale, compressor, faults, screening)
         rng = state.get("rng")
         if rng is not None:  # (3) the round's key chain, on the host
             rng, drawn = selection.round_split(rng, state["round"], m,
@@ -219,7 +262,7 @@ class FedGiA:
             if mask is None:
                 mask = drawn.to(state["z"].device)
         xbar, sel, losses, grads_flat, gbar = self.round_inputs(
-            state, batch, spec, mask, stale)
+            state, batch, spec, mask, stale, xbar=xbar)
         anchor = api.stale_anchor(stale, xbar)
 
         # (4) both branches + masked combine
@@ -241,6 +284,10 @@ class FedGiA:
         new_state.update(x=xbar, z=z_new, pi=pi_new, round=state["round"] + 1)
         if rng is not None:
             new_state["rng"] = rng
+        if ef_new is not None:
+            new_state["ef"] = ef_new
+        if fprev_new is not None:
+            new_state["fault_prev"] = fprev_new
         if fed.h_policy == "diag_ema":
             new_state["h"] = hparams.update_diag_h(state["h"], gbar,
                                                    state["r"], m)
@@ -251,19 +298,25 @@ class FedGiA:
             "cr": 2.0 * (state["round"] + 1),
             "local_grad_evals": 1.0,  # per client per round (C2)
         }
+        if n_scr is not None:
+            metrics["screened"] = n_scr
         return new_state, metrics
 
     def round_flat_active(self, state, batch, spec, active, stale=None,
-                          donate_kernel: bool = False):
+                          compressor=None, donate_kernel: bool = False,
+                          faults=None, screening=None):
         """Active-store round (``run_rounds(store="active" | "offload")``).
         FedGiA cannot shrink the round's working set: the GD branch (eqs.
         15-17) recomputes EVERY non-selected client's (z, π, h) from its
         fresh gradient each round, so every client is read and written
         whatever the draw (`active_tile = "population"`). The round is
         therefore the dense round on `active.mask`, bitwise by
-        construction, with the same one `fedgia_update` launch."""
+        construction, with the same one `fedgia_update` launch; the codec
+        and the faults run on all m rows, as the dense upload's."""
         return self.round_flat(state, batch, spec, mask=active.mask,
-                               stale=stale, donate_kernel=donate_kernel)
+                               stale=stale, compressor=compressor,
+                               donate_kernel=donate_kernel, faults=faults,
+                               screening=screening)
 
     # ------------------------------------------------------------ diagnostics
     def client_params(self, state):

@@ -32,12 +32,23 @@ bit for bit, and so is `erfinv` on the same input. `gumbel` and `normal`
 apply `log` and `log1p`, which numpy and XLA:CPU compute with their own
 approximations, a few float32 ulps apart (tests/test_torch_prng.py
 states the bounds).
+
+Device forms. The codecs draw an (m, N) block a round and the fault
+model a draw a client, keyed per row, inside a round that the chunked
+driver captures as a CUDA graph. `threefry2x32_t`, `fold_in_t`,
+`split_t`, `random_bits_t`, `uniform_t` and `randint_u32_t` are the same
+chains as plain torch functions on (..., 2) key tensors on any device:
+uint32 words held in int64 lanes and masked with `& 0xFFFFFFFF` after
+every add and shift (torch's uint32 has no arithmetic). They read
+nothing back to the host, so a captured round can run them, and give
+the numpy forms' words bit for bit (tests/test_torch_prng.py).
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 _U32 = np.uint32
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -210,3 +221,96 @@ def normal(key, n: int) -> np.ndarray:
     lo = np.nextafter(f32(-1.0), f32(0.0))
     u = uniform(key, n, lo, 1.0)
     return f32(math.sqrt(2)) * erfinv(u)
+
+
+# ----------------------------------------------------------- device forms
+def _key_words(keys: torch.Tensor):
+    """A (..., 2) key tensor as its two uint32 words in int64 lanes."""
+    keys = keys.to(torch.int64) & _M32
+    return keys[..., 0], keys[..., 1]
+
+
+def threefry2x32_t(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                   x1: torch.Tensor):
+    """`threefry2x32` on int64 tensors holding uint32 words: the keys'
+    words `k0`, `k1` broadcast against the counters `x0`, `x1`. Returns
+    the two output words (int64, in [0, 2**32))."""
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    a = (x0 + ks[0]) & _M32
+    b = (x1 + ks[1]) & _M32
+    for group in range(5):
+        for rot in _ROTATIONS[group % 2]:
+            a = (a + b) & _M32
+            b = (((b << rot) & _M32) | (b >> (32 - rot))) ^ a
+        a = (a + ks[(group + 1) % 3]) & _M32
+        b = (b + ks[(group + 2) % 3] + (group + 1)) & _M32
+    return a, b
+
+
+def _word(value: int, device) -> torch.Tensor:
+    """A 0-d int64 tensor made by a fill on `device`, not a copy from the
+    host (a copy from pageable memory cannot be captured in a graph)."""
+    return torch.full((), int(value) & _M32, dtype=torch.int64,
+                      device=device)
+
+
+def key_t(key, device=None) -> torch.Tensor:
+    """A host (2,) uint32 key as a (2,) int64 tensor on `device`."""
+    k = np.asarray(key, _U32)
+    return torch.stack([_word(k[0], device), _word(k[1], device)])
+
+
+def fold_in_t(keys: torch.Tensor, data) -> torch.Tensor:
+    """`fold_in` of every key of (..., 2) `keys` with its `data` (an int
+    or an int tensor broadcasting against the keys' leading shape,
+    reduced mod 2**32): the hash of the pair (0, data). Returns
+    (..., 2) int64."""
+    k0, k1 = _key_words(keys)
+    if not torch.is_tensor(data):
+        data = _word(data, keys.device)
+    lo = data.to(torch.int64) & _M32
+    a, b = threefry2x32_t(k0, k1, torch.zeros_like(lo), lo)
+    return torch.stack(torch.broadcast_tensors(a, b), dim=-1)
+
+
+def split_t(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`split` of every key of (rows, 2) `keys`: (rows, num, 2)."""
+    k0, k1 = _key_words(keys)
+    i = torch.arange(num, device=keys.device)
+    a, b = threefry2x32_t(k0[:, None], k1[:, None], torch.zeros_like(i), i)
+    return torch.stack([a, b], dim=-1)
+
+
+def random_bits_t(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`random_bits(key, n)` for every key of (rows, 2) `keys`: (rows, n)
+    int64 words in [0, 2**32) (n < 2**32, so each counter's high half is
+    0)."""
+    k0, k1 = _key_words(keys)
+    i = torch.arange(n, device=keys.device)
+    a, b = threefry2x32_t(k0[:, None], k1[:, None], torch.zeros_like(i), i)
+    return a ^ b
+
+
+def uniform_t(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`uniform(key, n)` on [0, 1) for every key of (rows, 2) `keys`:
+    (rows, n) float32, the 23 high bits of each word under exponent 0,
+    minus 1 (the scale by 1 - 0 and shift by 0 are exact)."""
+    bits = (random_bits_t(keys, n) >> (32 - 23)) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint_u32_t(keys: torch.Tensor, n: int, lo: int,
+                  hi: int) -> torch.Tensor:
+    """`jax.random.randint(key, (n,), lo, hi, jnp.uint32)` for every key
+    of (rows, 2) `keys` (0 <= lo < hi < 2**31: JAX takes the bounds as int32), as JAX 0.9.0's
+    `_randint` draws it: the key splits in two, each half draws a block
+    of words, and the high block times (2**16 mod span)**2 mod span plus
+    the low block, all mod span (in uint32 arithmetic, so the product
+    wraps), is the offset from `lo`. Returns (rows, n) int64."""
+    span = hi - lo
+    mult = ((pow(1 << 16, 1, span) ** 2) & _M32) % span  # uint32 square
+    halves = split_t(keys)
+    higher = random_bits_t(halves[:, 0], n)
+    lower = random_bits_t(halves[:, 1], n)
+    off = (((higher % span) * mult) & _M32) + (lower % span)
+    return lo + (off & _M32) % span

@@ -43,6 +43,23 @@ downweights stale contributions in eq. (11) (`--stale-decay`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --clients 64 \
       --clock constant --max-staleness 4 --stale-weighting poly
+
+`--compression bf16|int8|topk` puts each round's upload through a codec
+(`core/compress.py`; `--topk-frac`, `--error-feedback`), and
+`--bandwidth-bps` prices its wire in the clock's simulated time.
+`--faults crash,nan,inf,explode,replay` (`--fault-rate`,
+`--fault-scale`) corrupts uploads on the device, `--screening`
+(`--clip-norm`) drops the non-finite ones and clips the rest, `--quorum`
+turns a round with too few accepted uploads into a recorded no-op,
+`--deadline-s` cuts clocked rounds at a deadline and `--watchdog`
+(`--watchdog-patience`, `--watchdog-factor`) rolls a diverging run back
+to its best round. `--checkpoint-every N --checkpoint-dir D` saves the
+run's whole carry every N rounds, and `--resume` goes on from the newest
+checkpoint, bit for bit the run that was not cut.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --compression int8 \
+      --error-feedback --faults crash,nan --fault-rate 0.05 --screening \
+      --quorum 32
 """
 from __future__ import annotations
 
@@ -50,10 +67,12 @@ import argparse
 import logging
 import sys
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.config import ALGORITHMS, FedConfig
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.clock import CLOCKS, make_clock
 from repro_torch.core.engine import run_rounds
+from repro_torch.core.faults import FAULT_KINDS, Screening, make_faults
 from repro_torch.core.prng import prng_key
 from repro_torch.core.selection import POLICIES, make_policy
 from repro_torch.data import linreg_noniid, logreg_data, to_torch
@@ -118,9 +137,21 @@ def validate_flags(args) -> dict:
     (library-level), a non-positive `--stale-decay` with a decaying
     weighting, `--max-staleness` or `--stale-weighting` without `--async`
     or `--clock`, `--async` without an arrival process,
-    `--client-speeds` without `--clock`, and a per-client list whose
-    length is not `--clients`. Returns the chunk size (int or "auto"),
-    whether the rounds are async, and the parsed lists (or None)."""
+    `--client-speeds` without `--clock`, a per-client list whose length
+    is not `--clients`; the uplink's: `--error-feedback` without a lossy
+    `--compression`, `--topk-frac` without `--compression topk` or
+    outside (0, 1], `--bandwidth-bps` without `--clock` or negative, an
+    unknown `--faults` kind, `--fault-rate` without `--faults`, outside
+    [0, 1] or of a length neither 1 nor the kinds', `--clip-norm`
+    without `--screening` or negative, `--quorum` outside [1, m] or
+    without a source of non-arrival, `--deadline-s` without `--clock` or
+    `--quorum`, `--watchdog-patience`/`--watchdog-factor` without
+    `--watchdog`, a patience < 1 or a factor <= 1, `--watchdog` with
+    `--store offload`, and `--checkpoint-every`/`--resume` without
+    `--checkpoint-dir`, with `--chunk auto` or with `--no-scan` on a
+    store other than offload. Returns the chunk size (int or "auto"),
+    whether the rounds are async, the parsed lists (or None) and the
+    uplink's settings."""
     chunk = args.chunk
     if chunk != "auto":
         try:
@@ -186,8 +217,140 @@ def validate_flags(args) -> dict:
             raise SystemExit("--client-speeds requires --clock")
         speeds = _parse_csv(args.client_speeds, args.clients,
                             "--client-speeds", float)
-    return {"chunk": chunk, "async_rounds": async_rounds, "weights": weights,
-            "periods": periods, "speeds": speeds}
+    out = {"chunk": chunk, "async_rounds": async_rounds, "weights": weights,
+           "periods": periods, "speeds": speeds}
+    out.update(_validate_uplink(args, chunk, clock_kind, kind, store))
+    return out
+
+
+def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:
+    """`validate_flags`' checks of the codec, fault, guard and checkpoint
+    flags, with the reference's messages."""
+    compression, error_feedback = args.compression, args.error_feedback
+    topk_frac, bandwidth = args.topk_frac, args.bandwidth_bps
+    if error_feedback and compression == "none":
+        raise SystemExit(
+            "--error-feedback carries the codec residual — it needs a "
+            "lossy --compression (bf16/int8/topk)")
+    if topk_frac is not None:
+        if compression != "topk":
+            raise SystemExit("--topk-frac requires --compression topk")
+        if not (0.0 < topk_frac <= 1.0):
+            raise SystemExit(
+                f"--topk-frac must be in (0, 1], got {topk_frac}")
+    if bandwidth:
+        if bandwidth < 0:
+            raise SystemExit(
+                f"--bandwidth-bps must be > 0, got {bandwidth}")
+        if clock_kind == "none":
+            raise SystemExit(
+                "--bandwidth-bps prices the wire inside the wall-clock "
+                "simulation — it requires --clock")
+    fault_kinds = [k for k in args.faults.split(",") if k]
+    bad = sorted(set(fault_kinds) - set(FAULT_KINDS))
+    if bad:
+        raise SystemExit(
+            f"--faults: unknown kind(s) {','.join(bad)} "
+            f"(choose from {','.join(FAULT_KINDS)})")
+    rate_arg = args.fault_rate
+    if rate_arg and not fault_kinds:
+        raise SystemExit(
+            "--fault-rate is the injection probability of --faults — "
+            "pass --faults crash,nan,...")
+    fault_rates = [0.05]
+    if rate_arg:
+        try:
+            fault_rates = [float(v) for v in rate_arg.split(",")]
+        except ValueError as e:
+            raise SystemExit(f"--fault-rate: {e}")
+        if len(fault_rates) not in (1, len(fault_kinds)):
+            raise SystemExit(
+                f"--fault-rate needs 1 or {len(fault_kinds)} values, "
+                f"got {len(fault_rates)}")
+        if any(not 0.0 <= r <= 1.0 for r in fault_rates):
+            raise SystemExit(
+                f"--fault-rate values must be in [0, 1], got {rate_arg}")
+    screening, clip_norm = args.screening, args.clip_norm
+    if clip_norm:
+        if clip_norm < 0:
+            raise SystemExit(f"--clip-norm must be > 0, got {clip_norm}")
+        if not screening:
+            raise SystemExit(
+                "--clip-norm is the screening stage's norm clip — "
+                "pass --screening")
+    quorum = args.quorum
+    if quorum:
+        if not 0 < quorum <= args.clients:
+            raise SystemExit(
+                f"--quorum must be in [1, m={args.clients}], got {quorum}")
+        if kind == "full" and clock_kind == "none" and not fault_kinds \
+                and not screening:
+            raise SystemExit(
+                "--quorum needs a source of non-arrival to guard against "
+                "— pass --participation, --clock, --faults or --screening")
+    deadline_s = args.deadline_s
+    if deadline_s:
+        if deadline_s < 0:
+            raise SystemExit(f"--deadline-s must be > 0, got {deadline_s}")
+        if clock_kind == "none":
+            raise SystemExit(
+                "--deadline-s cuts simulated rounds at a wall-clock "
+                "deadline — it requires --clock")
+        if quorum < 1:
+            raise SystemExit(
+                "--deadline-s can close rounds with ZERO arrivals — pass "
+                "--quorum (>= 1) so they degrade to recorded no-ops "
+                "instead of aggregating nothing")
+    watchdog = args.watchdog
+    patience, factor = args.watchdog_patience, args.watchdog_factor
+    if not watchdog and (patience is not None or factor is not None):
+        raise SystemExit(
+            "--watchdog-patience/--watchdog-factor tune the divergence "
+            "watchdog — pass --watchdog")
+    patience = 3 if patience is None else patience
+    factor = 2.0 if factor is None else factor
+    if watchdog:
+        if patience < 1:
+            raise SystemExit(
+                f"--watchdog-patience must be >= 1, got {patience}")
+        if factor <= 1.0:
+            raise SystemExit(
+                "--watchdog-factor is a divergence threshold RELATIVE to "
+                f"the best f̄ seen and must be > 1, got {factor}")
+        if store == "offload":
+            raise SystemExit(
+                "--watchdog keeps a full state snapshot in the carry — "
+                "with --store offload that would double the host-resident "
+                "buffers; use --store dense/active")
+    ckpt_every, resume = args.checkpoint_every, args.resume
+    if ckpt_every < 0:
+        raise SystemExit(
+            f"--checkpoint-every must be >= 0, got {ckpt_every}")
+    if ckpt_every or resume:
+        if not args.checkpoint_dir:
+            raise SystemExit(
+                "--checkpoint-every/--resume need --checkpoint-dir to "
+                "write/read the round-carry snapshots")
+        if chunk == "auto":
+            raise SystemExit(
+                "--chunk auto re-times candidate chunk lengths — "
+                "checkpoint boundaries need a fixed --chunk")
+        if args.no_scan and store != "offload":
+            raise SystemExit(
+                "--checkpoint-every/--resume ride the chunked scan "
+                "driver (or the offload loop) — drop --no-scan")
+    return {"compression": None if compression == "none" else compression,
+            "error_feedback": error_feedback,
+            "topk_frac": 0.1 if topk_frac is None else topk_frac,
+            "bandwidth_bps": bandwidth if bandwidth else None,
+            "fault_kinds": fault_kinds, "fault_rates": fault_rates,
+            "screening": screening,
+            "clip_norm": clip_norm if clip_norm else None,
+            "quorum": quorum,
+            "deadline_s": deadline_s if deadline_s else None,
+            "watchdog": watchdog, "watchdog_patience": patience,
+            "watchdog_factor": factor, "checkpoint_every": ckpt_every,
+            "resume": resume}
 
 
 def train(args) -> dict:
@@ -223,7 +386,15 @@ def train(args) -> dict:
     # the wall-clock simulation derives the arrival mask from simulated
     # finish times and implies async rounds
     clock = make_clock(args.clock, args.clients, compute_s=parsed["speeds"],
-                       sigma=args.clock_sigma, seed=args.seed)
+                       sigma=args.clock_sigma, seed=args.seed,
+                       bandwidth_bps=parsed["bandwidth_bps"],
+                       deadline_s=parsed["deadline_s"])
+    faults = make_faults(parsed["fault_kinds"], parsed["fault_rates"],
+                         num_clients=args.clients, seed=args.seed,
+                         scale=args.fault_scale)
+    screening = (Screening(clip_norm=parsed["clip_norm"])
+                 if parsed["screening"] else None)
+    _log_uplink(parsed, faults, screening, args)
     async_rounds = parsed["async_rounds"]
     if async_rounds:
         log.info("async rounds: stale-x̄ engine, max_staleness=%d, "
@@ -249,7 +420,19 @@ def train(args) -> dict:
                      aggregate=args.aggregate, async_rounds=async_rounds,
                      max_staleness=args.max_staleness, clock=clock,
                      stale_weighting=args.stale_weighting,
-                     stale_decay=args.stale_decay)
+                     stale_decay=args.stale_decay,
+                     compression=parsed["compression"],
+                     error_feedback=parsed["error_feedback"],
+                     topk_frac=parsed["topk_frac"], faults=faults,
+                     screening=screening, quorum=parsed["quorum"],
+                     watchdog=parsed["watchdog"],
+                     watchdog_patience=parsed["watchdog_patience"],
+                     watchdog_factor=parsed["watchdog_factor"],
+                     checkpoint_every=parsed["checkpoint_every"],
+                     checkpoint_dir=(args.checkpoint_dir or None)
+                     if (parsed["checkpoint_every"] or parsed["resume"])
+                     else None,
+                     resume=parsed["resume"])
     history = [
         {"round": r, "f": float(res.history["f_xbar"][r]),
          "err": float(res.history["grad_sq_norm"][r])}
@@ -288,12 +471,40 @@ def train(args) -> dict:
             res.history["staleness_max"].max())
         log.info("async: max staleness actually used = %d (bound %d)",
                  result["staleness_max_seen"], args.max_staleness)
+    if parsed["compression"] is not None:
+        result["compression"] = parsed["compression"]
+        result["error_feedback"] = parsed["error_feedback"]
     if clock is not None:
         result["clock"] = clock.name
         result["sim_time_s"] = float(res.history["sim_time"][-1])
         log.info("simulated wall-clock: %.3f s to round %d "
                  "(time-to-target when the tolerance stopped the run)",
                  result["sim_time_s"], res.rounds_run - 1)
+        if parsed["bandwidth_bps"] is not None:
+            result["bytes_up"] = float(res.history["bytes_up"].sum())
+            result["bytes_down"] = float(res.history["bytes_down"].sum())
+            log.info("wire totals: %.0f B up / %.0f B down over %d rounds",
+                     result["bytes_up"], result["bytes_down"],
+                     res.rounds_run)
+    if "screened" in res.history:
+        result["screened_min"] = int(res.history["screened"].min())
+    if "degraded" in res.history:
+        result["degraded_rounds"] = int(res.history["degraded"].sum())
+        if result["degraded_rounds"]:
+            log.info("%d round(s) missed the quorum and degraded to "
+                     "no-ops", result["degraded_rounds"])
+    if "rollback" in res.history:
+        result["rollbacks"] = int(res.history["rollback"].sum())
+        if result["rollbacks"]:
+            log.info("watchdog rolled the state back %d time(s)",
+                     result["rollbacks"])
+    if args.checkpoint_dir and not (parsed["checkpoint_every"]
+                                    or parsed["resume"]):
+        # the final state alone; with --checkpoint-every/--resume the
+        # engine owns the directory and has saved the whole carry there
+        save_checkpoint(args.checkpoint_dir, res.rounds_run, res.state,
+                        extra={"algo": args.algo})
+        log.info("checkpoint written to %s", args.checkpoint_dir)
     if args.store == "offload":
         log.info("host-offloaded store: %d host-resident bytes, device peak "
                  "%s bytes, tile copies %.3fs on the host",
@@ -313,6 +524,40 @@ def train(args) -> dict:
         result["final_err"],
     )
     return result
+
+
+def _log_uplink(parsed, faults, screening, args):
+    if faults is not None:
+        log.info("fault injection: %s at rate(s) %s (on the device, "
+                 "stateless per-round keys)",
+                 ",".join(parsed["fault_kinds"]),
+                 ",".join("%g" % r for r in parsed["fault_rates"]))
+    if screening is not None:
+        log.info("upload screening: finite check%s before eq. (11)",
+                 (" + norm clip at %g" % parsed["clip_norm"])
+                 if parsed["clip_norm"] else "")
+    if parsed["quorum"]:
+        log.info("quorum: rounds with < %d accepted uploads degrade to "
+                 "recorded no-ops", parsed["quorum"])
+    if parsed["deadline_s"] is not None:
+        log.info("round deadline: %.3g simulated seconds (late clients "
+                 "re-arrive next round)", parsed["deadline_s"])
+    if parsed["watchdog"]:
+        log.info("divergence watchdog: rollback after %d rounds above "
+                 "%.2gx the best f̄", parsed["watchdog_patience"],
+                 parsed["watchdog_factor"])
+    if parsed["checkpoint_every"]:
+        log.info("checkpointing the round carry every %d rounds to %s%s",
+                 parsed["checkpoint_every"], args.checkpoint_dir,
+                 " (resuming)" if parsed["resume"] else "")
+    if parsed["compression"] is not None:
+        log.info("uplink compression: %s codec%s%s", parsed["compression"],
+                 " + error feedback" if parsed["error_feedback"] else "",
+                 (" (frac=%.2f)" % parsed["topk_frac"])
+                 if parsed["compression"] == "topk" else "")
+    if parsed["bandwidth_bps"] is not None:
+        log.info("byte-accurate comm clock: %.3g bytes/s per client",
+                 parsed["bandwidth_bps"])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -395,6 +640,64 @@ def build_parser() -> argparse.ArgumentParser:
                          "((1+s)^-decay), exp (e^(-decay*s))")
     ap.add_argument("--stale-decay", type=float, default=1.0,
                     help="decay rate of --stale-weighting poly/exp")
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "bf16", "int8", "topk"],
+                    help="uplink codec on the flat comm buffer: none (the "
+                         "uncompressed round, bit for bit), bf16 (2 "
+                         "B/lane), int8 (per-client affine, stochastic "
+                         "rounding), topk (the --topk-frac largest-|.| "
+                         "lanes)")
+    ap.add_argument("--topk-frac", type=float, default=None,
+                    help="fraction of lanes --compression topk keeps "
+                         "(default 0.1)")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="carry each client's codec residual into its next "
+                         "upload (one more (m, N) buffer); needs a lossy "
+                         "--compression")
+    ap.add_argument("--bandwidth-bps", type=float, default=0.0,
+                    help="per-client link bytes/s for --clock: the codec's "
+                         "exact wire prices the simulated time, and the "
+                         "run reports bytes_up/bytes_down")
+    ap.add_argument("--faults", default="",
+                    help="comma-separated fault kinds injected into the "
+                         "uploads on the device: crash, nan, inf, explode "
+                         "(scale by --fault-scale), replay")
+    ap.add_argument("--fault-rate", default="",
+                    help="per-client per-round probability of --faults: one "
+                         "value, or one a kind; default 0.05")
+    ap.add_argument("--fault-scale", type=float, default=1e6,
+                    help="the explode fault's multiplier")
+    ap.add_argument("--screening", action="store_true",
+                    help="drop uploads with a non-finite entry before "
+                         "eq. (11)")
+    ap.add_argument("--clip-norm", type=float, default=0.0,
+                    help="screening's norm clip: finite uploads above this "
+                         "l2 norm are scaled onto it (needs --screening)")
+    ap.add_argument("--quorum", type=int, default=0,
+                    help="accepted uploads a round needs to commit; below "
+                         "it the round is a recorded no-op (degraded)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="--clock rounds close this many simulated seconds "
+                         "apart, whoever finished (needs --quorum)")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="roll the state back to its best round after "
+                         "--watchdog-patience rounds above "
+                         "--watchdog-factor times the best f")
+    ap.add_argument("--watchdog-patience", type=int, default=None,
+                    help="diverged rounds before a rollback (default 3)")
+    ap.add_argument("--watchdog-factor", type=float, default=None,
+                    help="divergence threshold relative to the best f "
+                         "(default 2.0, > 1)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save the run's whole carry to --checkpoint-dir "
+                         "every this many rounds (a fixed --chunk; the "
+                         "chunked driver or --store offload)")
+    ap.add_argument("--resume", action="store_true",
+                    help="go on from the newest checkpoint under "
+                         "--checkpoint-dir (a fresh start where none)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="where --checkpoint-every and --resume write and "
+                         "read; alone, the final state is saved there")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 

@@ -3,19 +3,30 @@
 Mirrors tests/test_kernels.py's flash attention tests: the same four
 shapes in float32 and bfloat16, inputs made with numpy from a seed. The
 port's wrapper on CPU tensors runs its plain version (the full softmax of
-`ref.py`); it is held to the Pallas kernel run in interpret mode, to the
-JAX full-softmax oracle and to the port's own `blocked_attention`. The
+`ref.py`); it is held to the JAX full-softmax oracle, to the port's own
+`blocked_attention` and to the Pallas kernel run in interpret mode. The
 CUDA kernel cannot run here; chip_smoke.py holds it to the same plain
 version on the card. Tolerances are the reference's kernel-vs-oracle
 ones: 2e-5 in float32 (the sums run in other orders), 2.5e-2 in bfloat16
 (one bf16 rounding of outputs of size ~1).
+
+The interpret-mode kernel runs alone in a fresh subprocess, once for
+every case (`interpret_outputs`): in a full tier-1 run it shares its
+worker with the reference's tests, and there it once came out 6.3e-5
+from the port's float32 output (174 of 65536 elements past 2e-5) where
+it is 4.8e-7 on its own, a state that the worker's earlier tests leave
+in the process; the port itself is held in-process to the oracle and to
+`blocked_attention`, first.
 """
+import os
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
 from repro.models.attention import blocked_attention as jax_blocked
 from repro_torch.kernels.flash_attention import ops
@@ -38,6 +49,40 @@ def _inputs(seed, B, H, Kv, S, hd, jdt):
     return [np.array(jnp.asarray(a, jdt).astype(jnp.float32)) for a in arrs]
 
 
+# the Pallas kernel in interpret mode for every case, in a fresh process
+# (no XLA_FLAGS, nothing of another test's state), saved to an npz
+_INTERPRET = """
+import sys
+import jax.numpy as jnp
+import numpy as np
+from repro.kernels.flash_attention import flash_attention
+from test_torch_flash_attention import DTYPES, SHAPES, _inputs
+
+out = {}
+for dtype, (jdt, _, _) in DTYPES.items():
+    for B, H, Kv, S, hd, window, bq, bk in SHAPES:
+        q, k, v = (jnp.asarray(a, jdt)
+                   for a in _inputs(S + hd, B, H, Kv, S, hd, jdt))
+        o = flash_attention(q, k, v, window=window, interpret=True,
+                            block_q=bq, block_k=bk)
+        out[f"{dtype}-{B}-{H}-{Kv}-{S}-{hd}"] = np.asarray(o, np.float32)
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def interpret_outputs(tmp_path_factory):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(here, "..", "src"), here])
+    path = tmp_path_factory.mktemp("flash") / "interpret.npz"
+    subprocess.run([sys.executable, "-c", _INTERPRET, str(path)], env=env,
+                   check=True, timeout=600)
+    with np.load(path) as data:
+        return dict(data)
+
+
 def _close(got, want, tol, what):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=tol, atol=tol, err_msg=what)
@@ -46,7 +91,7 @@ def _close(got, want, tol, what):
 @pytest.mark.parametrize("B,H,Kv,S,hd,window,bq,bk", SHAPES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_matches_reference(B, H, Kv, S, hd, window, bq, bk,
-                                           dtype):
+                                           dtype, interpret_outputs):
     jdt, tdt, tol = DTYPES[dtype]
     arrs = _inputs(S + hd, B, H, Kv, S, hd, jdt)
     jq, jk, jv = (jnp.asarray(a, jdt) for a in arrs)
@@ -54,9 +99,6 @@ def test_flash_attention_matches_reference(B, H, Kv, S, hd, window, bq, bk,
     out = ops.flash_attention(q, k, v, window=window)
     assert out.dtype == tdt and out.shape == q.shape
     assert ops.launches["flash_attention"] == 0  # the plain version ran
-    kernel = jax_flash(jq, jk, jv, window=window, interpret=True,
-                       block_q=bq, block_k=bk)
-    _close(out, kernel, tol, "vs Pallas kernel (interpret)")
     _close(out, jax_flash_ref(jq, jk, jv, window=window), tol,
            "vs JAX oracle")
     # the model's own streaming softmax, in its (B,S,H,hd) layout
@@ -65,6 +107,8 @@ def test_flash_attention_matches_reference(B, H, Kv, S, hd, window, bq, bk,
                                 v.transpose(1, 2), pos, pos, window=window,
                                 block_k=bk).transpose(1, 2)
     _close(out, blocked.float().numpy(), tol, "vs port blocked_attention")
+    _close(out, interpret_outputs[f"{dtype}-{B}-{H}-{Kv}-{S}-{hd}"], tol,
+           "vs Pallas kernel (interpret, in a fresh process)")
 
 
 def test_blocked_attention_matches_reference_over_a_ring_cache():

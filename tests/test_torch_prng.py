@@ -11,11 +11,18 @@ multiply-adds). Over a grid of seeds, floats within stated bounds:
 value of a draw, |g| < 16; numpy's `log` rounds apart from XLA:CPU's, and
 -log(-log(u)) cancels near 0, so no relative bound holds there) and
 `normal` within 4 float32 ulps (numpy's `log1p` against XLA:CPU's).
+
+The device forms (`threefry2x32_t`, `fold_in_t`, `split_t`,
+`random_bits_t`, `uniform_t`, `randint_u32_t`, on (rows, 2) int64 key
+tensors) bit for bit against the numpy forms and against `jax.random`
+vmapped over the same per-row keys (`randint` as JAX 0.9.0's `_randint`
+draws it, spans up to 2**31), and they read nothing back to the host.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import prng
 
@@ -166,3 +173,87 @@ def test_functions_leave_their_key_alone():
                lambda k: prng.uniform(k, 8), lambda k: prng.normal(k, 8)):
         fn(key)
         np.testing.assert_array_equal(key, copy)
+
+
+# ------------------------------------------------------------ device forms
+def _row_keys(seed, rows):
+    """(rows, 2) keys: `prng_key(seed)` folded with each row id, as the
+    codecs and the fault model key their clients; the device form, the
+    numpy form and JAX's."""
+    base = prng.prng_key(seed)
+    keys = prng.fold_in_t(prng.key_t(base)[None], torch.arange(rows))
+    host = np.stack([prng.fold_in(base, i) for i in range(rows)])
+    jkeys = jax.vmap(lambda i: jax.random.fold_in(_jkey(seed), i))(
+        jnp.arange(rows, dtype=jnp.uint32))
+    np.testing.assert_array_equal(keys.numpy(), host.astype(np.int64))
+    np.testing.assert_array_equal(host, np.asarray(jkeys))
+    return keys, host, jkeys
+
+
+@pytest.mark.parametrize("pairs", [1, 7, 1000])
+def test_threefry2x32_t_is_the_numpy_hash(pairs):
+    rng = np.random.default_rng(pairs)
+    key = rng.integers(0, 2**32, 2, dtype=np.uint32)
+    x0, x1 = rng.integers(0, 2**32, (2, pairs), dtype=np.uint32)
+    a, b = prng.threefry2x32_t(*(torch.tensor(int(k)) for k in key),
+                               torch.from_numpy(x0.astype(np.int64)),
+                               torch.from_numpy(x1.astype(np.int64)))
+    wa, wb = prng.threefry2x32(key, x0, x1)
+    np.testing.assert_array_equal(a.numpy(), wa.astype(np.int64))
+    np.testing.assert_array_equal(b.numpy(), wb.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_t_and_split_t_are_the_references(seed):
+    keys, host, jkeys = _row_keys(seed, 33)
+    got = prng.split_t(keys, 3).numpy()
+    for i in (0, 1, 32):
+        np.testing.assert_array_equal(got[i], prng.split(host[i], 3))
+        np.testing.assert_array_equal(got[i], np.asarray(
+            jax.random.split(jkeys[i], 3)))
+    # a 0-d device counter folds as the int does (the fault draws)
+    one = prng.fold_in_t(prng.key_t(host[3]), torch.tensor(2**32 + 9))
+    np.testing.assert_array_equal(one.numpy(), prng.fold_in(host[3], 9))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("n", [1, 3, 128, 1000])
+def test_random_bits_t_and_uniform_t_are_the_references(seed, n):
+    keys, host, jkeys = _row_keys(seed, 5)
+    bits = prng.random_bits_t(keys, n).numpy()
+    uni = prng.uniform_t(keys, n).numpy()
+    jbits = np.asarray(jax.vmap(lambda k: jax.random.bits(k, (n,)))(jkeys))
+    juni = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (n,)))(jkeys))
+    for i in range(5):
+        np.testing.assert_array_equal(bits[i], prng.random_bits(host[i], n))
+        assert uni[i].tobytes() == prng.uniform(host[i], n).tobytes()
+    np.testing.assert_array_equal(bits, jbits.astype(np.int64))
+    assert uni.dtype == np.float32 and uni.tobytes() == juni.tobytes()
+    # a scalar draw, `uniform(key, ())`, is a row's first word
+    jscalar = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, ()))(jkeys))
+    assert uni[:, 0].tobytes() == jscalar.tobytes()
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 1 << 16), (0, 255), (3, 1000),
+                                   (0, 1 << 20), (7, 2**31 - 1)])
+def test_randint_u32_t_is_the_references(lo, hi):
+    """JAX 0.9.0's `_randint`: two bit blocks from the split key, the high
+    one times (2**16 mod span)**2 mod span in uint32 arithmetic."""
+    keys, _, jkeys = _row_keys(11, 6)
+    got = prng.randint_u32_t(keys, 300, lo, hi).numpy()
+    want = np.asarray(jax.vmap(lambda k: jax.random.randint(
+        k, (300,), lo, hi, jnp.uint32))(jkeys))
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    assert got.min() >= lo and got.max() < hi
+
+
+def test_device_forms_read_nothing_back():
+    """The draws run on meta tensors, which hold no data: no step reads a
+    value back to the host, so a captured chunk can run them."""
+    keys = torch.zeros((4, 2), dtype=torch.int64, device="meta")
+    assert prng.random_bits_t(keys, 16).shape == (4, 16)
+    assert prng.uniform_t(keys, 16).dtype == torch.float32
+    assert prng.randint_u32_t(keys, 16, 0, 1 << 16).shape == (4, 16)
+    assert prng.fold_in_t(keys[0], torch.arange(
+        3, device="meta")).shape == (3, 2)
+    assert prng.key_t(prng.prng_key(1), "meta").device.type == "meta"

@@ -375,7 +375,8 @@ def test_offload_matches_active(raw, algo_key, scan):
     assert np.array_equal(res.policy_state["key"],
                           ref.policy_state["key"])
     for k in algo.flat_client_keys:  # handed back on the run's device
-        assert not res.state[k]["x"].is_pinned()
+        if k in res.state:  # "ef" and "fault_prev" only where made
+            assert not res.state[k]["x"].is_pinned()
 
 
 def test_offload_packed_matches_active_packed(raw):

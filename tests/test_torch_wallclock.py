@@ -11,8 +11,8 @@ Within the port:
     sequence;
   * weighted chunked and legacy runs agree bit for bit;
   * the engine's and the CLI's checks raise with the reference's
-    messages, and the clock options that are not ported raise
-    `NotImplementedError`.
+    messages, and the clock option that is not ported (`with_overlap`)
+    raises `NotImplementedError`.
 
 Against the reference: the constant and trace clocks tick on the host in
 float32, so their masks and times are the reference's device ticks BIT
@@ -333,15 +333,21 @@ def test_stale_decay_must_be_positive(raw):
 @pytest.mark.parametrize("what", ["bandwidth_bps", "deadline_s", "with_wire",
                                   "with_overlap"])
 def test_unported_clock_options_raise(what):
-    """The byte-accurate, deadline and overlap clocks are not ported:
-    each raises, never silently runs the event-driven clock."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        if what == "with_wire":
-            ComputeClock(M).with_wire(100, 100)
-        elif what == "with_overlap":
+    """The overlap clock is not ported: it raises, never silently runs
+    the event-driven clock. The byte-accurate and deadline clocks are
+    (tests/test_torch_compress.py, tests/test_torch_faults.py): each
+    raises where the reference's does, with its message."""
+    if what == "with_overlap":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
+                                                      "item 9"):
             ComputeClock(M).with_overlap()
-        else:
-            make_clock("lognormal", M, **{what: 1.0})
+    elif what == "with_wire":
+        with pytest.raises(ValueError, match="with_wire needs bandwidth_bps"):
+            ComputeClock(M).with_wire(100, 100)
+    else:
+        with pytest.raises(ValueError, match=f"{what} must be > 0"):
+            make_clock("lognormal", M, **{what: -1.0})
+        make_clock("lognormal", M, **{what: 1.0})  # ported: it builds
 
 
 def test_clock_validation():
