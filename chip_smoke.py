@@ -148,6 +148,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      on the CPU, held row by row as phase 2e's rows (the int8 row,
      stochastic, to both reaching the target; a row that reaches it on
      neither side, top-k, by its rounds, times and bytes).
+2g. Federated training of the dense transformers (`--arch`), counts
+   reset just before each run and read just after, each run's peak
+   device memory, f every round (finite), r_hat and sigma printed:
+   * tinyllama-1.1b at full width and depth (22 layers, d_model 2048,
+     N = 1,100,048,384), m = 2, 5 rounds, sigma_t 30, the CLI's other
+     defaults (scalar H, bf16 gradients, fp32 state), in the chunked
+     driver (one captured chunk) and with `--no-scan`: the donated
+     kernel once a round, the same f every round and final states bit
+     for bit; then the round after the last one's `fedgia_update` at
+     (2, N) in three forms (undonated with the 0-d h, donated with it,
+     undonated with h (m, N)), each launched once and held to its plain
+     version on every 16M-column tile (bitwise expected), the donated
+     and the h (m, N) forms timed against their bounds, the plain
+     version timed in tiles;
+   * the same model under `--h-policy diag_ema`, 3 rounds, `--no-scan`
+     (the chunked driver's warm-up copies would not fit): the batched
+     kernel once a round;
+   * reduced tinyllama-1.1b, qwen1.5-0.5b and rwkv6-3b `--arch` runs
+     (bf16, 8 rounds) on the card and on the CPU: f every round within
+     TRAIN_CPU_RTOL, r_hat within PROBE_CPU_RTOL, f falling;
+   * the paper run with `--kernel on` and `--kernel off` (the update's
+     plain version on the card): no launch with off, the same f every
+     round and a bitwise final state;
+   * `repro_torch.examples.fl_transformer` at its defaults (fl-lm-134m,
+     float32, m = 4, diag_ema, 40 rounds in chunks of 10): its own
+     check that f falls, and 40 batched launches.
+   Phase 3 then re-checks that the serving prefill still launches flash
+   22 times and the scan 32 times.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each), each
@@ -279,6 +307,40 @@ ROW_OBJ_RTOL = 1e-3
 # against CPU 2.6 %.
 ROW_STOP_RTOL = 3e-2
 ROW_KEYS = ("algo", "max_staleness", "spread", "weighting")
+
+# phase 2g: federated training of tinyllama-1.1b at full width and depth
+# (22 layers, d_model 2048, N ~ 1.1e9), m = 2, the CLI's other defaults
+# (k0 5, alpha 0.5, scalar H, batch 2, seq 64); sigma_t = 30 as
+# examples/fl_transformer.py (t < 1 diverges for transformers)
+TRAIN_FULL = ["--arch", "tinyllama-1.1b", "--algo", "fedgia", "--clients",
+              "2", "--rounds", "5", "--tol", "0", "--sigma-t", "30",
+              "--log-every", "1"]
+# diag_ema at full width runs in the eager loop: the chunked driver's
+# warm-up round on copies of the (x, z, pi, h) state would need about 92
+# GiB of the card's 80 GB (PERF.md §5), so it is not run, and said so
+TRAIN_DIAG = ["--arch", "tinyllama-1.1b", "--algo", "fedgia", "--clients",
+              "2", "--rounds", "3", "--tol", "0", "--sigma-t", "30",
+              "--h-policy", "diag_ema", "--no-scan", "--log-every", "1"]
+# reduced --arch runs, card against CPU: tests/test_torch_train_cli.py's
+# acceptance settings at 8 rounds, but sigma_t = 3: at 0.3 the reduced
+# qwen1.5 diverges from round 3 (on the CPU too)
+TRAIN_REDUCED = ["--reduced", "--algo", "fedgia", "--clients", "4", "--k0",
+                 "3", "--alpha", "1.0", "--sigma-t", "3", "--rounds", "8",
+                 "--tol", "0", "--batch", "2", "--seq-len", "32"]
+# card against CPU in bfloat16: every matmul rounds its output to bf16
+# after another order of sums (cuBLAS against the CPU's GEMMs), and the
+# runs part at bf16 resolution, as the port and the reference do on the
+# CPU (tests/test_torch_train_cli.py); here every round's f within rtol
+# 5e-2 of the CPU's value for that round, no atol (measured on the H100:
+# at most 2.2e-2, RWKV-6), and r_hat (a bf16 probe) at 5e-2
+TRAIN_CPU_RTOL, PROBE_CPU_RTOL = 5e-2, 5e-2
+# normal_t on the card against the numpy form: the same integers and
+# uniform floats, CUDA's log1pf against the C library's; a draw further
+# than NORMAL_MAX_ULPS (the CPU's bound is 4) would be a fault, not ulps
+NORMAL_SEED, NORMAL_WORDS, NORMAL_MAX_ULPS = 5, 1 << 22, 64
+# the full-width update held against its plain version a column tile at a
+# time (the plain version's temporaries at (2, N) would not fit)
+TILE_COLUMNS = 1 << 24
 
 # full width; the warm-up run before each takes the same prefill, gen 2
 TINYLLAMA = ["--arch", "tinyllama-1.1b", "--batch", "4", "--prompt-len",
@@ -449,9 +511,10 @@ def fp8_cache_run(serve, graphs, Transformer, get_config, argv, logits16,
     P = int(argv[argv.index("--prompt-len") + 1])
     gen = int(argv[argv.index("--gen") + 1])
     cfg = get_config(arch)
-    model = Transformer(cfg, "cuda")
+    from repro_torch.core.prng import prng_key
+
+    model = Transformer(cfg, "cuda").init(prng_key(seed))
     rng = torch.Generator(device="cuda").manual_seed(seed)
-    model.init(rng)
     prompts = torch.randint(0, cfg.vocab_size, (batch, P), generator=rng,
                             device="cuda")
     fp8 = torch.float8_e4m3fn
@@ -1041,8 +1104,10 @@ def card_vs_cpu(serve, Transformer, get_config, arch, counters):
     """The reduced float32 model on the CPU and, with the same parameters,
     on the card: the same tokens, logits within PARITY_TOL."""
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-    cpu = Transformer(cfg, "cpu").init(torch.Generator().manual_seed(0))
-    gpu = Transformer(cfg, "cuda").load_params(cpu.state_dict())
+    from repro_torch.core.prng import prng_key
+
+    cpu = Transformer(cfg, "cpu").init(prng_key(0))
+    gpu = Transformer(cfg, "cuda").load_params(cpu.params)
     prompts = torch.randint(0, cfg.vocab_size, (2, PARITY_PROMPT),
                             generator=torch.Generator().manual_seed(1))
     want = serve.generate(cpu, prompts, PARITY_GEN, scan=False)
@@ -1897,6 +1962,351 @@ def uplink_phase(pop, counters, launches, card):
     return {"threefry_ms": times, "codec_ms": per, "uncompressed_ms": ms_plain}
 
 
+def gib(nbytes):
+    return nbytes / 2**30
+
+
+def host_state(state):
+    """The model-shaped entries of a run's state, copied to host memory."""
+    return {k: {leaf: v.cpu() for leaf, v in tree.items()}
+            for k, tree in state.items() if isinstance(tree, dict)}
+
+
+def train_run(train, counters, argv, what):
+    """One `--arch` CLI run on the card, counts reset before and read
+    after, the peak device memory apart. Returns (result, launches)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, n = run_main_path(train, counters, argv)
+    peak = torch.cuda.max_memory_allocated()
+    fs = [h["f"] for h in res["history"]]
+    say(done_line(f"{what} (cuda)", res))
+    say(f"  f each round: {fs}")
+    say(f"  r_hat={float(res['state']['r'])!r} "
+        f"sigma={float(res['state']['sigma'])!r}; the weights drawn in "
+        f"{res['init_s']!r} s, r_hat probed in {res['probe_s']!r} s; "
+        f"launches {n} peak device "
+        f"memory {peak} bytes ({gib(peak):.2f} GiB); "
+        f"{per_round_ms(res)!r} ms a round, warm-up and capture "
+        f"{res['capture_s']!r} s apart")
+    if not all(math.isfinite(f) for f in fs):
+        raise SystemExit(f"{what}: non-finite f {fs}")
+    return res, n
+
+
+def plain_tiles(ref, args, outs=None):
+    """The plain version over the (m, N) operands a column tile at a time;
+    with `outs` (π', z' of the kernel) held to them, bitwise expected.
+    Returns (max_abs_err, differing elements)."""
+    xbar, gbar, pi, h, sel, sigma, m, k0 = args
+    err, diff = 0.0, 0
+    for c0 in range(0, gbar.shape[1], TILE_COLUMNS):
+        c1 = min(gbar.shape[1], c0 + TILE_COLUMNS)
+        _, p, z = plain(ref, xbar[c0:c1], gbar[:, c0:c1], pi[:, c0:c1],
+                        h if h.dim() == 0 else h[:, c0:c1], sel, sigma, m,
+                        k0)
+        if outs is None:
+            continue
+        for a, b, part in ((outs[0][:, c0:c1], p, "pi"),
+                           (outs[1][:, c0:c1], z, "z")):
+            if not torch.isfinite(a).all():
+                raise SystemExit(f"full-width update: non-finite {part}'")
+            torch.testing.assert_close(
+                a, b, rtol=RTOL, atol=0.0,
+                msg=lambda msg: f"full-width update {part}' at columns "
+                f"{c0}:{c1}: {msg}")
+            err = max(err, float((a - b).abs().max()))
+            diff += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    return err, diff
+
+
+def full_width_flat(res, engine, pt):
+    """A full-width run's final state as the flat buffers a round reads,
+    the run's own copy dropped. Returns (algo, batch, flat, spec)."""
+    algo, batch, state = res.pop("algorithm"), res.pop("batch"), \
+        res.pop("state")
+    spec = pt.ravel_spec(state["x"])
+    flat = engine.flatten_state(algo, state, spec)
+    flat["rng"] = state["rng"].copy()
+    del state
+    torch.cuda.empty_cache()
+    return algo, batch, flat, spec
+
+
+def full_width_split(algo, batch, flat, spec, modules):
+    """`profile_round`'s split of one eager undonated round on the flat
+    full-width state (which it leaves as it was), after two unprofiled
+    ones whose host-clock time is returned."""
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo.round_flat(dict(flat), batch, spec)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    fedgia_mod, hparams_mod, api_mod = modules
+    undo = []
+    labelled(algo, "_vg", "gradient", undo)
+    labelled(api_mod, "client_mean", "eq. (11)", undo)
+    labelled(fedgia_mod, "fedgia_update_flat", "update kernel", undo)
+    for name in ("client_scalar_mean", "flat_grad_sq_norm",
+                 "client_scalar_sum"):
+        labelled(api_mod, name, "metrics", undo)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            algo.round_flat(dict(flat), batch, spec)
+            torch.cuda.synchronize()
+    finally:
+        for fn in reversed(undo):
+            fn()
+    return device_split(prof), min(walls)
+
+
+def full_width_update(algo, batch, flat, spec, ops, ref, card):
+    """The round after a full-width run's last, as `FedGiA.round_flat`
+    builds it (x̄, ḡ, π, the 0-d h of scalar H, the draw's select), in
+    three forms of the kernel: undonated with the 0-d h, donated with it
+    (the scalar round's), and undonated with h materialised to (m, N)
+    (the diag_ema round's). Each form is launched once outside its
+    timing and its own π', z' held to the plain version on column
+    tiles; the two round forms are timed against their bounds, and the
+    plain version in tiles. Consumes `flat`. Returns {kernel name: its
+    numbers at this shape}."""
+    xbar, sel, _, _, gbar = algo.round_inputs(flat, batch, spec)
+    args = algo.kernel_args(flat, xbar, gbar, sel)
+    flat.clear()
+    xbar, gbar, pi, h, sel, sigma, m, k0 = args
+    shape = list(gbar.shape)
+
+    def once(counter, call):
+        before = ops.launches[counter]
+        out = call()
+        if ops.launches[counter] != before + 1:
+            raise SystemExit(f"full-width update {counter}: not one launch")
+        return out
+
+    def held(name, run, outs):
+        err, diff = plain_tiles(ref, run, outs)
+        say(f"  {name} at the model's width {shape} (N {spec.size}), h "
+            f"{'0-d' if run[3].dim() == 0 else '(m, N)'}, {int(sel.sum())} "
+            f"of {m} rows selected: held to its plain version on "
+            f"{-(-shape[1] // TILE_COLUMNS)} column tiles of {TILE_COLUMNS}: "
+            f"max_abs_err={err!r} differing_elements={diff} (rtol {RTOL}, "
+            "bitwise expected)")
+        return err, diff
+
+    _, p1, z1 = once("fedgia_update_batched", lambda: ops.fedgia_update_flat(
+        xbar, gbar, pi, h, sel, sigma, m, k0=k0, want_x=False))
+    held("fedgia_update_batched", args, (p1, z1))
+    del p1, z1
+    saved = (gbar.clone(), pi.clone())
+
+    def prep():
+        gbar.copy_(saved[0])
+        pi.copy_(saved[1])
+
+    def donated():
+        return ops.fedgia_update_flat(xbar, gbar, pi, h, sel, sigma, m,
+                                      k0=k0, donate=True, want_x=False)
+
+    ms = median_ms(donated, prep)
+    prep()
+    _, p2, z2 = once("fedgia_update_batched_donated", donated)
+    if p2.data_ptr() != pi.data_ptr() or z2.data_ptr() != gbar.data_ptr():
+        raise SystemExit("full-width donated update: not written in place")
+    # π', z' sit in π, ḡ now: held to the plain version on the saved inputs
+    forms = {"fedgia_update_batched_donated": (h, ms, held(
+        "fedgia_update_batched_donated",
+        (xbar, saved[0], saved[1], h, sel, sigma, m, k0), (p2, z2)))}
+    del p2, z2
+    prep()
+    del saved
+    h_full = h.expand(gbar.shape).contiguous()
+
+    def batched():
+        return ops.fedgia_update_flat(xbar, gbar, pi, h_full, sel, sigma, m,
+                                      k0=k0, want_x=False)
+
+    ms = median_ms(batched)
+    _, p3, z3 = once("fedgia_update_batched", batched)
+    forms["fedgia_update_batched"] = (h_full, ms, held(
+        "fedgia_update_batched", (xbar, gbar, pi, h_full, sel, sigma, m, k0),
+        (p3, z3)))
+    del p3, z3
+    numbers = {}
+    for name, (hh, ms, (err, diff)) in forms.items():
+        run = (xbar, gbar, pi, hh, sel, sigma, m, k0)
+        nbytes = fedgia_bytes(xbar, gbar, hh, sel, want_x=False)
+        times = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            plain_tiles(ref, run)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        plain_ms = statistics.median(times)
+        numbers[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound(nbytes), "nbytes": nbytes,
+                         "max_abs_err": err, "differing_elements": diff,
+                         "h": "0-d" if hh.dim() == 0 else "(m, N)"}
+        say(f"  {name} {shape}, h {numbers[name]['h']}: kernel_ms={ms!r} "
+            f"plain_ms={plain_ms!r} (the plain version in {TILE_COLUMNS}"
+            f"-column tiles, median of 3) bound_ms={bound(nbytes)!r} "
+            f"(bytes: {nbytes}) achieved={nbytes / (ms * 1e-3) / 1e9:.1f} "
+            f"GB/s share_of_bound={bound(nbytes) / ms:.4f} on {card}")
+    return numbers
+
+
+def train_vs_cpu(train, arch):
+    """A reduced `--arch` run on the card and on the CPU: the same rounds,
+    f each round within TRAIN_CPU_RTOL of that round's f on the CPU,
+    r_hat within PROBE_CPU_RTOL."""
+    argv = ["--arch", arch] + TRAIN_REDUCED
+    runs = {dev: train.main(argv + ["--device", dev])
+            for dev in ("cuda", "cpu")}
+    f = {dev: [h["f"] for h in r["history"]] for dev, r in runs.items()}
+    r_hat = {dev: float(r["state"]["r"]) for dev, r in runs.items()}
+    gap = max(abs(a - b) / abs(b) for a, b in zip(f["cuda"], f["cpu"]))
+    say(f"  {arch} reduced (bf16), card vs CPU: f {f['cuda']} vs "
+        f"{f['cpu']} (largest relative gap {gap!r}); r_hat "
+        f"{r_hat['cuda']!r} vs {r_hat['cpu']!r}")
+    if len(f["cuda"]) != len(f["cpu"]) or not all(
+            math.isfinite(v) for v in f["cuda"]):
+        raise SystemExit(f"{arch}: card rounds {f['cuda']}")
+    for i, (a, b) in enumerate(zip(f["cuda"], f["cpu"])):
+        if abs(a - b) > TRAIN_CPU_RTOL * abs(b):
+            raise SystemExit(f"{arch}: round {i}: f {a!r} (cuda) vs {b!r} "
+                             "(cpu)")
+    if abs(r_hat["cuda"] - r_hat["cpu"]) > PROBE_CPU_RTOL * r_hat["cpu"]:
+        raise SystemExit(f"{arch}: r_hat {r_hat}")
+    if not f["cuda"][-1] < f["cuda"][0]:
+        raise SystemExit(f"{arch}: f did not fall on the card")
+
+
+def training_phase(train, fl_transformer, counters, launches, card, ops,
+                   ref, engine, pt, modules, prng):
+    """Phase 2g: `--arch` training of the dense transformers. Returns the
+    fedgia_update numbers at the model's width."""
+    t_phase = time.perf_counter()
+    key = prng.prng_key(NORMAL_SEED)
+    got = prng.normal_t(prng.key_t(key, "cuda"), NORMAL_WORDS).cpu()
+    want = torch.from_numpy(prng.normal(key, NORMAL_WORDS))
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()
+            ).abs()
+    say(f"normal_t on the card vs the numpy form, {NORMAL_WORDS} words: "
+        f"{int((ulps > 0).sum())} differ, at most {int(ulps.max())} float32 "
+        f"ulps (the CPU's bound: 4)")
+    if int(ulps.max()) > NORMAL_MAX_ULPS:
+        raise SystemExit(f"normal_t: {int(ulps.max())} ulps from numpy")
+    say(f"phase 2g: FedGiA on tinyllama-1.1b at full width "
+        f"({' '.join(TRAIN_FULL)}), on {card}:")
+    chunked, n = train_run(train, counters, TRAIN_FULL,
+                           "tinyllama-1.1b full width, CUDA-graph chunk")
+    rounds = chunked["rounds"]
+    if n["fedgia_update_batched_donated"] != rounds or \
+            sum(n.values()) != rounds:
+        raise SystemExit(f"full-width run: launches {n} != {rounds} rounds")
+    for k in launches:
+        launches[k] += n[k]
+    kept = host_state(chunked.pop("state"))
+    del chunked["batch"], chunked["algorithm"]
+    eager, n_eager = train_run(train, counters, TRAIN_FULL + ["--no-scan"],
+                               "tinyllama-1.1b full width, --no-scan")
+    if n_eager != n or eager["rounds"] != rounds:
+        raise SystemExit(f"full-width --no-scan: launches {n_eager}")
+    if [h["f"] for h in eager["history"]] != \
+            [h["f"] for h in chunked["history"]]:
+        raise SystemExit("full-width: chunked and --no-scan f differ")
+    diffs = {}
+    for k, tree in kept.items():
+        for leaf, v in tree.items():
+            diffs[f"{k}.{leaf}"] = int(
+                (v.view(torch.int32) !=
+                 eager["state"][k][leaf].cpu().view(torch.int32)).sum())
+    del kept
+    if any(diffs.values()):
+        raise SystemExit(f"full-width: chunked and --no-scan final states "
+                         f"differ: {diffs}")
+    say(f"  chunked vs --no-scan: the same f every round and final states "
+        f"bitwise equal ({len(diffs)} leaves of x, z, pi)")
+    algo, batch, flat, spec = full_width_flat(eager, engine, pt)
+    for attempt in range(1, ATTEMPTS + 1):
+        split, wall_us = full_width_split(algo, batch, flat, spec, modules)
+        busy = sum(split.values())
+        whole = split["gradient"] > 0 and split["update kernel"] > 0
+        say(f"  split of one eager undonated round at full width "
+            f"(torch.profiler, device us; session {attempt}): " + " ".join(
+                f"{k}={v:.1f}" for k, v in split.items())
+            + f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, the "
+            f"faster of 2) idle_share={1 - busy / wall_us:.4f}"
+            + ("" if whole else " [kernels lost by the profiler]"))
+        if whole:
+            break
+    numbers = full_width_update(algo, batch, flat, spec, ops, ref, card)
+    numbers["fedgia_update_batched_donated"]["launches"] = n[
+        "fedgia_update_batched_donated"]
+    del eager, flat
+
+    diag, n = train_run(train, counters, TRAIN_DIAG,
+                        "tinyllama-1.1b full width, diag_ema, --no-scan")
+    if n["fedgia_update_batched"] != diag["rounds"] or \
+            sum(n.values()) != diag["rounds"]:
+        raise SystemExit(f"full-width diag_ema: launches {n}")
+    for k in launches:
+        launches[k] += n[k]
+    numbers["fedgia_update_batched"]["launches"] = n["fedgia_update_batched"]
+    del diag
+    say("  (diag_ema at full width runs in the eager loop only: the chunked "
+        "driver's warm-up copies of its state would not fit, PERF.md §5)")
+    torch.cuda.empty_cache()
+
+    # --kernel off: the plain version on the card, an A/B of the kernel
+    runs = {}
+    for flag in ("on", "off"):
+        reset_counts(counters)
+        res = train.main(PAPER + ["--kernel", flag])
+        runs[flag] = res, read_counts(counters)
+        say(done_line(f"paper run --kernel {flag} (cuda)", res) +
+            f"; launches {runs[flag][1]}")
+    (on, n_on), (off, n_off) = runs["on"], runs["off"]
+    if sum(n_off.values()) or n_on["fedgia_update_batched_donated"] != \
+            on["rounds"]:
+        raise SystemExit(f"--kernel on/off: launches {n_on} / {n_off}")
+    hold_replayed_to_eager(on["state"], off["state"], "--kernel off",
+                           bitwise_only=True, label="--kernel on vs off")
+    if [h["f"] for h in on["history"]] != [h["f"] for h in off["history"]]:
+        raise SystemExit("--kernel on/off: f differs")
+    del runs, on, off
+
+    say("reduced --arch runs, card vs CPU (bf16):")
+    for arch in ("tinyllama-1.1b", "qwen1.5-0.5b", "rwkv6-3b"):
+        train_vs_cpu(train, arch)
+
+    say(f"examples/fl_transformer.py (fl-lm-134m, float32, m=4, 40 rounds, "
+        f"diag_ema, chunks of 10) on {card}:")
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    out = fl_transformer.main([])
+    n = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  f {out['f'][0]!r} -> {out['f'][-1]!r}, sigma={out['sigma']!r} "
+        f"r_hat={out['r_hat']!r}, {out['wall_s'] / len(out['f']) * 1e3!r} ms "
+        f"a round, launches {n}, peak device memory {gib(peak):.2f} GiB")
+    if n["fedgia_update_batched"] != len(out["f"]) or \
+            sum(n.values()) != len(out["f"]):
+        raise SystemExit(f"fl_transformer: launches {n}")
+    for k in launches:
+        launches[k] += n[k]
+    del out
+    torch.cuda.empty_cache()
+    say(f"phase 2g took {time.perf_counter() - t_phase!r} s")
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1912,7 +2322,7 @@ def main():
     from repro_torch.core import fedgia as fedgia_mod
     from repro_torch.core import hparams as hparams_mod
     from repro_torch.core.baselines import common as baselines_common
-    from repro_torch.examples import quickstart
+    from repro_torch.examples import fl_transformer, quickstart
     from repro_torch.kernels import _build
     from repro_torch.kernels.fedgia_update import ops, ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -2260,6 +2670,11 @@ def main():
     # 2f. uplink codecs, faults, guard, checkpoints ---------------------------
     uplink_phase(pop, counters, launches, card)
 
+    # 2g. federated training of the dense transformers -----------------------
+    at_width = training_phase(train, fl_transformer, counters, launches,
+                              card, ops, ref, engine, pt,
+                              (fedgia_mod, hparams_mod, api_mod), prng)
+
     # 3. serving path, full width -------------------------------------------
     # the default decode is one captured CUDA-graph step replayed a token;
     # --no-scan runs the same step eagerly, a dispatch per op
@@ -2368,6 +2783,9 @@ def main():
             if name == "fedgia_update_batched":
                 # the async rounds' form: an (m, N) anchor (phase 2e)
                 k["per_client_anchor"] = per_client_anchor
+            # the same kernel at tinyllama-1.1b's width (phase 2g)
+            k["at_model_width"] = at_width[name] if name in at_width \
+                else None
             kernels.append(k)
 
     g = torch.Generator(device="cuda").manual_seed(0)

@@ -5,6 +5,7 @@ same fields and defaults)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 H_POLICIES = ("scalar", "diag_ema", "gram")
 ALGORITHMS = ("fedgia", "fedavg", "fedprox", "fedpd", "scaffold")
@@ -177,6 +178,13 @@ class FedConfig:
     auto_lipschitz: bool = False
     h_policy: str = "diag_ema"  # diag_ema | scalar | gram (linear models only)
     collapsed: bool = True  # closed-form k0-step round (the kernel's form)
+    # the collapsed round's fused update: None runs the CUDA kernel on the
+    # card and its plain version on the CPU; True the kernel (the CPU has
+    # none, so there it raises); False the plain version on any device (an
+    # A/B switch). kernel_interpret is the reference's Pallas interpret
+    # mode, which has no CUDA meaning: True is rejected
+    use_kernel: Optional[bool] = None
+    kernel_interpret: bool = False
     # baseline hyper-parameters (paper §V.D)
     lr: float = 0.01
     prox_mu: float = 1e-4
@@ -194,6 +202,12 @@ class FedConfig:
             raise ValueError(f"k0 must be >= 1, got {self.k0}")
         if self.num_clients < 1:
             raise ValueError(f"num_clients must be >= 1, got {self.num_clients}")
+        if self.kernel_interpret:
+            raise ValueError(
+                "kernel_interpret=True is the reference's Pallas interpret "
+                "mode, which has no CUDA meaning: the port runs the kernel's "
+                "plain version on the CPU (use_kernel=None) or, anywhere, "
+                "with use_kernel=False")
         if self.inner_steps < 1:
             raise ValueError(
                 f"inner_steps must be >= 1, got {self.inner_steps}")

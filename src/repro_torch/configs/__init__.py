@@ -1,5 +1,7 @@
-"""Architecture registry of the port: the architectures its serving path
-runs (counterpart of `repro/configs/__init__.py`).
+"""Architecture registry of the port: the dense GQA and RWKV-6
+architectures that its serving and training paths run (counterpart of
+`repro/configs/__init__.py`; the MoE, MLA, hybrid and multimodal configs
+are ROADMAP queue 1 item 7b).
 
 Usage:  from repro_torch.configs import get_config
         cfg = get_config("tinyllama-1.1b")
@@ -7,11 +9,14 @@ Usage:  from repro_torch.configs import get_config
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
+from repro_torch.configs.deepseek_67b import CONFIG as _ds67
 from repro_torch.configs.qwen15_05b import CONFIG as _qwen
 from repro_torch.configs.rwkv6_3b import CONFIG as _rwkv6
+from repro_torch.configs.stablelm_12b import CONFIG as _stablelm
 from repro_torch.configs.tinyllama_11b import CONFIG as _tinyllama
 
-ARCHITECTURES = {c.name: c for c in [_rwkv6, _qwen, _tinyllama]}
+ARCHITECTURES = {c.name: c for c in [_rwkv6, _qwen, _stablelm, _tinyllama,
+                                     _ds67]}
 
 
 def get_config(name: str) -> ModelConfig:

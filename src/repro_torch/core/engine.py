@@ -779,8 +779,13 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
             draw += time.perf_counter() - td
             extras.append(_host_metrics(participation, pstate, mask))
             mask = mask.to(device)
-        flat, met = _round(algo, flat, batch, spec, mask, slots, cap, packed,
-                           stale, uplink, ws)
+        new, met = _round(algo, flat, batch, spec, mask, slots, cap, packed,
+                          stale, uplink, ws)
+        # advance the state in the dict the caller holds too, so the last
+        # round's buffers are freed (at a model's width, gigabytes each)
+        if new is not flat:
+            flat.clear()
+            flat.update(new)
         hist.append(met)
         if tol > 0 and float(met[tol_metric]) < tol:
             stopped = True
@@ -1119,6 +1124,11 @@ class _Chunked:
         self._warm_up()
         resumed = self._resume()
         if self.cuda:
+            # the warm-up's copies of the state stay cached in the default
+            # pool, where a capture's private pool cannot reuse them; at a
+            # model's width they are tens of gigabytes
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
             for length in lengths:  # others (a remainder that tol > 0 may
                 self._graph(length)  # never reach) are captured on use
             torch.cuda.synchronize(self.device)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import FedConfig
-from repro_torch.core import api, hparams, selection
+from repro_torch.core import api, hparams, prng, selection
 from repro_torch.kernels.fedgia_update import fedgia_update_flat
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -71,30 +71,38 @@ class FedGiA:
         m = fed.num_clients
         sdt = _DTYPES[fed.state_dtype]
         device = next(iter(params0.values())).device
-        if fed.auto_lipschitz:
-            raise NotImplementedError(
-                "auto_lipschitz (hparams.estimate_lipschitz) is not ported")
         r = torch.tensor(fed.lipschitz, dtype=torch.float32, device=device)
-        if (self.model is not None and hasattr(self.model, "lipschitz")
+        if fed.auto_lipschitz and init_batch is not None:
+            # the reference vmaps the probe over (client batch, key of
+            # split(rng, m)) and keeps the max, which a loop gives exactly
+            keys = prng.split(np.asarray(rng, np.uint32), m)
+            r = torch.stack([hparams.estimate_lipschitz(
+                self.loss_fn, params0, {k: v[i] for k, v in init_batch.items()},
+                keys[i]) for i in range(m)]).max()
+        elif (self.model is not None and hasattr(self.model, "lipschitz")
                 and init_batch is not None):
             r = self.model.lipschitz(init_batch).max().float()
 
         # paper §V.B: x_i^0 = pi_i^0 = 0; start from params0 instead (the
-        # paper's setting is params0 = zeros)
+        # paper's setting is params0 = zeros). The client-stacked entries
+        # are stride-0 views (m copies of x, of 0, of r) that take no
+        # memory; `engine.flatten_state` copies them into the round's own
+        # (m, N) buffers
         x = {k: v.to(sdt) for k, v in params0.items()}
-        z = {k: v.expand((m,) + v.shape).clone() for k, v in x.items()}
+        z = api.broadcast_clients(x, m)  # z = x + pi/sigma with pi = 0
+        zero = torch.zeros((), dtype=sdt, device=device)
         sigma = hparams.sigma_from(fed.sigma_t, r, m).float()
         state: Dict[str, Any] = {
             "x": x,
-            "z": z,  # z = x + pi/sigma with pi = 0
-            "pi": {k: torch.zeros_like(v) for k, v in z.items()},
+            "z": z,
+            "pi": {k: zero.expand(v.shape) for k, v in z.items()},
             "sigma": sigma,
             "r": r,
             "round": 0,
             "rng": np.array(rng, np.uint32),
         }
         if fed.h_policy == "diag_ema":
-            state["h"] = {k: r.expand(v.shape).clone() for k, v in z.items()}
+            state["h"] = {k: r.expand(v.shape) for k, v in z.items()}
         elif fed.h_policy == "gram":
             if self.model is None or not hasattr(self.model, "gram"):
                 raise ValueError("gram H policy requires a model exposing "
@@ -170,10 +178,16 @@ class FedGiA:
                      xbar=None):
         """Steps (1)-(3) of a round on the flat `state`: x̄ (eq. 11; given
         as `xbar` where `upload` made it), the (m,) branch select, and the
-        per-client losses, raveled gradients and ḡ. `mask=None` draws the
-        select from `state["rng"]` and the round index
-        (`selection.round_split`). Returns (xbar, sel, losses, grads_flat,
-        gbar).
+        per-client losses, the `grad_sq_norm` metric and ḡ. `mask=None`
+        draws the select from `state["rng"]` and the round index
+        (`selection.round_split`). Returns (xbar, sel, losses,
+        grad_sq_norm, gbar).
+
+        A model with a `dtype` (the transformer) takes its gradients at
+        x̄ cast to it, and ḡ_i = (1/m)∇f_i is scaled in that dtype, then
+        cast to the state's, as the reference orders it. The raveled
+        gradients and ḡ share one (m, N) buffer: the metric is read off
+        the first before ḡ is written over it.
 
         With `stale` (async rounds; `mask` is then the arrival mask) x̄
         is the staleness-weighted mean and the stale state advances in
@@ -196,14 +210,20 @@ class FedGiA:
         if stale is not None:
             api.stale_xbar_view(stale, xbar, mask)
         anchor = api.stale_anchor(stale, xbar)
+        dtype = getattr(self.model, "dtype", None)
+        cast = ((lambda t: {k: v.to(dtype) for k, v in t.items()})
+                if isinstance(dtype, torch.dtype) else (lambda t: t))
         if anchor is xbar:
-            losses, grads = self._vg(spec.unravel(xbar), batch)
+            losses, grads = self._vg(cast(spec.unravel(xbar)), batch)
         else:
-            losses, grads = self._vg_stacked(spec.unravel_stacked(anchor),
-                                             batch)
-        grads_flat = spec.ravel_stacked(grads)
-        gbar = (grads_flat * (1.0 / m)).to(_DTYPES[self.fed.state_dtype])
-        return xbar, mask, losses, grads_flat, gbar
+            losses, grads = self._vg_stacked(
+                cast(spec.unravel_stacked(anchor)), batch)
+        buf = spec.ravel_stacked(grads)
+        gsq = api.flat_grad_sq_norm(buf, spec)
+        sdt = _DTYPES[self.fed.state_dtype]
+        gbar = spec.ravel_stacked(grads, out=buf,
+                                  leaf_fn=lambda g: (g * (1.0 / m)).to(sdt))
+        return xbar, mask, losses, gsq, gbar
 
     def kernel_args(self, state, xbar, gbar, sel):
         """The fused update's arguments, as `round_flat` passes them to
@@ -245,8 +265,13 @@ class FedGiA:
         the caller must treat the input state's `pi` as consumed. Under
         diag_ema the H refresh reads ḡ after the update, as the reference
         orders it, so ḡ is not donated there and the undonated kernel
-        runs. The kernel never writes x' here, nor the anchor: x̄ is the
-        new state's x.
+        runs: it writes z' into the buffer of `state["z"]` (read only by
+        eq. (11), before it), and the H refresh writes `state["h"]` in
+        place, so the caller must treat the input state's `z` and `h` as
+        consumed. At a model's width this keeps the round within two
+        (m, N) buffers of its state. The kernel never writes x' here, nor
+        the anchor: x̄ is the new state's x. `fed.use_kernel=False` runs
+        the kernel's plain version in its place, on any device.
         """
         fed = self.fed
         m = fed.num_clients
@@ -261,16 +286,21 @@ class FedGiA:
                                                fed.alpha, draw=mask is None)
             if mask is None:
                 mask = drawn.to(state["z"].device)
-        xbar, sel, losses, grads_flat, gbar = self.round_inputs(
+        xbar, sel, losses, gsq, gbar = self.round_inputs(
             state, batch, spec, mask, stale, xbar=xbar)
         anchor = api.stale_anchor(stale, xbar)
+        diag = fed.h_policy == "diag_ema"
 
         # (4) both branches + masked combine
         if fed.collapsed and fed.h_policy != "gram":
             *args, k0 = self.kernel_args(state, anchor, gbar, sel)
-            donate = donate_kernel and fed.h_policy != "diag_ema"
-            _, pi_new, z_new = fedgia_update_flat(*args, k0=k0, donate=donate,
-                                                  want_x=False)
+            # under diag_ema the H refresh reads ḡ after the update, so
+            # the undonated kernel runs; with the state donated it writes
+            # z' into the state's z, which nothing reads after eq. (11)
+            _, pi_new, z_new = fedgia_update_flat(
+                *args, k0=k0, donate=donate_kernel and not diag,
+                want_x=False, use_kernel=fed.use_kernel,
+                z_out=state["z"] if donate_kernel and diag else None)
         else:
             xbar_c = (api.broadcast_clients(xbar, m) if anchor is xbar
                       else anchor)  # stride-0 view, or the stale anchors
@@ -288,12 +318,13 @@ class FedGiA:
             new_state["ef"] = ef_new
         if fprev_new is not None:
             new_state["fault_prev"] = fprev_new
-        if fed.h_policy == "diag_ema":
-            new_state["h"] = hparams.update_diag_h(state["h"], gbar,
-                                                   state["r"], m)
+        if diag:  # in place when the state is donated
+            new_state["h"] = hparams.update_diag_h(
+                state["h"], gbar, state["r"], m,
+                out=state["h"] if donate_kernel else None)
         metrics = {
             "f_xbar": api.client_scalar_mean(losses),
-            "grad_sq_norm": api.flat_grad_sq_norm(grads_flat, spec),
+            "grad_sq_norm": gsq,
             "selected": api.client_scalar_sum(sel),
             "cr": 2.0 * (state["round"] + 1),
             "local_grad_evals": 1.0,  # per client per round (C2)

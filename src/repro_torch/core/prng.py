@@ -10,7 +10,8 @@ arithmetic, so the port draws the same clients for the same seed:
 * `prng_key(seed)`: `jax.random.PRNGKey` (`threefry_seed`);
 * `split`, `fold_in`, `random_bits`: the key operations;
 * `permutation`: `jax.random.permutation(key, n)` (`random._shuffle`);
-* `uniform`, `gumbel`, `normal`: the float32 samplers.
+* `uniform`, `gumbel`, `normal`: the float32 samplers (`normal` of any
+  shape, as the reference's parameter initializers draw).
 
 Which stream. JAX has two forms of `split` and `random_bits`, chosen by
 the flag `jax_threefry_partitionable`. Its default became True in JAX
@@ -36,12 +37,18 @@ states the bounds).
 Device forms. The codecs draw an (m, N) block a round and the fault
 model a draw a client, keyed per row, inside a round that the chunked
 driver captures as a CUDA graph. `threefry2x32_t`, `fold_in_t`,
-`split_t`, `random_bits_t`, `uniform_t` and `randint_u32_t` are the same
+`split_t`, `random_bits_t`, `uniform_t`, `randint_u32_t` and `normal_t`
+are the same
 chains as plain torch functions on (..., 2) key tensors on any device:
 uint32 words held in int64 lanes and masked with `& 0xFFFFFFFF` after
 every add and shift (torch's uint32 has no arithmetic). They read
 nothing back to the host, so a captured round can run them, and give
 the numpy forms' words bit for bit (tests/test_torch_prng.py).
+`normal_t` draws the initial weights and the Lipschitz probe's
+directions on the card: its integers and uniform floats are the numpy
+form's bit for bit, but its `log1p` is PyTorch's (on the CPU within 4
+float32 ulps of the numpy form's normals, tests/test_torch_prng.py; on
+the card CUDA's, measured by chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -214,13 +221,20 @@ def erfinv(x: np.ndarray) -> np.ndarray:
         return np.where(np.abs(x) == f32(1.0), x * f32(np.inf), p * x)
 
 
-def normal(key, n: int) -> np.ndarray:
-    """`jax.random.normal(key, (n,))` (float32): sqrt(2)·erfinv(u) with u
-    uniform on (nextafter(-1, 0), 1)."""
+def normal(key, shape) -> np.ndarray:
+    """`jax.random.normal(key, shape)` (float32): sqrt(2)·erfinv(u) with u
+    uniform on (nextafter(-1, 0), 1). `shape` is an int or a tuple: the
+    words of an N-D draw are those of the flat one, in row-major order."""
     f32 = np.float32
+    shape = _shape(shape)
     lo = np.nextafter(f32(-1.0), f32(0.0))
-    u = uniform(key, n, lo, 1.0)
-    return f32(math.sqrt(2)) * erfinv(u)
+    u = uniform(key, math.prod(shape), lo, 1.0)
+    return (f32(math.sqrt(2)) * erfinv(u)).reshape(shape)
+
+
+def _shape(shape):
+    return (int(shape),) if np.ndim(shape) == 0 else tuple(int(s)
+                                                           for s in shape)
 
 
 # ----------------------------------------------------------- device forms
@@ -314,3 +328,37 @@ def randint_u32_t(keys: torch.Tensor, n: int, lo: int,
     lower = random_bits_t(halves[:, 1], n)
     off = (((higher % span) * mult) & _M32) + (lower % span)
     return lo + (off & _M32) % span
+
+
+def _erfinv_t(x: torch.Tensor) -> torch.Tensor:
+    """`erfinv` on a float32 tensor: the same polynomial, each c + p·w
+    rounded once through float64 (the FMA that XLA:CPU contracts)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(small, float(np.float32(_ERFINV_SMALL[0])),
+                    float(np.float32(_ERFINV_LARGE[0]))).float()
+    for cs, cl in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        c = torch.where(small, float(np.float32(cs)), float(np.float32(cl)))
+        p = (p.double() * w + c.double()).float()
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal_t(key: torch.Tensor, shape) -> torch.Tensor:
+    """`normal(key, shape)` on the key's device: `key` is a (2,) int64
+    key tensor (`key_t`). Returns float32 of `shape` (fewer than 2**32
+    words: each counter's high half is 0)."""
+    f32 = np.float32
+    shape = _shape(shape)
+    n = math.prod(shape)
+    if n >= 1 << 32:
+        raise ValueError(f"normal_t draws fewer than 2**32 words, got {n}")
+    lo = np.nextafter(f32(-1.0), f32(0.0))
+    bits = (random_bits_t(key.reshape(1, 2), n)[0] >> (32 - 23)) \
+        | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    del bits
+    # floats·(hi − lo) + lo rounded once, as `uniform`
+    scaled = (floats.double() * float(f32(1.0) - lo) + float(lo)).float()
+    u = torch.clamp_min(scaled, float(lo))
+    return (_erfinv_t(u) * float(f32(math.sqrt(2)))).reshape(shape)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_architectures
+from repro_torch.core.prng import prng_key
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import generate
 from repro_torch.models import Transformer
@@ -37,13 +38,14 @@ def make_prompts(requests: int, max_prompt: int, vocab_size: int):
 
 
 def run(args, params=None) -> np.ndarray:
-    """Serve the requests; `params` (a `Transformer` state dict) replaces
-    the drawn parameters. Returns the generated tokens (requests, gen)."""
+    """Serve the requests; `params` (a training tree, `Transformer.params`)
+    replaces the drawn parameters. Returns the generated tokens
+    (requests, gen)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
     model = Transformer(cfg, device)
     if params is None:
-        model.init(torch.Generator(device=device).manual_seed(0))
+        model.init(prng_key(0))
     else:
         model.load_params(params)
     lens, prompts = make_prompts(args.requests, args.max_prompt,

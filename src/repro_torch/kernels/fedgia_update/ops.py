@@ -131,9 +131,9 @@ def _update(name, xbar, gbar, pi, h, sel, sigma, m, k0, outs):
     return outs
 
 
-def _fresh(like, want_x=True):
+def _fresh(like, want_x=True, z_out=None):
     return (torch.empty_like(like) if want_x else None, torch.empty_like(like),
-            torch.empty_like(like))
+            torch.empty_like(like) if z_out is None else z_out)
 
 
 def fedgia_update_batched(xbar, gbar, pi, h, sel, sigma, m, *, k0: int):
@@ -182,7 +182,8 @@ def fedgia_update(xbar, gbar, pi, h, sel, sigma, m, *, k0: int):
 
 
 def fedgia_update_flat(xbar_c, gbar, pi, h, sel, sigma, m, *, k0: int,
-                       donate: bool = False, want_x: bool = True):
+                       donate: bool = False, want_x: bool = True,
+                       use_kernel=None, z_out=None):
     """Batched flat-buffer round update of the whole (mb, N) client state.
 
     ḡ and π are (mb, N); the anchor `xbar_c` is (mb, N) or the round's
@@ -202,9 +203,27 @@ def fedgia_update_flat(xbar_c, gbar, pi, h, sel, sigma, m, *, k0: int,
     fresh buffers even with `donate=True`. This departs from the
     reference's `fedgia_update_flat`, which runs the batched kernel (or
     its donated form) for one client too; the values are the same.
+
+    `z_out`: an (mb, N) buffer, none of the operands, that the undonated
+    kernel writes z' into instead of a fresh one (diag_ema's round, whose
+    ḡ is read again after the update, writes into the state's dead z).
+
+    `use_kernel` (`FedConfig.use_kernel`): None runs the kernel on a CUDA
+    tensor and its plain version on the CPU; True the kernel, which the
+    CPU has not, so there it raises; False the plain version
+    (`ref.fedgia_update_collapsed`) on any device, the same values, an
+    A/B switch that launches nothing.
     """
     _check_forms("fedgia_update_flat", xbar_c, gbar, pi, h)
     mb, n = gbar.shape
+    if use_kernel and gbar.device.type == "cpu":
+        raise ValueError("use_kernel=True: the CPU has no fedgia_update "
+                         "kernel (use_kernel=None runs its plain version)")
+    if use_kernel is False:
+        x, p, z = _plain(xbar_c, gbar, pi, h, sel, sigma, m, k0)
+        if z_out is not None:
+            z = z_out.copy_(z)
+        return (x if want_x else None), p, z
     if mb == 1:
         name, donate = "fedgia_update_single", False
     elif donate and n % LANES == 0:
@@ -218,7 +237,11 @@ def fedgia_update_flat(xbar_c, gbar, pi, h, sel, sigma, m, *, k0: int,
         return _update(name, xbar_c, gbar, pi, h, sel, sigma, m, k0,
                        (x_out, pi, gbar))
     ins = _pad_lanes((xbar_c, gbar, pi, h), n)
-    x, p, z = _update(name, *ins, sel, sigma, m, k0, _fresh(ins[1], want_x))
+    if z_out is not None and z_out.shape != ins[1].shape:
+        raise ValueError(f"z_out must be {tuple(ins[1].shape)}, got "
+                         f"{tuple(z_out.shape)}")
+    outs = _fresh(ins[1], want_x, z_out)
+    x, p, z = _update(name, *ins, sel, sigma, m, k0, outs)
     if ins[1].shape[1] != n:
         x, p, z = (None if t is None else t[:, :n] for t in (x, p, z))
     return x, p, z

@@ -14,9 +14,9 @@ keeps the per-token loop of eager steps. The capture is timed apart
 reference's `decode_s` includes the scan's compile. Runs on the CUDA
 device unless `--device cpu` is given, in which case the plain PyTorch
 versions stand in for the CUDA kernels and the same step runs eagerly.
-Parameters come from the model's own initialiser, drawn from a generator
-on the run's device seeded by `--seed`; the prompts are drawn from the
-same generator.
+Parameters are drawn from the threefry key of `--seed`, as the
+reference's `model.init(PRNGKey(seed))` draws them (`Transformer.init`);
+the prompts from a generator on the run's device seeded by `--seed`.
 """
 from __future__ import annotations
 
@@ -27,11 +27,12 @@ import torch
 
 from repro_torch.configs import get_config, list_architectures
 from repro_torch.core.graphs import scan_steps
+from repro_torch.core.prng import prng_key
 from repro_torch.device import resolve_device
-from repro_torch.launch.train import get_logger
+from repro_torch.utils import get_logger
 from repro_torch.models import Transformer
 
-log = get_logger("serve")
+log = get_logger("repro_torch.serve")
 
 
 def _sync(device):
@@ -86,20 +87,22 @@ def generate(model: Transformer, prompts, gen: int, window=None,
 
 
 def serve(args, params=None, prompts=None):
-    """One serving run. `params` (a `Transformer` state dict) and
-    `prompts` ((batch, prompt_len) ints) replace the drawn ones, so that a
-    caller can feed in another run's. Returns the generated tokens
-    (batch, gen) as a numpy array."""
+    """One serving run. `params` (a training tree, `Transformer.params`)
+    and `prompts` ((batch, prompt_len) ints) replace the drawn ones, so
+    that a caller can feed in another run's. The parameters are drawn
+    from the threefry key of `--seed` (as the training CLI's), the
+    prompts from a generator seeded with it. Returns the generated
+    tokens (batch, gen) as a numpy array."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = Transformer(cfg, device)
-    rng = torch.Generator(device=device).manual_seed(args.seed)
     if params is None:
-        model.init(rng)
+        model.init(prng_key(args.seed))
     else:
         model.load_params(params)
+    rng = torch.Generator(device=device).manual_seed(args.seed)
     if prompts is None:
         prompts = torch.randint(0, cfg.vocab_size, (args.batch,
                                                     args.prompt_len),

@@ -1,9 +1,26 @@
 """Federated training driver for the port: FedGiA and the paper's four
-comparison baselines on the paper's problems.
+comparison baselines on the paper's problems and on the dense
+transformers.
 
   PYTHONPATH=src python -m repro_torch.launch.train --problem linreg \
       --algo fedgia --clients 128 --k0 5 --rounds 200 --tol 1e-7
   PYTHONPATH=src python -m repro_torch.launch.train --algo fedprox --lr 0.002
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
+      --reduced --algo fedgia --clients 4 --rounds 20 --seq-len 64 \
+      --batch 2
+
+`--arch X [--reduced]` trains a registered dense GQA or RWKV-6
+architecture (`repro_torch.configs`) on the synthetic bigram token
+stream (`data/tokens.py`, `--batch` sequences of `--seq-len` tokens a
+client), from the weights the reference draws from `--seed`
+(`models.transformer.init_params`), with r_hat probed at the start
+(`hparams.estimate_lipschitz`, as the reference's `auto_lipschitz`).
+The gradients are taken in the config's dtype and the round state is
+float32. `--kernel auto|on|off` picks the round's fused update: auto the
+CUDA kernel on the card and its plain version on the CPU, on the kernel
+(which the CPU lacks), off the plain version anywhere (an A/B of the
+kernel); the reference's `interpret` has no CUDA meaning and is
+rejected. `--log-every N` logs every N-th round.
 
 Runs on the CUDA device unless `--device cpu` is given, in which case the
 plain PyTorch versions stand in for the CUDA kernels. Same flags and
@@ -64,45 +81,54 @@ checkpoint, bit for bit the run that was not cut.
 from __future__ import annotations
 
 import argparse
-import logging
-import sys
+import time
+
+import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.config import ALGORITHMS, FedConfig
+from repro_torch.configs import get_config, list_architectures
 from repro_torch.core.api import make_algorithm
 from repro_torch.core.clock import CLOCKS, make_clock
 from repro_torch.core.engine import run_rounds
 from repro_torch.core.faults import FAULT_KINDS, Screening, make_faults
 from repro_torch.core.prng import prng_key
 from repro_torch.core.selection import POLICIES, make_policy
-from repro_torch.data import linreg_noniid, logreg_data, to_torch
+from repro_torch.data import (
+    linreg_noniid,
+    logreg_data,
+    synthetic_batch_for,
+    to_torch,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models import (
     LeastSquares,
     LogisticRegression,
     NonConvexLogistic,
+    Transformer,
 )
+from repro_torch.models.transformer import init_params
+from repro_torch.utils import get_logger
 
-LOG_EVERY = 10
-
-
-def get_logger(name: str = "train") -> logging.Logger:
-    logger = logging.getLogger(f"repro_torch.{name}")
-    if not logger.handlers:
-        handler = logging.StreamHandler(sys.stderr)
-        handler.setFormatter(logging.Formatter(
-            f"%(asctime)s %(levelname).1s {name}] %(message)s",
-            datefmt="%H:%M:%S"))
-        logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
-        logger.propagate = False
-    return logger
+log = get_logger("repro_torch.train")
 
 
-log = get_logger("train")
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def build_problem(args, device):
+    if args.arch:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        model = Transformer(cfg, device)
+        batch = to_torch(synthetic_batch_for(cfg, args.clients, args.batch,
+                                             args.seq_len, seed=args.seed),
+                         device)
+        params0 = init_params(cfg, prng_key(args.seed), device)
+        return model, model.loss, params0, batch
     n = args.dim
     if args.problem == "linreg":
         model = LeastSquares(n)
@@ -149,9 +175,16 @@ def validate_flags(args) -> dict:
     `--watchdog`, a patience < 1 or a factor <= 1, `--watchdog` with
     `--store offload`, and `--checkpoint-every`/`--resume` without
     `--checkpoint-dir`, with `--chunk auto` or with `--no-scan` on a
-    store other than offload. Returns the chunk size (int or "auto"),
-    whether the rounds are async, the parsed lists (or None) and the
-    uplink's settings."""
+    store other than offload, and `--kernel interpret` (the reference's
+    Pallas interpret mode, which has no CUDA meaning). Returns the chunk
+    size (int or "auto"), whether the rounds are async, the parsed lists
+    (or None), `FedConfig.use_kernel` and the uplink's settings."""
+    if args.kernel == "interpret":
+        raise SystemExit(
+            "--kernel interpret is the reference's Pallas interpret mode, "
+            "which has no CUDA meaning: --kernel auto runs the kernel's "
+            "plain version on the CPU, --kernel off runs it anywhere")
+    use_kernel = {"auto": None, "on": True, "off": False}[args.kernel]
     chunk = args.chunk
     if chunk != "auto":
         try:
@@ -218,7 +251,7 @@ def validate_flags(args) -> dict:
         speeds = _parse_csv(args.client_speeds, args.clients,
                             "--client-speeds", float)
     out = {"chunk": chunk, "async_rounds": async_rounds, "weights": weights,
-           "periods": periods, "speeds": speeds}
+           "periods": periods, "speeds": speeds, "use_kernel": use_kernel}
     out.update(_validate_uplink(args, chunk, clock_kind, kind, store))
     return out
 
@@ -356,17 +389,38 @@ def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:
 def train(args) -> dict:
     """Run one training job. Returns the summary, plus the run's algorithm
     object, client batch and final state (`algorithm`, `batch`, `state`)
-    for callers that go on from it."""
+    for callers that go on from it. `args` may be a bare Namespace with
+    only some of the flags (the reference's tests pass such ones): the
+    parser's defaults fill in the rest."""
+    args = argparse.Namespace(**{**vars(build_parser().parse_args([])),
+                                 **vars(args)})
     parsed = validate_flags(args)
     device = resolve_device(args.device)
+    t0 = time.perf_counter()
     model, loss_fn, params0, batch = build_problem(args, device)
+    _sync(device)
+    t1 = time.perf_counter()
     fed = FedConfig(algorithm=args.algo, num_clients=args.clients, k0=args.k0,
                     alpha=args.alpha, sigma_t=args.sigma_t,
                     h_policy=args.h_policy, collapsed=not args.unrolled,
-                    lr=args.lr)
+                    lr=args.lr, auto_lipschitz=args.arch is not None,
+                    use_kernel=parsed["use_kernel"])
     algo = make_algorithm(fed, loss_fn, model=model)
     state = algo.init(params0, prng_key(args.seed + 1),
                       init_batch=batch)
+    _sync(device)
+    init_s, probe_s = t1 - t0, time.perf_counter() - t1
+    del params0  # the state holds its own copy (float32)
+    if args.arch:
+        cfg = model.cfg
+        log.info("model: %s, %d layers x d_model %d, %d parameters (%s), "
+                 "batch %d x %d tokens a client", cfg.name, cfg.num_layers,
+                 cfg.d_model, sum(v.numel() for v in state["x"].values()),
+                 cfg.dtype, args.batch, args.seq_len)
+        log.info("weights drawn in %.3fs", init_s)
+        if args.algo == "fedgia":
+            log.info("sigma=%.6g r_hat=%.6g (probed in %.3fs)",
+                     float(state["sigma"]), float(state["r"]), probe_s)
     if args.unrolled and args.algo == "fedgia":
         log.info("unrolled FedGiA round: the k0-step ADMM loop in torch "
                  "(no fused update kernel)")
@@ -439,7 +493,8 @@ def train(args) -> dict:
         for r in range(res.rounds_run)
     ]
     for h in history:
-        if h["round"] % LOG_EVERY == 0 or h["round"] == res.rounds_run - 1:
+        if h["round"] % args.log_every == 0 or \
+                h["round"] == res.rounds_run - 1:
             log.info("round %4d  f=%.6f  |grad|^2=%.3e",
                      h["round"], h["f"], h["err"])
     if res.stopped_early:
@@ -454,6 +509,10 @@ def train(args) -> dict:
         "final_err": history[-1]["err"],
         "wall_s": res.wall_s,
         "capture_s": res.capture_s,
+        # the problem's set-up (data, weights) and the algorithm's state
+        # (with --arch, the Lipschitz probe), outside wall_s
+        "init_s": init_s,
+        "probe_s": probe_s,
         "chunk_size": res.chunk_size,
         "draw_s": res.draw_s,
         "store": args.store,
@@ -698,6 +757,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-dir", default="",
                     help="where --checkpoint-every and --resume write and "
                          "read; alone, the final state is saved there")
+    ap.add_argument("--arch", choices=list_architectures(),
+                    help="train this transformer instead of --problem")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the architecture's reduced config (2 layers, "
+                         "d_model <= 256)")
+    ap.add_argument("--batch", type=int, default=2,
+                    help="--arch: sequences a client")
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="--arch: tokens a sequence")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--kernel", default="auto",
+                    choices=("auto", "on", "off", "interpret"),
+                    help="the round's fused update: auto (the CUDA kernel "
+                         "on the card, its plain version on the CPU), on, "
+                         "off (the plain version anywhere); interpret is "
+                         "rejected")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 

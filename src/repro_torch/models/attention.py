@@ -1,11 +1,11 @@
 """Attention: GQA (llama-style, optional QKV bias / sliding window).
 
 Counterpart of the GQA part of `repro/models/attention.py` (MLA is still
-to port). Prefill and train attend over the fresh K/V through the flash
-attention kernel's wrapper (`kernels/flash_attention`). Decode attends
-one new query against the cache with `blocked_attention`, the model's own
-streaming softmax in plain PyTorch, as the reference decodes with it: the
-reference has no kernel there.
+to port). Prefill attends over the fresh K/V through the flash attention
+kernel's wrapper (`kernels/flash_attention`). Train and decode attend
+with `blocked_attention`, the model's own streaming softmax in plain
+PyTorch, as the reference trains and decodes with it: the reference
+trains through no kernel, and the CUDA kernel has no backward.
 
 The KV cache is updated in place (the reference returns a new one): the
 tensors of `cache` are written and the same dict is returned, with no
@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import apply_rope, he_init
+from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e30
 
@@ -127,21 +127,6 @@ def blocked_attention(q, k, v, q_positions, kv_positions, *, window=None,
 
 
 # ===================================================================== GQA
-def gqa_init(gen, cfg: ModelConfig, dtype, device=None):
-    d, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = {
-        "wq": he_init(gen, (d, H * hd), d, dtype, device),
-        "wk": he_init(gen, (d, Kv * hd), d, dtype, device),
-        "wv": he_init(gen, (d, Kv * hd), d, dtype, device),
-        "wo": he_init(gen, (H * hd, d), H * hd, dtype, device),
-    }
-    if cfg.qkv_bias:
-        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((Kv * hd,), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((Kv * hd,), dtype=dtype, device=device)
-    return p
-
-
 def init_gqa_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                    device=None):
     Kv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -178,9 +163,9 @@ def _write_cache(cache, k_new, v_new, positions):
 def gqa_apply(params, cfg: ModelConfig, x, positions, cache, mode: AttnMode):
     """x: (B,S,d); positions: (S,). Returns (out, cache).
 
-    Train and prefill take positions 0..S-1 (what `Transformer.forward`
-    and `Transformer.prefill` give them): the flash kernel masks by
-    index."""
+    Prefill takes positions 0..S-1 (what `Transformer.prefill` gives it):
+    the flash kernel masks by index. Train masks by the positions it is
+    given, as the reference."""
     B, S, d = x.shape
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ params["wq"]
@@ -194,14 +179,16 @@ def gqa_apply(params, cfg: ModelConfig, x, positions, cache, mode: AttnMode):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    if mode.kind in ("train", "prefill"):
+    if mode.kind == "train":
+        out = blocked_attention(q, k, v, positions, positions,
+                                window=mode.window, block_k=mode.block_k)
+    elif mode.kind == "prefill":
         # prefill attends over the FRESH K/V (window-masked), independent of
         # ring-buffer wrap-around; the cache write keeps only the last W.
         out = flash_ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, window=mode.window).transpose(1, 2)
-        if mode.kind == "prefill":
-            _write_cache(cache, k, v, positions)
+        _write_cache(cache, k, v, positions)
     else:
         _write_cache(cache, k, v, positions)
         out = blocked_attention(

@@ -2,11 +2,12 @@
 
 Counterpart of `repro/models/rwkv.py`. Attention-free: the sequence mixer
 is a linear recurrence over a per-head (head_dim x head_dim) fp32 state.
-A sequence that starts from a zero state (train, prefill) runs the scan
-kernel's wrapper (`kernels/rwkv6_scan`); a decode step carries the state
-on with `wkv6_scan`, the model's own plain recurrence built from
-`wkv6_step`, as the reference decodes with its `lax.scan`: the TPU kernel
-takes no starting state.
+Prefill, which starts from a zero state, runs the scan kernel's wrapper
+(`kernels/rwkv6_scan`). Train (from the zero state) and a decode step
+(from the carried state) run `wkv6_scan`, the model's own plain
+recurrence built from `wkv6_step`, as the reference trains and decodes
+with its `lax.scan`: the TPU kernel takes no starting state, and the CUDA
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -14,37 +15,9 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
-from repro_torch.models.layers import he_init, rmsnorm_nohead, silu
+from repro_torch.models.layers import rmsnorm_nohead, silu
 
 DECAY_LORA = 64
-
-
-def time_mix_init(gen, cfg: ModelConfig, dtype, device=None):
-    d = cfg.d_model
-    H, hd = cfg.num_heads, cfg.rwkv_head_size
-    return {
-        "mu": 0.5 * torch.ones((5, d), dtype=dtype, device=device),
-        "wr": he_init(gen, (d, H * hd), d, dtype, device),
-        "wk": he_init(gen, (d, H * hd), d, dtype, device),
-        "wv": he_init(gen, (d, H * hd), d, dtype, device),
-        "wg": he_init(gen, (d, H * hd), d, dtype, device),
-        "wo": he_init(gen, (H * hd, d), H * hd, dtype, device),
-        "decay_w1": he_init(gen, (d, DECAY_LORA), d, dtype, device),
-        "decay_w2": he_init(gen, (DECAY_LORA, d), DECAY_LORA, dtype, device),
-        "decay_bias": torch.full((d,), -4.0, dtype=dtype, device=device),
-        "bonus_u": he_init(gen, (H, hd), hd, dtype, device),
-    }
-
-
-def channel_mix_init(gen, cfg: ModelConfig, dtype, device=None):
-    d, f = cfg.d_model, cfg.d_ff
-    return {
-        "mu_k": 0.5 * torch.ones((d,), dtype=dtype, device=device),
-        "mu_r": 0.5 * torch.ones((d,), dtype=dtype, device=device),
-        "wk": he_init(gen, (d, f), d, dtype, device),
-        "wv": he_init(gen, (f, d), f, dtype, device),
-        "wr": he_init(gen, (d, d), d, dtype, device),
-    }
 
 
 def _token_shift(x, shift_state):
@@ -74,7 +47,8 @@ def wkv6_scan(r, k, v, w, u, state0):
 
 def time_mix_apply(params, cfg: ModelConfig, x, tm_state):
     """tm_state: {"shift": (B,d), "wkv": (B,H,hdk,hdv) or None}; None is a
-    zero state, for which the scan kernel runs. Returns (out, new state)."""
+    zero state, for which the scan kernel runs (prefill). Returns (out, new
+    state)."""
     B, T, d = x.shape
     H, hd = cfg.num_heads, cfg.rwkv_head_size
     prev = _token_shift(x, tm_state["shift"])

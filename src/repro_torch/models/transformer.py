@@ -1,43 +1,51 @@
-"""Decoder-only transformer for the serving path: dense GQA and RWKV-6.
+"""Decoder-only transformer: dense GQA and RWKV-6, served and trained.
 
-Counterpart of `repro/models/transformer.py`. The parameters live in the
-module itself (a `ParamTree`) under the reference pytree's key paths;
-each group's layers, which the reference stacks on a leading axis, are
-entries of a list ("groups.dense.0.attn.wq" is layer 0 of the reference's
-`groups/dense/attn/wq`). Layers run in a Python loop. The cache keeps the
-reference's layout, each group's tensors stacked on a leading layer axis,
-and is updated in place. A decode step reads no host value (its position
-is a 0-d tensor on the device), so `launch/serve.py` captures it once as
-a CUDA graph and replays it for every token.
+Counterpart of `repro/models/transformer.py`. The parameters are a
+training tree (`init_params`): a flat dict with one tensor per leaf of
+the reference's tree, keyed by its path joined with "/"
+("groups/dense/attn/wq", the group's layers stacked on axis 0).
+`utils.pytree.ravel_spec` walks it in the reference's leaf order, so
+FedGiA's flat (m, N) buffers are the reference's lane for lane, and
+`torch.func` takes gradients of the loss over it. The serving module
+holds one such tree (`Transformer.params`); a forward unbinds each
+stacked leaf into its layers once.
+
+Layers run in a Python loop. The cache keeps the reference's layout, each
+group's tensors stacked on a leading layer axis, and is updated in place.
+A decode step reads no host value (its position is a 0-d tensor on the
+device), so `launch/serve.py` captures it once as a CUDA graph and
+replays it for every token.
 
 Modes:
-  train    — full causal attention, no cache
-  prefill  — causal attention, writes the cache, returns the last logits
+  train    — full causal attention, no cache: the plain blocked softmax
+             and WKV recurrence, as the reference trains (autograd and
+             `torch.func` go through them; the CUDA kernels have no
+             backward, and neither have the reference's Pallas kernels)
+  prefill  — causal attention, writes the cache, returns the last logits:
+             the flash attention and WKV scan kernels
   decode   — ONE new token against the cache (ring buffer when the
              sliding-window long-context variant is on)
 
-MoE, MLA, the hybrid SSM, the loss and the MTP head are still to port.
+MoE, MLA, the hybrid SSM and the MTP head are ROADMAP queue 1 item 7b.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (
-    ParamTree,
-    embed_init,
-    he_init,
-    rmsnorm,
-    rmsnorm_init,
-)
-from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.layers import rmsnorm
+from repro_torch.models.mlp import mlp_apply
+
+IGNORE_LABEL = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,82 +61,46 @@ def _layer_groups(cfg: ModelConfig):
     if cfg.moe or cfg.attention_type != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: MoE, MLA and hybrid layers are not ported yet "
-            "(ROADMAP queue 1 item 14); the port runs dense GQA and RWKV-6")
+            "(ROADMAP queue 1 item 7b); the port runs dense GQA and RWKV-6")
     return [LayerGroup("dense", cfg.num_layers, "dense")]
 
 
-def _block_init(cfg: ModelConfig, kind: str, gen, dtype, device):
-    d = cfg.d_model
-    if kind == "rwkv":
-        return {
-            "norm1": rmsnorm_init(d, dtype, device),
-            "time_mix": rwkv_lib.time_mix_init(gen, cfg, dtype, device),
-            "norm2": rmsnorm_init(d, dtype, device),
-            "channel_mix": rwkv_lib.channel_mix_init(gen, cfg, dtype, device),
-        }
-    return {
-        "norm1": rmsnorm_init(d, dtype, device),
-        "attn": attn_lib.gqa_init(gen, cfg, dtype, device),
-        "norm2": rmsnorm_init(d, dtype, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dtype, device),
-    }
-
-
-def _init_tree(cfg: ModelConfig, groups, gen, dtype, device) -> dict:
-    tree = {
-        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device),
-        "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
-    }
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = he_init(gen, (cfg.d_model, cfg.vocab_size),
-                                  cfg.d_model, dtype, device)
-    tree["groups"] = {
-        g.name: [_block_init(cfg, g.kind, gen, dtype, device)
-                 for _ in range(g.count)]
-        for g in groups
-    }
-    return tree
-
-
-class Transformer(ParamTree):
-    """The model and its parameters. `Transformer(cfg, device)` shapes the
-    parameters without storage; `init(gen)` draws them on `device` from a
-    generator there, or `load_params(state)` takes them from a state dict
-    (for instance `utils.convert.transformer_state_from_numpy` of the
-    reference's parameters)."""
+class Transformer:
+    """The model and its parameters. `Transformer(cfg, device)` holds none
+    yet; `init(key)` draws them on `device` from the reference's threefry
+    key (`init_params`), or `load_params(params)` takes a training tree
+    (for instance `utils.convert.training_tree_from_numpy` of the
+    reference's parameters, or a trained one)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        layer_groups = _layer_groups(cfg)
-        dtype = getattr(torch, cfg.dtype)
-        super().__init__(_init_tree(cfg, layer_groups, None, dtype, "meta"))
+        self.layer_groups = _layer_groups(cfg)
         self.cfg = cfg
-        self.layer_groups = layer_groups
-        self.dtype = dtype
+        self.dtype = getattr(torch, cfg.dtype)
         self.device = resolve_device(device)
+        self.params: Optional[dict] = None
 
     # ------------------------------------------------------------------ init
-    def init(self, gen: torch.Generator) -> "Transformer":
-        """Draw every parameter from `gen`, which lies on `self.device`."""
-        tree = _init_tree(self.cfg, self.layer_groups, gen, self.dtype,
-                          self.device)
-        return self.load_params(ParamTree(tree).state_dict())
+    def init(self, key) -> "Transformer":
+        """Draw every parameter from `key` (`prng.prng_key(seed)`), as the
+        reference's `Transformer.init(PRNGKey(seed))` does."""
+        self.params = init_params(self.cfg, key, self.device)
+        return self
 
-    def load_params(self, state: dict) -> "Transformer":
-        """Take every parameter from `state` ({key path: tensor}, the keys
-        of `state_dict()`), moved to `self.device`. Shapes and dtypes must
-        match."""
-        own = self.state_dict()
-        if set(state) != set(own):
+    def load_params(self, params: dict) -> "Transformer":
+        """Take every parameter from the training tree `params` (the keys,
+        shapes and dtypes of `init_params`'), moved to `self.device`."""
+        own = _draw(self.cfg, prng.prng_key(0),
+                    _Draws(self.dtype, torch.device("meta")))
+        if set(params) != set(own):
             raise KeyError(f"parameter keys differ: missing "
-                           f"{sorted(set(own) - set(state))}, unexpected "
-                           f"{sorted(set(state) - set(own))}")
-        for k, t in state.items():
+                           f"{sorted(set(own) - set(params))}, unexpected "
+                           f"{sorted(set(params) - set(own))}")
+        for k, t in params.items():
             if t.shape != own[k].shape or t.dtype != own[k].dtype:
                 raise ValueError(f"{k}: want {own[k].dtype} "
                                  f"{tuple(own[k].shape)}, got {t.dtype} "
                                  f"{tuple(t.shape)}")
-        self.load_state_dict({k: t.to(self.device) for k, t in state.items()},
-                             assign=True)
+        self.params = {k: t.to(self.device) for k, t in params.items()}
         return self
 
     # ----------------------------------------------------------------- cache
@@ -161,9 +133,11 @@ class Transformer(ParamTree):
             state = (cache if cache
                      else rwkv_lib.init_rwkv_state(cfg, x.shape[0], x.dtype,
                                                    x.device))
-            # train and prefill start from the zero state (`prefill` makes
-            # a fresh cache): the scan kernel, which assumes it, runs them
-            wkv = state["wkv"] if mode.kind == "decode" else None
+            # prefill starts from the zero state (`prefill` makes a fresh
+            # cache): the scan kernel, which assumes it, runs it. Train
+            # carries the zero state through the plain recurrence, which
+            # autograd can go through
+            wkv = None if mode.kind == "prefill" else state["wkv"]
             h, tm_new = rwkv_lib.time_mix_apply(
                 params["time_mix"], cfg,
                 rmsnorm(params["norm1"], x, cfg.norm_eps),
@@ -186,34 +160,63 @@ class Transformer(ParamTree):
         h = mlp_apply(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
         return x + h
 
-    def _run_group(self, group: LayerGroup, params, x, cache, positions,
-                   mode):
-        for i in range(group.count):
-            c_i = {k: a[i] for k, a in cache.items()} if cache else None
-            x = self._block_apply(group.kind, params[i], x, c_i, positions,
-                                  mode)
-        return x
-
-    def _hidden(self, tokens, cache, positions, mode):
-        x = self["embed"][tokens]
+    def _hidden(self, tree, tokens, cache, positions, mode):
+        """The layers over `tree` (`_nest` of a training tree), each
+        group's stacked leaves unbound into its layers once."""
+        x = tree["embed"][tokens]
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
+        elif mode.kind == "prefill" and not torch.equal(
+                positions.cpu().long(), torch.arange(x.shape[1])):
+            # the flash kernel masks by index (ROADMAP queue 3 i)
+            raise ValueError("prefill takes positions 0..S-1")
         for g in self.layer_groups:
-            x = self._run_group(g, self["groups"][g.name], x,
-                                cache[g.name] if cache else None, positions,
-                                mode)
+            layers = _unstack(tree["groups"][g.name], g.count)
+            group_cache = cache[g.name] if cache else None
+            for i in range(g.count):
+                c_i = ({k: a[i] for k, a in group_cache.items()}
+                       if group_cache else None)
+                x = self._block_apply(g.kind, layers[i], x, c_i, positions,
+                                      mode)
         return x
 
-    def _logits(self, x):
-        x = rmsnorm(self["final_norm"], x, self.cfg.norm_eps)
-        head = (self["embed"].T if self.cfg.tie_embeddings
-                else self["lm_head"])
+    def _logits(self, tree, x):
+        x = rmsnorm(tree["final_norm"], x, self.cfg.norm_eps)
+        head = (tree["embed"].T if self.cfg.tie_embeddings
+                else tree["lm_head"])
         return x @ head
 
-    def forward(self, tokens, *, mode: AttnMode = AttnMode("train")):
-        """Train-mode pass without a cache. tokens: (B,S) int. Returns the
-        logits (B,S,V)."""
-        return self._logits(self._hidden(tokens, None, None, mode))
+    def forward(self, tokens, *, cache=None, positions=None,
+                mode: AttnMode = AttnMode("train"), params=None):
+        """tokens: (B,S) int. Returns the logits (B,S,V).
+
+        `params`: a training tree (`init_params`) to run instead of the
+        module's own. `positions`: the tokens' absolute positions, (S,)
+        (default 0..S-1; prefill takes only those). `cache`
+        (`init_cache`) is written in place in prefill and decode modes."""
+        tree = _nest(self.params if params is None else params)
+        return self._logits(tree, self._hidden(tree, tokens, cache,
+                                               positions, mode))
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch, mode: AttnMode = AttnMode("train")):
+        """The reference's `Transformer.loss` on a training tree: batch
+        {"tokens": (B, S+1)} predicts tokens[:, 1:] from tokens[:, :-1].
+        Returns (loss, {"ce", "moe_aux", "acc", "loss"}); moe_aux is 0
+        for the dense and RWKV kinds. A pure function of its arguments (no
+        host read, no write to them), so `torch.func.vmap(grad_and_value)`
+        takes it over clients."""
+        if "tokens" not in batch or "embeds" in batch:
+            raise NotImplementedError(
+                "the port trains on token inputs only; embeds and VLM "
+                "inputs are ROADMAP queue 1 item 7b")
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        logits = self.forward(inputs, mode=mode, params=params)
+        ce, acc = _masked_ce(logits, labels)
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        total = ce + aux
+        return total, {"ce": ce, "moe_aux": aux, "acc": acc, "loss": total}
 
     # ------------------------------------------------------------- serving
     def prefill(self, tokens, *, cache_len: int,
@@ -224,8 +227,9 @@ class Transformer(ParamTree):
         `cache_dtype`: see `init_cache`."""
         cache = self.init_cache(tokens.shape[0], cache_len, cache_dtype)
         mode = AttnMode("prefill", window=window)
-        x = self._hidden(tokens, cache, None, mode)
-        return self._logits(x[:, -1]), cache
+        tree = _nest(self.params)
+        x = self._hidden(tree, tokens, cache, None, mode)
+        return self._logits(tree, x[:, -1]), cache
 
     def decode_step(self, cache, tokens, pos,
                     window: Optional[int] = None):
@@ -239,5 +243,181 @@ class Transformer(ParamTree):
             positions = torch.full((1,), pos, dtype=torch.long,
                                    device=tokens.device)
         mode = AttnMode("decode", window=window)
-        x = self._hidden(tokens, cache, positions, mode)
-        return self._logits(x)[:, -1], cache
+        tree = _nest(self.params)
+        x = self._hidden(tree, tokens, cache, positions, mode)
+        return self._logits(tree, x)[:, -1], cache
+
+
+def _masked_ce(logits, labels):
+    """Mean cross-entropy over the labels that are not IGNORE_LABEL, the
+    log-softmax in float32, and the argmax accuracy over the same."""
+    mask = labels != IGNORE_LABEL
+    safe = torch.where(mask, labels, 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1)
+    ce = -(ll * mask).sum() / denom
+    acc = ((logits.argmax(-1) == safe) & mask).sum() / denom
+    return ce, acc
+
+
+def _nest(params: dict) -> dict:
+    """A training tree ({"a/b/c": tensor}) as the nested dict the layers
+    read (tree["a"]["b"]["c"]); the tensors are not copied."""
+    root: dict = {}
+    for key, v in params.items():
+        *parents, leaf = key.split("/")
+        node = root
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return root
+
+
+def _unstack(tree, count):
+    """A nested dict of stacked tensors as `count` per-layer dicts of
+    views, one `unbind` a leaf: its backward stacks the layers' gradients
+    into one buffer, where indexing each layer would add a zero-filled
+    stacked-size gradient a layer (at TinyLlama's width, 22 x 4 GiB a
+    gradient)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(count)]
+    return tree.unbind(0)
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+# ------------------------------------------------- weights from the key
+class _Draws:
+    """The reference's initializers on the reference's threefry stream
+    (`core/prng.py`): the numpy forms on the CPU, the torch forms on the
+    card."""
+
+    def __init__(self, dtype, device):
+        self.dtype, self.device = dtype, device
+
+    def normal(self, key, shape):
+        if self.device.type == "meta":  # shapes only (`load_params`)
+            return torch.empty(shape, device="meta")
+        if self.device.type == "cpu":
+            return torch.from_numpy(prng.normal(key, shape))
+        return prng.normal_t(prng.key_t(key, self.device), shape)
+
+    def he(self, key, shape, fan_in):
+        """The reference's `layers.he_init`: normal · (1/sqrt(fan_in)),
+        both in float32."""
+        scale = np.float32(1.0) / np.sqrt(np.float32(max(fan_in, 1)))
+        return (self.normal(key, shape) * float(scale)).to(self.dtype)
+
+    def full(self, shape, value):
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)
+
+
+def _gqa_init(dr: _Draws, key, cfg: ModelConfig):
+    d, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ks = prng.split(key, 4)
+    p = {"wq": dr.he(ks[0], (d, H * hd), d),
+         "wk": dr.he(ks[1], (d, Kv * hd), d),
+         "wv": dr.he(ks[2], (d, Kv * hd), d),
+         "wo": dr.he(ks[3], (H * hd, d), H * hd)}
+    if cfg.qkv_bias:
+        p["bq"] = dr.full((H * hd,), 0.0)
+        p["bk"] = dr.full((Kv * hd,), 0.0)
+        p["bv"] = dr.full((Kv * hd,), 0.0)
+    return p
+
+
+def _mlp_init(dr: _Draws, key, d, f):
+    ks = prng.split(key, 3)
+    return {"w1": dr.he(ks[0], (d, f), d), "w3": dr.he(ks[1], (d, f), d),
+            "w2": dr.he(ks[2], (f, d), f)}
+
+
+def _rwkv_init(dr: _Draws, ks, cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    H, hd = cfg.num_heads, cfg.rwkv_head_size
+    lora = rwkv_lib.DECAY_LORA
+    tk = prng.split(ks[0], 8)
+    ck = prng.split(ks[1], 3)
+    return {
+        "time_mix": {
+            "mu": dr.full((5, d), 0.5),
+            "wr": dr.he(tk[0], (d, H * hd), d),
+            "wk": dr.he(tk[1], (d, H * hd), d),
+            "wv": dr.he(tk[2], (d, H * hd), d),
+            "wg": dr.he(tk[3], (d, H * hd), d),
+            "wo": dr.he(tk[4], (H * hd, d), H * hd),
+            "decay_w1": dr.he(tk[5], (d, lora), d),
+            "decay_w2": dr.he(tk[6], (lora, d), lora),
+            "decay_bias": dr.full((d,), -4.0),
+            "bonus_u": dr.he(tk[7], (H, hd), hd),
+        },
+        "channel_mix": {
+            "mu_k": dr.full((d,), 0.5),
+            "mu_r": dr.full((d,), 0.5),
+            "wk": dr.he(ck[0], (d, f), d),
+            "wv": dr.he(ck[1], (f, d), f),
+            "wr": dr.he(ck[2], (d, d), d),
+        },
+    }
+
+
+def _block_from_key(dr: _Draws, cfg: ModelConfig, kind: str, key):
+    """The reference's `Transformer._block_init(kind, key)`."""
+    d = cfg.d_model
+    ks = prng.split(key, 6)
+    norm = lambda: {"scale": dr.full((d,), 1.0)}  # noqa: E731
+    if kind == "rwkv":
+        p = _rwkv_init(dr, ks, cfg)
+        return {"norm1": norm(), "time_mix": p["time_mix"], "norm2": norm(),
+                "channel_mix": p["channel_mix"]}
+    return {"norm1": norm(), "attn": _gqa_init(dr, ks[0], cfg),
+            "norm2": norm(), "mlp": _mlp_init(dr, ks[1], d, cfg.d_ff)}
+
+
+def init_params(cfg: ModelConfig, key, device=None) -> dict:
+    """The training tree that the reference's `Transformer(cfg).init(key)`
+    draws, from the same threefry key (`prng.prng_key(seed)` for
+    `jax.random.PRNGKey(seed)`): the split into len(groups) + 4 keys, the
+    embedding's 0.02·normal, He-scaled normals for the matrices, and per
+    layer the reference's `vmap` over split(k, count), one key a layer,
+    each split again as `gqa_init`, `mlp_init` and the RWKV inits split
+    theirs; zero biases and unit norms. Drawn with the numpy forms on the
+    CPU and the torch forms on the card, layer by layer and leaf by leaf,
+    then stacked. The integer stream is the reference's bit for bit; a
+    normal sits within 4 float32 ulps of the reference's (numpy's `log1p`
+    against XLA's), so the bfloat16 weights are the reference's bit for
+    bit except where those ulps cross a rounding boundary
+    (tests/test_torch_train_arch.py states the share)."""
+    device = resolve_device(device)
+    return _draw(cfg, key, _Draws(getattr(torch, cfg.dtype), device))
+
+
+def _draw(cfg: ModelConfig, key, dr: _Draws) -> dict:
+    groups = _layer_groups(cfg)
+    ks = prng.split(np.asarray(key, np.uint32), len(groups) + 4)
+    tree = {
+        "embed": (dr.normal(ks[0], (cfg.vocab_size, cfg.d_model))
+                  * 0.02).to(dr.dtype),
+        "final_norm": {"scale": dr.full((cfg.d_model,), 1.0)},
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dr.he(ks[1], (cfg.d_model, cfg.vocab_size),
+                                cfg.d_model)
+    out = _flatten(tree)
+    for g, k in zip(groups, ks[2:]):
+        layers = [_flatten(_block_from_key(dr, cfg, g.kind, lk))
+                  for lk in prng.split(k, g.count)]
+        for leaf in list(layers[0]):
+            out[f"groups/{g.name}/{leaf}"] = torch.stack(
+                [layer.pop(leaf) for layer in layers])
+    return out

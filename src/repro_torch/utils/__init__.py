@@ -1,0 +1,1 @@
+from repro_torch.utils.logging import get_logger

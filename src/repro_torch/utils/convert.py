@@ -28,43 +28,22 @@ def params_from_numpy(tree, device):
     return _tensor(tree, device)
 
 
-def transformer_state_from_numpy(tree, device) -> dict:
-    """A JAX `Transformer.init` pytree as numpy -> the port's
-    `Transformer` state dict ({key path: tensor}). The reference stacks
-    each group's layers on a leading axis (`jax.vmap` over the layer
-    keys); the port keeps one entry per layer: `groups/dense/attn/wq[i]`
-    becomes "groups.dense.{i}.attn.wq"."""
+def training_tree_from_numpy(tree, device) -> dict:
+    """A JAX `Transformer.init` pytree as numpy -> the port's training tree
+    (`models.transformer.init_params`): one tensor a leaf, bit for bit,
+    keyed by its path joined with "/", each group's layers stacked on
+    axis 0 as in the reference."""
     out = {}
 
     def walk(node, path):
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + (k,))
-            return
-        out[".".join(path)] = _tensor(node, device)
+        else:
+            out["/".join(path)] = _tensor(node, device)
 
-    for k, v in tree.items():
-        if k != "groups":
-            walk(v, (k,))
-    for g, layers in tree["groups"].items():
-        n = len(next(iter(_leaves(layers))))
-        for i in range(n):
-            walk(_index(layers, i), ("groups", g, str(i)))
+    walk(tree, ())
     return out
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _index(tree, i):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
 
 
 def state_from_numpy(state: dict, device) -> dict:

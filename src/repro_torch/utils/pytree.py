@@ -5,9 +5,10 @@ A model's parameter dict is raveled ONCE per `run_rounds` call into a
 single lane-padded (N,) vector (client state: one (m, N) buffer), every
 round's elementwise math runs on that contiguous buffer, and the dict is
 rebuilt only at the gradient/metric/return boundaries. Leaves are laid
-out in sorted-key order, which is the order in which JAX flattens a
-dict, so both packages produce the same buffer from the same
-parameters.
+out in the order in which JAX flattens a nested dict, sorted keys at
+every level: a key "a/b/c" (a transformer's training tree,
+`models/transformer.py`) sorts as the path ("a", "b", "c"), so both
+packages produce the same buffer from the same parameters.
 
 The second half is the client store of `run_rounds(store="active" |
 "offload")`: `ActiveSet`, the packed participant tile of a round, and
@@ -20,7 +21,6 @@ import math
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 LANES = 128  # the flat buffer is padded to a multiple of this, with a zero
 # tail, so the round kernel never re-pads on the hot path
@@ -41,22 +41,28 @@ class RavelSpec:
     padded_size: int
     dtype: torch.dtype
 
-    def _pad(self, flat: torch.Tensor) -> torch.Tensor:
-        pad = self.padded_size - self.size
-        return F.pad(flat, (0, pad)) if pad else flat
-
     def ravel(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Dict -> contiguous (padded_size,) vector (zero-padded tail)."""
-        flat = torch.cat([tree[k].to(self.dtype).reshape(-1) for k in self.keys])
-        return self._pad(flat)
+        return self.ravel_stacked({k: v[None] for k, v in tree.items()})[0]
 
-    def ravel_stacked(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def ravel_stacked(self, tree: Dict[str, torch.Tensor],
+                      out: torch.Tensor = None, leaf_fn=None) -> torch.Tensor:
         """Client-stacked dict (leading axis m on every leaf) -> one
-        contiguous (m, padded_size) buffer."""
-        m = tree[self.keys[0]].shape[0]
-        flat = torch.cat(
-            [tree[k].to(self.dtype).reshape(m, -1) for k in self.keys], dim=1)
-        return self._pad(flat)
+        contiguous (m, padded_size) buffer, `out` where given (it may
+        hold anything: every lane is written), of `leaf_fn(leaf)` where
+        given. Each leaf is copied (and cast) straight into its lanes,
+        one at a time, so no temporary of the buffer's size is made: at
+        a model's width a buffer is gigabytes."""
+        first = tree[self.keys[0]]
+        m = first.shape[0]
+        if out is None:
+            out = torch.empty((m, self.padded_size), dtype=self.dtype,
+                              device=first.device)
+        for k, o, s in zip(self.keys, self.offsets, self.shapes):
+            leaf = tree[k] if leaf_fn is None else leaf_fn(tree[k])
+            out[:, o:o + math.prod(s)].view((m,) + s).copy_(leaf)
+        out[:, self.size:].zero_()
+        return out
 
     def unravel(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(..., padded_size) buffer -> dict (inverse of :meth:`ravel`).
@@ -73,8 +79,9 @@ class RavelSpec:
 
 
 def ravel_spec(tree: Dict[str, torch.Tensor]) -> RavelSpec:
-    """The :class:`RavelSpec` of `tree`'s layout (keys in sorted order)."""
-    keys = tuple(sorted(tree))
+    """The :class:`RavelSpec` of `tree`'s layout (keys in the order of
+    their "/"-separated paths, JAX's order for the nested tree)."""
+    keys = tuple(sorted(tree, key=lambda k: k.split("/")))
     shapes = tuple(tuple(tree[k].shape) for k in keys)
     dtypes = tuple(tree[k].dtype for k in keys)
     offsets, off = [], 0

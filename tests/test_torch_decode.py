@@ -37,11 +37,12 @@ from repro.configs import get_config as jax_get_config
 from repro.models import Transformer as JaxTransformer
 from repro_torch.configs import get_config
 from repro_torch.core.graphs import scan_steps
+from repro_torch.core.prng import prng_key
 from repro_torch.examples import serve_requests
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import Transformer
 from repro_torch.models.attention import _write_cache, cast_to_cache
-from repro_torch.utils.convert import transformer_state_from_numpy
+from repro_torch.utils.convert import training_tree_from_numpy
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
@@ -91,7 +92,7 @@ def test_serve_matches_reference_scan_and_no_scan(monkeypatch, arch,
                         lambda name: _f32(get_config(name)))
     params, prompts = _reference_inputs(
         arch, _args(arch, prompt_len, gen, long_context, False))
-    torch_params = transformer_state_from_numpy(params, "cpu")
+    torch_params = training_tree_from_numpy(params, "cpu")
     got = {}
     for no_scan in (False, True):
         args = _args(arch, prompt_len, gen, long_context, no_scan)
@@ -105,7 +106,7 @@ def test_serve_matches_reference_scan_and_no_scan(monkeypatch, arch,
 
 def _model(arch, seed=0, dtype="float32"):
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
-    return Transformer(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    return Transformer(cfg, "cpu").init(prng_key(seed))
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b"])
@@ -196,7 +197,7 @@ def test_fp8_cache_close_to_bf16_and_to_reference():
     jmodel = JaxTransformer(jcfg)
     jparams = jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
     model = Transformer(get_config("tinyllama-1.1b").reduced(), "cpu")
-    model.load_params(transformer_state_from_numpy(jparams, "cpu"))
+    model.load_params(training_tree_from_numpy(jparams, "cpu"))
     toks = torch.from_numpy(np.asarray(jax.random.randint(
         jax.random.PRNGKey(3), (2, 16), 0, jcfg.vocab_size))).long()
     for t, (l16, l8, lj) in enumerate(_fp8_runs(jparams, jmodel, model,
@@ -273,7 +274,7 @@ def test_serve_requests_matches_reference(monkeypatch, arch):
             argv + ["--device", "cpu"] + (["--no-scan"] if no_scan else []))
         buf = io.StringIO()
         with redirect_stdout(buf):
-            serve_requests.run(args, params=transformer_state_from_numpy(
+            serve_requests.run(args, params=training_tree_from_numpy(
                 jparams, "cpu"))
         got = buf.getvalue()
         for line in want.splitlines():  # the lens line and every request's

@@ -181,11 +181,28 @@ def test_init_matches_reference(raw, policy):
     assert state["z"]["x"].data_ptr() != state["pi"]["x"].data_ptr()
 
 
-def test_auto_lipschitz_is_refused():
+def test_auto_lipschitz_matches_reference(raw):
+    """`auto_lipschitz` was refused until `hparams.estimate_lipschitz` was
+    ported; it now probes each client from split(rng, m) and keeps the
+    max, as the reference: r and sigma at rtol 1e-4 (the reference's
+    float32 vdots lose ~1e-5, tests/test_torch_train_arch.py). Without an
+    init batch there is nothing to probe, and the model's own r stays
+    out too, as in the reference."""
     fed = FedConfig(num_clients=M, auto_lipschitz=True)
     algo = FedGiA(fed, LeastSquares(N).loss, model=LeastSquares(N))
-    with pytest.raises(NotImplementedError):
-        algo.init(LeastSquares(N).init("cpu"), prng_key(0))
+    batch = to_torch(raw, "cpu")
+    state = algo.init(LeastSquares(N).init("cpu"), prng_key(1),
+                      init_batch=batch)
+    jmodel = JaxLeastSquares(N)
+    jstate = make_algorithm(JaxFedConfig(num_clients=M, auto_lipschitz=True),
+                            jmodel.loss, model=jmodel).init(
+        jmodel.init(jax.random.PRNGKey(0)), jax.random.PRNGKey(1),
+        init_batch={k: jnp.asarray(v) for k, v in raw.items()})
+    for k in ("r", "sigma"):
+        np.testing.assert_allclose(float(state[k]), float(jstate[k]),
+                                   rtol=1e-4, err_msg=k)
+    assert float(algo.init(LeastSquares(N).init("cpu"),
+                           prng_key(1))["r"]) == fed.lipschitz
 
 
 # ------------------------------------------------------------- round_flat

@@ -10,7 +10,8 @@ multiply-adds). Over a grid of seeds, floats within stated bounds:
 `gumbel` within 2**-19 absolute (two float32 ulps at the largest Gumbel
 value of a draw, |g| < 16; numpy's `log` rounds apart from XLA:CPU's, and
 -log(-log(u)) cancels near 0, so no relative bound holds there) and
-`normal` within 4 float32 ulps (numpy's `log1p` against XLA:CPU's).
+`normal` within 4 float32 ulps (numpy's `log1p` against XLA:CPU's), of
+any shape (the flat draw reshaped); `normal_t` within 4 ulps of both.
 
 The device forms (`threefry2x32_t`, `fold_in_t`, `split_t`,
 `random_bits_t`, `uniform_t`, `randint_u32_t`, on (rows, 2) int64 key
@@ -147,6 +148,36 @@ def test_normal_within_ulps(seed, n):
     want = np.asarray(jax.random.normal(_jkey(seed), (n,)))
     assert got.dtype == np.float32
     np.testing.assert_array_max_ulp(got, want, maxulp=4)
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 5), (2, 1, 129), (7,)])
+def test_normal_of_a_shape_is_the_flat_draw_reshaped(shape):
+    """An N-D draw (the initializers' `normal(key, shape)`) takes the flat
+    draw's words in row-major order, as JAX's partitionable stream."""
+    key = prng.prng_key(11)
+    got = prng.normal(key, shape)
+    assert got.shape == shape
+    np.testing.assert_array_equal(got, prng.normal(key, int(np.prod(shape)))
+                                  .reshape(shape))
+    np.testing.assert_array_max_ulp(
+        got, np.asarray(jax.random.normal(_jkey(11), shape)), maxulp=4)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**32 - 1])
+@pytest.mark.parametrize("shape", [(1000,), (16, 33, 5)])
+def test_normal_t_within_ulps_of_numpy(seed, shape):
+    """`normal_t` (the torch form the card draws weights and probe
+    directions with) against the numpy form: within 4 float32 ulps (the
+    C library's log1p against PyTorch's; the integers and the uniform
+    floats are the same)."""
+    key = prng.prng_key(seed)
+    got = prng.normal_t(prng.key_t(key), shape)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_max_ulp(got.numpy(), prng.normal(key, shape),
+                                    maxulp=4)
+    np.testing.assert_array_max_ulp(
+        got.numpy(), np.asarray(jax.random.normal(_jkey(seed), shape)),
+        maxulp=4)
 
 
 def test_erfinv_is_xla_bitwise_on_the_same_input():

@@ -24,8 +24,9 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import Transformer as JaxTransformer
 from repro_torch.configs import get_config
+from repro_torch.core.prng import prng_key
 from repro_torch.launch import serve as serve_mod
-from repro_torch.utils.convert import transformer_state_from_numpy
+from repro_torch.utils.convert import training_tree_from_numpy
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 
@@ -69,15 +70,14 @@ def test_serve_generates_the_reference_tokens(monkeypatch, arch, prompt_len,
         ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len",
          str(prompt_len), "--gen", str(gen), "--device", "cpu"]
         + (["--long-context"] if long_context else []))
-    got = serve_mod.serve(args, params=transformer_state_from_numpy(
+    got = serve_mod.serve(args, params=training_tree_from_numpy(
         jparams, "cpu"), prompts=prompts)
     np.testing.assert_array_equal(got, want)
 
 
 def test_generate_returns_tokens_and_their_logits():
     cfg = get_config("rwkv6-3b").reduced()
-    model = serve_mod.Transformer(cfg, "cpu").init(
-        torch.Generator().manual_seed(0))
+    model = serve_mod.Transformer(cfg, "cpu").init(prng_key(0))
     prompts = torch.randint(0, cfg.vocab_size, (3, 5),
                             generator=torch.Generator().manual_seed(1))
     res = serve_mod.generate(model, prompts, 4)
@@ -125,7 +125,8 @@ def test_registry_holds_the_ported_architectures():
     from repro.configs import ARCHITECTURES as JAX_ARCHS
     from repro_torch.configs import ARCHITECTURES, list_architectures
 
-    assert list_architectures() == ["qwen1.5-0.5b", "rwkv6-3b",
+    assert list_architectures() == ["deepseek-67b", "qwen1.5-0.5b",
+                                    "rwkv6-3b", "stablelm-12b",
                                     "tinyllama-1.1b"]
     for name, cfg in ARCHITECTURES.items():
         want = JAX_ARCHS[name]

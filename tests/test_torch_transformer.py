@@ -3,7 +3,7 @@
 Reduced tinyllama-1.1b (dense GQA), qwen1.5-0.5b (QKV bias, tied
 embeddings) and rwkv6-3b, in float32 and in bfloat16. The JAX package's
 `Transformer.init` parameters are carried across with
-`utils.convert.transformer_state_from_numpy`, the tokens are made with
+`utils.convert.training_tree_from_numpy`, the tokens are made with
 numpy from a seed, and both packages run forward (train mode), prefill
 of 8 tokens and 4 decode steps. Tolerances (elementwise rtol and atol):
 
@@ -37,9 +37,10 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import Transformer as JaxTransformer
 from repro_torch.configs import get_config
+from repro_torch.core.prng import prng_key
 from repro_torch.models import Transformer
 from repro_torch.models.attention import AttnMode
-from repro_torch.utils.convert import _tensor, transformer_state_from_numpy
+from repro_torch.utils.convert import _tensor, training_tree_from_numpy
 
 ARCHS = ["tinyllama-1.1b", "qwen1.5-0.5b", "rwkv6-3b"]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
@@ -70,7 +71,7 @@ def pair(request):
     jmodel = JaxTransformer(jcfg)
     jparams = jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
     model = Transformer(cfg, "cpu").load_params(
-        transformer_state_from_numpy(jparams, "cpu"))
+        training_tree_from_numpy(jparams, "cpu"))
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, T))
     jt = jnp.asarray(toks, jnp.int32)
     want = {"forward": jmodel.forward(jparams, tokens=jt)[0]}
@@ -87,23 +88,15 @@ def pair(request):
 
 
 def _jax_key_paths(tree, prefix=()):
-    """{port key path: (shape, dtype)} of a JAX parameter pytree, its
-    stacked groups split per layer."""
+    """{port key path: (shape, dtype)} of a JAX parameter pytree: its
+    path joined with "/", each group's layers stacked on axis 0."""
     out = {}
     for k, v in tree.items():
         path = prefix + (k,)
         if isinstance(v, dict):
-            if path == ("groups",):
-                for g, layers in v.items():
-                    n = jax.tree.leaves(layers)[0].shape[0]
-                    for i in range(n):
-                        out.update(_jax_key_paths(
-                            jax.tree.map(lambda a: a[i], layers),
-                            ("groups", g, str(i))))
-            else:
-                out.update(_jax_key_paths(v, path))
+            out.update(_jax_key_paths(v, path))
         else:
-            out[".".join(path)] = (tuple(v.shape), str(v.dtype))
+            out["/".join(path)] = (tuple(v.shape), str(v.dtype))
     return out
 
 
@@ -120,15 +113,15 @@ def test_parameter_tree_matches_reference(pair):
     model, jparams = pair["model"], pair["jparams"]
     want = _jax_key_paths(jparams)
     got = {k: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
-           for k, t in model.state_dict().items()}
+           for k, t in model.params.items()}
     assert got == want
     assert model.cfg.param_count() == pair["jcfg"].param_count()
-    assert sum(t.numel() for t in model.parameters()) == sum(
+    assert sum(t.numel() for t in model.params.values()) == sum(
         a.size for a in jax.tree.leaves(jparams))
     # the tree a run draws itself has the same paths, shapes and dtypes
-    drawn = Transformer(model.cfg, "cpu").init(torch.Generator().manual_seed(0))
+    drawn = Transformer(model.cfg, "cpu").init(prng_key(0))
     assert {k: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
-            for k, t in drawn.state_dict().items()} == want
+            for k, t in drawn.params.items()} == want
 
 
 def test_forward_matches_reference(pair):
@@ -163,7 +156,7 @@ def test_bf16_arrays_carry_across_bit_for_bit():
 # ------------------------------------------------ the port on its own
 def _port(arch, seed=0):
     cfg = get_config(arch).reduced()
-    return cfg, Transformer(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    return cfg, Transformer(cfg, "cpu").init(prng_key(seed))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
