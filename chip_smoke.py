@@ -104,7 +104,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      `fedgia_update_batched` once a round that ran, with an (m, N)
      anchor wherever max_staleness > 0;
    * `repro_torch.benchmarks.wallclock_bench` (spreads 1, 4, 16; uniform
-     and poly weights; FedGiA_D, SCAFFOLD, FedAvg) on the card and on the
+     and poly weights; FedGiA_D, SCAFFOLD, FedAvg; up to WALLCLOCK_ROUNDS
+     rounds) on the card and on the
      CPU: the same CR, staleness and simulated time every round, Obj at
      rel 1e-3 (in both runners a row may stop one round apart where the
      longer run's stop metric lies within ROW_STOP_RTOL of tol; such a
@@ -176,6 +177,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      check that f falls, and 40 batched launches.
    Phase 3 then re-checks that the serving prefill still launches flash
    22 times and the scan 32 times.
+2h. The per-leaf pytree rounds (`--no-flat`) and the benchmark suite,
+   counts reset just before each run and read just after:
+   * the paper run with `--no-flat`, replayed and `--no-scan` (the same
+     rounds, a final state bitwise equal), against the flat run of phase
+     2 (the same rounds and key, so the same split every round; the
+     history's largest difference and whether it is bitwise printed)
+     and against the CPU's `--no-flat` run (`hold_card_to_cpu`);
+   * FedGiA_D at the population size, flat and `--no-flat`, replayed,
+     in this process (ms a round of each);
+   * reduced tinyllama-1.1b in float32 with `--no-flat` (a multi-leaf
+     tree; `engine.run_rounds`, the CLI has no dtype flag) on the card and
+     on the CPU (f every round within TRAIN_CPU_RTOL), and its flat run's
+     ms a round;
+   * Lemma IV.1 on the card (LEMMA: tests/test_fedgia_convergence.py's
+     setting): L(Z^k) printed each round, never rising by more than
+     LEMMA_ATOL;
+   every per-leaf run launching no kernel. Then `benchmarks.run --only
+   engine --only kernels` writes BENCH_engine.json into a temporary
+   directory (the million-client rows of phase 2d reused, not run
+   again), which asserts `speedup_scan_vs_legacy > 1.0` and
+   `speedup_flat_vs_pytree >= 0.98`, and `check_bench` gates it against
+   the committed port baseline; the wallclock rows of phases 2e and 2f
+   are written out and gated the same way (`check_bench --wallclock`).
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each), each
@@ -266,6 +290,11 @@ STATE_RTOL, STATE_ATOL = 1e-5, 1e-6
 
 PAPER = ["--rounds", "500"]
 PAPER_TOL = 1e-7  # the CLI's default --tol
+# a cut of depth for the script's time (PERF.md §4): phase 2e's
+# wallclock_bench rows run to 200 rounds on the card and on the CPU (the
+# reference's 400: its rows that converge do so by round 56, and the
+# others never converge)
+WALLCLOCK_ROUNDS = 200
 BASELINES = ("fedavg", "fedprox", "fedpd", "scaffold")
 POPULATION = ["--clients", "16384", "--dim", "1024", "--samples", "262144",
               "--rounds", "20", "--tol", "0", "--h-policy", "diag_ema"]
@@ -341,6 +370,17 @@ NORMAL_SEED, NORMAL_WORDS, NORMAL_MAX_ULPS = 5, 1 << 22, 64
 # the full-width update held against its plain version a column tile at a
 # time (the plain version's temporaries at (2, N) would not fit)
 TILE_COLUMNS = 1 << 24
+
+# phase 2h: the per-leaf rounds (--no-flat) and the benchmark suite.
+# Lemma IV.1 in tests/test_fedgia_convergence.py's setting: m 8, n 30,
+# d 640 (linreg seed 3), k0 5, alpha 0.5, sigma_t 6 (sigma >= 6 r / m),
+# scalar H, the state's key prng_key(7); L(Z^k) may rise by LEMMA_ATOL
+LEMMA = dict(m=8, n=30, d=640, seed=3, key=7, rounds=30)
+LEMMA_ATOL = 1e-6
+# the reduced tinyllama-1.1b in float32 (phase 2g's reduced settings):
+# card against CPU per round at phase 2g's TRAIN_CPU_RTOL
+TREE_ARCH = dict(arch="tinyllama-1.1b", m=4, k0=3, alpha=1.0, sigma_t=3.0,
+                 rounds=8, batch=2, seq=32)
 
 # full width; the warm-up run before each takes the same prefill, gen 2
 TINYLLAMA = ["--arch", "tinyllama-1.1b", "--batch", "4", "--prompt-len",
@@ -1132,7 +1172,8 @@ def client_store_phase(pop, train, counters, launches, card):
     """Phase 2d: the client stores at the population size on the
     population run's data (`pop`), the paper run under `--store active`
     against the CPU, and engine_bench's million-client rows. Adds the
-    launches of its runs to `launches`."""
+    launches of its runs to `launches`; returns the million-client rows
+    (phase 2h's engine section reuses them)."""
     from repro_torch.benchmarks import common as bench_common
     from repro_torch.benchmarks import engine_bench
     from repro_torch.config import FedConfig
@@ -1273,6 +1314,7 @@ def client_store_phase(pop, train, counters, launches, card):
         f"{off['dense_resident_bytes']} bytes of the dense store's lambda "
         f"buffer; {off['host_resident_bytes']} bytes in host memory")
     say(f"phase 2d took {time.perf_counter() - t_phase!r} s")
+    return rows
 
 
 def fp64_witness(row, rounds):
@@ -1376,10 +1418,11 @@ def print_rows(rows, keys, tag):
         say(f"  [{tag}] " + ",".join(repr(r[k]) for k in keys))
 
 
-def async_phase(pop, counters, launches, card, ops, ref):
+def async_phase(pop, counters, launches, card, ops, ref, kept):
     """Phase 2e: the async and clocked rounds. Adds the launches of its
-    runs to `launches`; returns the kernels line's entry for the (m, N)
-    anchor form of `fedgia_update_batched`."""
+    runs to `launches` and wallclock_bench's spread rows to
+    `kept["wallclock"]` (phase 2h writes them out); returns the kernels
+    line's entry for the (m, N) anchor form of `fedgia_update_batched`."""
     from repro_torch.benchmarks import async_bench
     from repro_torch.benchmarks import common as bench_common
     from repro_torch.benchmarks import engine_bench, wallclock_bench
@@ -1426,13 +1469,14 @@ def async_phase(pop, counters, launches, card, ops, ref):
     per_client += gia_launches(gpu, n, forms, "async_bench")
 
     say(f"wallclock_bench (m={bench_common.M_CLIENTS}, k0="
-        f"{wallclock_bench.K0}, spreads {wallclock_bench.SPREADS}, "
+        f"{wallclock_bench.K0}, up to {WALLCLOCK_ROUNDS} rounds, spreads "
+        f"{wallclock_bench.SPREADS}, "
         f"weightings {wallclock_bench.WEIGHTINGS}, max_staleness "
         f"{wallclock_bench.MAX_STALENESS}) on {card} and on the CPU:")
     reset_counts(counters)
-    gpu = wallclock_bench.run("cuda", collect_history=True)
+    gpu = wallclock_bench.run("cuda", WALLCLOCK_ROUNDS, collect_history=True)
     n, forms = read_counts(counters), dict(ops.anchor_forms)
-    cpu = wallclock_bench.run("cpu", collect_history=True)
+    cpu = wallclock_bench.run("cpu", WALLCLOCK_ROUNDS, collect_history=True)
     keys = ("algo", "spread", "weighting", "cr", "sim_time_s",
             "staleness_seen", "time_s", "obj", "converged")
     print_rows(gpu, keys, "cuda")
@@ -1441,6 +1485,7 @@ def async_phase(pop, counters, launches, card, ops, ref):
     hold_rows(gpu, cpu, ("algo", "spread", "weighting", "cr", "sim_time_s",
                          "staleness_seen", "converged"), "wallclock_bench")
     per_client += gia_launches(gpu, n, forms, "wallclock_bench")
+    kept["wallclock"] = [dict(r) for r in gpu]
     del gpu, cpu
 
     reset_counts(counters)
@@ -1660,11 +1705,11 @@ def numpy_randint16(prng, key, n):
     return (prng.random_bits(k2, n) & np.uint32(0xFFFF)).astype(np.int64)
 
 
-def uplink_phase(pop, counters, launches, card):
+def uplink_phase(pop, counters, launches, card, kept):
     """Phase 2f: the device threefry, the codecs, the faults, the guard
     and checkpoint-resume at the population size, and wallclock_bench's
     compression and fault rows against the CPU. Adds the launches of its
-    runs to `launches`."""
+    runs to `launches` and the wallclock rows to `kept["wallclock"]`."""
     import numpy as np
 
     from repro_torch.benchmarks import wallclock_bench
@@ -1958,6 +2003,7 @@ def uplink_phase(pop, counters, launches, card):
              "converged")
     hold_rows([g for g, _ in held], [c for _, c in held], exact,
               "wallclock uplink rows", tol=wallclock_bench.COMPRESS_TARGET_F)
+    kept["wallclock"] += [dict(r) for r in gpu]
     say(f"phase 2f took {time.perf_counter() - t_phase!r} s")
     return {"threefry_ms": times, "codec_ms": per, "uncompressed_ms": ms_plain}
 
@@ -2305,6 +2351,198 @@ def training_phase(train, fl_transformer, counters, launches, card, ops,
     torch.cuda.empty_cache()
     say(f"phase 2g took {time.perf_counter() - t_phase!r} s")
     return numbers
+
+
+def history_gap(a, b):
+    """(largest absolute difference, bitwise) of two runs' per-round
+    (f, |grad|^2) over the rounds both ran."""
+    ha, hb = cli_history(a), cli_history(b)
+    gap = max((abs(x - y) for p, q in zip(ha, hb) for x, y in zip(p, q)),
+              default=0.0)
+    return gap, ha == hb
+
+
+def states_bitwise(a, b):
+    """The differing bit patterns of two states' model-shaped entries."""
+    return {f"{k}.{leaf}": int((tree[leaf].view(torch.int32) != b[k][leaf]
+                                .view(torch.int32)).sum())
+            for k, tree in a.items() if isinstance(tree, dict)
+            for leaf in tree}
+
+
+def tree_arch_run(engine, device, flat):
+    """The reduced tinyllama-1.1b in float32 (TREE_ARCH), through
+    `engine.run_rounds` (the CLI has no dtype flag): the weights from
+    prng_key(0), r_hat probed, chunked driver. Returns the result."""
+    from repro_torch.config import FedConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.api import make_algorithm
+    from repro_torch.core.prng import prng_key
+    from repro_torch.data import synthetic_batch_for, to_torch
+    from repro_torch.models import Transformer
+    from repro_torch.models.transformer import init_params
+
+    t = TREE_ARCH
+    cfg = dataclasses.replace(get_config(t["arch"]).reduced(),
+                              dtype="float32")
+    model = Transformer(cfg, device)
+    batch = to_torch(synthetic_batch_for(cfg, t["m"], t["batch"], t["seq"],
+                                         seed=0), device)
+    fed = FedConfig(algorithm="fedgia", num_clients=t["m"], k0=t["k0"],
+                    alpha=t["alpha"], sigma_t=t["sigma_t"],
+                    auto_lipschitz=True)
+    algo = make_algorithm(fed, model.loss, model=model)
+    state = algo.init(init_params(cfg, prng_key(0), device), prng_key(1),
+                      init_batch=batch)
+    return engine.run_rounds(algo, state, batch, t["rounds"], flat=flat)
+
+
+def pytree_phase(train, counters, launches, card, engine, paper, pop,
+                 million, kept):
+    """Phase 2h: the per-leaf rounds (`--no-flat`), Lemma IV.1 on the card
+    and the benchmark suite (`benchmarks.run` with the engine and kernels
+    sections, `check_bench` against the committed port baselines). Adds
+    the suite's launches to `launches`."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.benchmarks import check_bench, wallclock_bench
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.config import FedConfig
+    from repro_torch.core.api import make_algorithm
+    from repro_torch.core.prng import prng_key
+    from repro_torch.data import linreg_noniid, to_torch
+    from repro_torch.models import LeastSquares
+
+    t_phase = time.perf_counter()
+    say(f"phase 2h: the per-leaf rounds (--no-flat), on {card}:")
+    tree, n, tree_eager, n_eager = run_pair(
+        train, counters, PAPER + ["--no-flat"], "paper run --no-flat")
+    diffs = states_bitwise(tree["state"], tree_eager["state"])
+    if sum(n.values()) or sum(n_eager.values()) or any(diffs.values()):
+        raise SystemExit(f"paper run --no-flat: launches {n} / {n_eager}, "
+                         f"replayed vs eager differing bits {diffs}")
+    gap, same = history_gap(paper, tree)
+    keys_equal = bool(np.array_equal(paper["state"]["rng"],
+                                     tree["state"]["rng"]))
+    diffs = states_bitwise(paper["state"], tree["state"])
+    say(f"  flat vs --no-flat: rounds {paper['rounds']} vs {tree['rounds']}"
+        f", the same key after the run (so the same split every round): "
+        f"{keys_equal}; history largest difference {gap!r}, bitwise "
+        f"{same}; final states' differing bits {diffs}")
+    if tree["rounds"] != paper["rounds"] or not keys_equal:
+        raise SystemExit("paper run: flat and --no-flat rounds or keys "
+                         "differ")
+    say(f"  per-round time replayed: flat {per_round_ms(paper)!r} ms, "
+        f"--no-flat {per_round_ms(tree)!r} ms; eager --no-flat "
+        f"{per_round_ms(tree_eager)!r} ms")
+    cpu = train.main(PAPER + ["--no-flat", "--device", "cpu"])
+    say(done_line("paper run --no-flat (cpu)", cpu))
+    card_vs_cpu_run(tree, cpu, "paper run --no-flat")
+    del tree, tree_eager, cpu
+
+    # the population size, both layouts in this process, replayed
+    algo, batch = pop["algorithm"], pop["batch"]
+    rounds = int(POPULATION[POPULATION.index("--rounds") + 1])
+    state = algo.init(algo.model.init("cuda"), prng_key(1),
+                      init_batch=batch)
+    runs = {}
+    for flat in (True, False):
+        reset_counts(counters)
+        res = engine.run_rounds(algo, state, batch, rounds, flat=flat)
+        runs[flat] = res, read_counts(counters)
+        say(f"  population FedGiA_D (m={algo.fed.num_clients}, "
+            f"{'flat' if flat else '--no-flat'}, replayed): "
+            f"{res.wall_s / rounds * 1e3!r} ms a round (capture "
+            f"{res.capture_s!r} s apart), f="
+            f"{float(res.history['f_xbar'][-1])!r}, launches "
+            f"{runs[flat][1]}")
+    (a, n_flat), (b, n_tree) = runs[True], runs[False]
+    if sum(n_tree.values()) or n_flat["fedgia_update_batched"] != rounds:
+        raise SystemExit(f"population: launches {n_flat} / {n_tree}")
+    launches["fedgia_update_batched"] += rounds
+    same = all(np.array_equal(a.history[k], b.history[k])
+               for k in a.history)
+    say(f"  population flat vs --no-flat: history bitwise {same}, final "
+        f"states' differing bits {states_bitwise(a.state, b.state)}")
+    del runs, a, b, state
+
+    # a multi-leaf tree: reduced tinyllama-1.1b in float32
+    reset_counts(counters)
+    tree = tree_arch_run(engine, "cuda", False)
+    n = read_counts(counters)
+    flat = tree_arch_run(engine, "cuda", True)
+    cpu = tree_arch_run(engine, "cpu", False)
+    f_card, f_cpu = (list(r.history["f_xbar"]) for r in (tree, cpu))
+    rel = max(abs(x - y) / abs(y) for x, y in zip(f_card, f_cpu))
+    say(f"  {TREE_ARCH['arch']} reduced float32 --no-flat ({len(tree.state['x'])} "
+        f"leaves): f {f_card} (cuda) vs {f_cpu} (cpu), largest relative "
+        f"gap {rel!r}; launches {n}; {tree.wall_s / tree.rounds_run * 1e3!r}"
+        f" ms a round replayed, flat {flat.wall_s / flat.rounds_run * 1e3!r}"
+        f" ms; flat vs --no-flat f bitwise "
+        f"{bool(np.array_equal(tree.history['f_xbar'], flat.history['f_xbar']))}")
+    if sum(n.values()) or len(f_card) != len(f_cpu) or \
+            rel > TRAIN_CPU_RTOL or not f_card[-1] < f_card[0]:
+        raise SystemExit(f"reduced --no-flat: launches {n}, f {f_card} vs "
+                         f"{f_cpu}")
+    del tree, flat, cpu
+
+    # Lemma IV.1 on the card
+    lm = LEMMA
+    model = LeastSquares(lm["n"])
+    batch = to_torch(linreg_noniid(lm["seed"], lm["d"], lm["n"], lm["m"]),
+                     "cuda")
+    algo = make_algorithm(FedConfig(
+        algorithm="fedgia", num_clients=lm["m"], k0=5, alpha=0.5,
+        sigma_t=6.0, h_policy="scalar"), model.loss, model=model)
+    state = algo.init(model.init("cuda"), prng_key(lm["key"]),
+                      init_batch=batch)
+    reset_counts(counters)
+    lag = [float(algo.lagrangian(state, batch))]
+    for _ in range(lm["rounds"]):
+        state, _ = algo.round(state, batch)
+        lag.append(float(algo.lagrangian(state, batch)))
+    rise = max(b - a for a, b in zip(lag, lag[1:]))
+    say(f"  Lemma IV.1 (m={lm['m']}, sigma_t=6, scalar H, per-leaf rounds on "
+        f"the card): L(Z^k) = {lag}; largest rise {rise!r} (allowed "
+        f"{LEMMA_ATOL}); launches {read_counts(counters)}")
+    if rise > LEMMA_ATOL or sum(read_counts(counters).values()):
+        raise SystemExit("Lemma IV.1: L(Z^k) increased on the card")
+
+    # the suite: engine and kernels sections, then the gates
+    say(f"benchmarks.run --only engine --only kernels on {card} (the "
+        f"million-client rows of phase 2d reused):")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "BENCH_engine.json")
+        reset_counts(counters)
+        out = bench_run.run(["engine", "kernels"], "cuda", path,
+                            wallclock_json="", engine_rows=million)
+        n = read_counts(counters)
+        eng = out["engine"]
+        for name in ("legacy", "scan", "scan_pytree", "async"):
+            say(f"  {name}: {json.dumps(eng['paths'][name])}")
+        say(f"  launches {n}; speedup_scan_vs_legacy="
+            f"{eng['speedup_scan_vs_legacy']!r} speedup_flat_vs_pytree="
+            f"{eng['speedup_flat_vs_pytree']!r} (the walls' ratio, the host "
+            f"draws in it: {eng['speedup_flat_vs_pytree_wall']!r}; flat and "
+            f"per-leaf histories bitwise: {eng['flat_vs_pytree_bitwise']})")
+        want = eng["rounds"] * eng["repeats"] * 4  # legacy, scan, 2 async
+        if n["fedgia_update_batched"] < want or \
+                sum(n.values()) != n["fedgia_update_batched"]:
+            raise SystemExit(f"engine section: launches {n}, want at least "
+                             f"{want} fedgia_update_batched")
+        launches["fedgia_update_batched"] += n["fedgia_update_batched"]
+        say(f"check_bench against {check_bench.BASELINE.relative_to(ROOT)}:")
+        if check_bench.main(["--current", path]):
+            raise SystemExit("check_bench: the engine gate failed")
+        wall = str(Path(tmp) / "BENCH_wallclock.json")
+        wallclock_bench.write_json(kept["wallclock"], wall)
+        say(f"check_bench --wallclock (phases 2e-2f's rows) against "
+            f"{check_bench.WALLCLOCK_BASELINE.relative_to(ROOT)}:")
+        if check_bench.main(["--wallclock", "--current", wall]):
+            raise SystemExit("check_bench: the wallclock gate failed")
+    say(f"phase 2h took {time.perf_counter() - t_phase!r} s")
 
 
 def main():
@@ -2662,18 +2900,25 @@ def main():
     say(f"phase 2c took {time.perf_counter() - t_phase!r} s")
 
     # 2d. client stores ---------------------------------------------------
-    client_store_phase(pop, train, counters, launches, card)
+    million = client_store_phase(pop, train, counters, launches, card)
 
     # 2e. async and clocked rounds ------------------------------------------
-    per_client_anchor = async_phase(pop, counters, launches, card, ops, ref)
+    kept = {}  # wallclock_bench's rows, which phase 2h writes out
+    per_client_anchor = async_phase(pop, counters, launches, card, ops, ref,
+                                    kept)
 
     # 2f. uplink codecs, faults, guard, checkpoints ---------------------------
-    uplink_phase(pop, counters, launches, card)
+    uplink_phase(pop, counters, launches, card, kept)
 
     # 2g. federated training of the dense transformers -----------------------
     at_width = training_phase(train, fl_transformer, counters, launches,
                               card, ops, ref, engine, pt,
                               (fedgia_mod, hparams_mod, api_mod), prng)
+
+    # 2h. the per-leaf rounds and the benchmark suite ---------------------------
+    pytree_phase(train, counters, launches, card, engine, paper, pop, million,
+                 kept)
+    del million, kept
 
     # 3. serving path, full width -------------------------------------------
     # the default decode is one captured CUDA-graph step replayed a token;

@@ -26,12 +26,16 @@ screened, with a quorum floor, against the same clock without faults
 (`fedgia_d_faulty` against `fedgia_d_faultref`): the simulated time the
 campaign costs to the loss target.
 
-The reference's overlap rows wait for the port's multi-device client
-axis.
+`write_json` writes the rows in the layout of the reference's
+BENCH_wallclock.json (`main --json PATH`, and `benchmarks/run.py`'s
+wallclock section), which `benchmarks/check_bench.py --wallclock` gates
+on simulated time to target. The reference's overlap rows
+(`run_overlap`) wait for the port's multi-device client axis.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 
@@ -245,11 +249,28 @@ def check_uplink(rows, max_rounds: int = MAX_ROUNDS):
     assert faulty["sim_time_s"] > clean["sim_time_s"], (faulty, clean)
 
 
+def write_json(rows, path, max_rounds: int = MAX_ROUNDS) -> dict:
+    """Write `rows` (of `run`, `run_compression`, `run_faults`) to `path`
+    as the reference's BENCH_wallclock.json: the sweep's settings and the
+    rows, each without its per-round `history`. Returns what it wrote."""
+    out = {"max_rounds": max_rounds, "clients": M_CLIENTS, "k0": K0,
+           "max_staleness": MAX_STALENESS,
+           "rows": [{k: v for k, v in r.items() if k != "history"}
+                    for r in rows]}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2, sort_keys=True)
+    print(f"wrote {path} ({len(rows)} rows)")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.benchmarks.wallclock_bench")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--max-rounds", type=int, default=MAX_ROUNDS)
+    ap.add_argument("--json", default="",
+                    help="also write the rows here (BENCH_wallclock.json's "
+                         "layout)")
     args = ap.parse_args(argv)
     rows = run(args.device, args.max_rounds)
     uplink = (run_compression(args.device, args.max_rounds)
@@ -263,6 +284,8 @@ def main(argv=None):
               f"{r['obj']:.6f},{r['converged']}")
     check(rows, args.max_rounds)
     check_uplink(uplink, args.max_rounds)
+    if args.json:
+        write_json(rows + uplink, args.json, args.max_rounds)
     return rows + uplink
 
 

@@ -3,6 +3,9 @@ single-device subset of `repro/core/api.py`).
 
 Client-stacked tensors carry the client index on axis 0. The reference's
 sharded reductions (psum over a mesh axis) have no counterpart here yet.
+`client_mean`, `masked_update`, `broadcast_clients` and the stale-x̄
+views take the flat buffers or trees of leaves (the per-leaf rounds of
+`run_rounds(flat=False)`).
 The `_active` twins reduce a round's packed participant tile
 (`store="active"` / `"offload"`, `utils.pytree.ActiveSet`). The uplink
 stages (the codec of `core/compress.py`, the faults and screening of
@@ -13,12 +16,14 @@ the module.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import compress, prng
 from repro_torch.core import faults as faults_mod
+from repro_torch.utils import pytree as pt
 
 LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, dict]]
@@ -29,14 +34,21 @@ def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def client_mean(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+def client_mean(x, mask: Optional[torch.Tensor] = None,
+                weights: Optional[torch.Tensor] = None):
     """Eq. (11): the mean over the leading client axis. With `mask` ((m,)
     bool, at least one True) the mean over the masked-in clients only:
     their sum over their count. With `weights` ((m,), e.g.
     `stale_weights`) the weighted mean Σ w_i x_i / Σ w_i, masked-out
     clients weighing 0; `weights=None` keeps the unweighted paths bit for
-    bit (uniform staleness weighting passes None)."""
+    bit (uniform staleness weighting passes None).
+
+    `x` is one (m, ...) tensor (the flat (m, N) buffer) or a tree of them
+    (a dict, the per-leaf rounds). A leaf is reduced as the flat buffer
+    reduces its lanes (`_as_lanes`), so a tree's mean is the flat
+    buffer's, element for element."""
+    if isinstance(x, dict):
+        return pt.tree_map(lambda v: _leaf_mean(v, mask, weights), x)
     if weights is None:
         if mask is None:
             return torch.mean(x, dim=0)
@@ -47,6 +59,25 @@ def client_mean(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         w = torch.where(mask, w, 0.0)
     num = torch.sum(_rows(w, x).to(x.dtype) * x, dim=0)
     return num / torch.sum(w).to(num.dtype)
+
+
+def _as_lanes(leaf: torch.Tensor) -> torch.Tensor:
+    """A client-stacked leaf as (m, k) rows zero-padded to whole rows of
+    `pt.LANES` lanes, the flat buffer's layout. A reduction over the
+    client axis orders its sums by the row width on the CPU (the tail of
+    a row that is no whole vector is summed apart), so a leaf summed as
+    (m, ...) can differ in the last bit from the same lanes of the flat
+    buffer; padded, each column is summed as the flat buffer's."""
+    rows = leaf.reshape(leaf.shape[0], -1)
+    pad = -rows.shape[1] % pt.LANES
+    return torch.nn.functional.pad(rows, (0, pad)) if pad else rows
+
+
+def _leaf_mean(leaf, mask, weights):
+    """`client_mean` of one client-stacked leaf, on its `_as_lanes` rows."""
+    k = math.prod(leaf.shape[1:])
+    return client_mean(_as_lanes(leaf), mask, weights)[:k].reshape(
+        leaf.shape[1:])
 
 
 def client_scalar_mean(x: torch.Tensor) -> torch.Tensor:
@@ -75,10 +106,12 @@ def broadcast_clients(tree, m: int):
     return tree.unsqueeze(0).expand((m,) + tuple(tree.shape))
 
 
-def masked_update(mask: torch.Tensor, new: torch.Tensor,
-                  old: torch.Tensor) -> torch.Tensor:
-    """Row-wise select over the client axis: mask True takes `new`."""
-    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+def masked_update(mask: torch.Tensor, new, old):
+    """Row-wise select over the client axis: mask True takes `new`. `new`
+    and `old` are (m, ...) tensors or trees of them."""
+    return pt.tree_map(
+        lambda n, o: torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)),
+                                 n, o), new, old)
 
 
 def _flat_sq_norm(vec: torch.Tensor, spec) -> torch.Tensor:
@@ -369,9 +402,10 @@ class StaleXbar:
     """Per-client stale view of the global anchor x̄ (counterpart of
     `repro/core/api.py::StaleXbar`, a plain dataclass here).
 
-    * ``anchor``: (m, N) flat buffer, client i's last-downloaded x̄. Under
-      ``max_staleness == 0`` it is never read and stays the stride-0
-      broadcast of the initial x̄.
+    * ``anchor``: (m, N) flat buffer, client i's last-downloaded x̄ (in
+      the per-leaf rounds a tree of (m, ...) leaves, as the reference's
+      per-leaf anchors). Under ``max_staleness == 0`` it is never read
+      and stays the stride-0 broadcast of the initial x̄.
     * ``age``: (m,) int32, rounds since client i's last download, as seen
       entering a round; `init_stale_xbar` sets ``max_staleness + 1`` so
       that round 0 force-syncs every client.
@@ -381,8 +415,8 @@ class StaleXbar:
       ``last_used <= max_staleness``.
     * ``max_staleness``, ``weighting``, ``decay``: static Python values
       (the bound, and the `stale_weights` schedule).
-    * ``view``: the (m, N) buffer the round's per-client anchors are
-      written into (None under ``max_staleness == 0``).
+    * ``view``: the (m, N) buffer (or tree) the round's per-client
+      anchors are written into (None under ``max_staleness == 0``).
 
     The views below update the tensors IN PLACE and hand back the same
     object, so a round captured in a CUDA graph writes the static buffers
@@ -407,20 +441,22 @@ class StaleXbar:
     def clone(self) -> "StaleXbar":
         """A copy with buffers of its own (the chunked driver's warm-up
         round runs on one)."""
-        own = (lambda t: t) if self.always_fresh else torch.clone
         return dataclasses.replace(
-            self, anchor=own(self.anchor), age=self.age.clone(),
-            last_used=self.last_used.clone(),
-            view=None if self.view is None else torch.empty_like(self.view))
+            self, anchor=(self.anchor if self.always_fresh
+                          else pt.tree_map(torch.clone, self.anchor)),
+            age=self.age.clone(), last_used=self.last_used.clone(),
+            view=(None if self.view is None
+                  else pt.tree_map(torch.empty_like, self.view)))
 
 
 STALE_WEIGHTINGS = ("uniform", "poly", "exp")
 
 
-def init_stale_xbar(anchor: torch.Tensor, m: int, max_staleness: int,
+def init_stale_xbar(anchor, m: int, max_staleness: int,
                     weighting: str = "uniform", decay: float = 1.0,
                     resident: bool = True) -> StaleXbar:
-    """The engine's initial staleness state from the (N,) flat x̄⁰: every
+    """The engine's initial staleness state from the (N,) flat x̄⁰ (or
+    the per-leaf rounds' x̄⁰ tree, which gives per-leaf anchors): every
     client's view is x̄⁰ and `age` starts past the bound, so round 0
     force-syncs every client. `weighting`/`decay` select the aggregation
     schedule (`stale_weights`). `resident=False` (the host-offloaded
@@ -435,9 +471,9 @@ def init_stale_xbar(anchor: torch.Tensor, m: int, max_staleness: int,
     buf = broadcast_clients(anchor, m)
     view = None
     if max_staleness > 0 and resident:
-        buf = buf.contiguous()
-        view = torch.empty_like(buf)
-    dev = anchor.device
+        buf = pt.tree_map(torch.Tensor.contiguous, buf)
+        view = pt.tree_map(torch.empty_like, buf)
+    dev = pt.tree_leaves(anchor)[0].device
     return StaleXbar(
         anchor=buf,
         age=torch.full((m,), max_staleness + 1, dtype=torch.int32,
@@ -495,7 +531,8 @@ def stale_xbar_view(stale: StaleXbar, xbar: torch.Tensor,
     broadcast of x̄ and no select runs. Otherwise the anchors are written
     into ``stale.view`` and the refreshed views into ``stale.anchor``,
     both in place: the round reads ``stale.view``, which stays unchanged
-    until the next round's view. Returns ``(anchors, stale)``.
+    until the next round's view. `xbar` and the buffers are tensors or
+    trees, leaf by leaf. Returns ``(anchors, stale)``.
     """
     m = stale.age.shape[0]
     if stale.always_fresh:
@@ -503,9 +540,11 @@ def stale_xbar_view(stale: StaleXbar, xbar: torch.Tensor,
         return broadcast_clients(xbar, m), stale
     force = stale.age > stale.max_staleness
     refresh = torch.logical_or(mask, force)
-    view = torch.where(_rows(force, stale.anchor), xbar, stale.anchor,
-                       out=stale.view)
-    torch.where(_rows(refresh, view), xbar, view, out=stale.anchor)
+    view = pt.tree_map(
+        lambda a, x, v: torch.where(_rows(force, a), x, a, out=v),
+        stale.anchor, xbar, stale.view)
+    pt.tree_map(lambda v, x, a: torch.where(_rows(refresh, v), x, v, out=a),
+                view, xbar, stale.anchor)
     _advance(stale, force, refresh)
     return view, stale
 

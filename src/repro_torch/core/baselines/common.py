@@ -19,6 +19,12 @@ between a round's local work and eq. (11): `FlatBaseline.upload` and
 (`compress_contrib`, with the error-feedback residual ``ef``) and then
 the fault injection and screening, whose mask replaces the round's for
 the aggregation only.
+
+Each baseline's `round` is the per-leaf twin of its `round_flat`
+(`run_rounds(flat=False)`): the k0 local steps on the state's dicts,
+leaf by leaf as the reference writes them, and eq. (11) and the metrics
+through `FlatBaseline.tree_result`, which reduces each leaf as the flat
+buffer's lanes, so on the CPU the two rounds agree bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import api
+from repro_torch.utils import pytree as pt
 
 
 class FlatBaseline:
@@ -106,6 +113,24 @@ class FlatBaseline:
             if fprev_new is not None:
                 updates["fault_prev"] = fprev_new
         return up, active, updates, n_scr
+
+    def tree_result(self, state, contrib, losses0, grads0, mask, stale,
+                    grad_evals, **updates):
+        """(new state, metrics) of a per-leaf round: eq. (11) over the
+        clients' `contrib` dict (masked, staleness-weighted) and the
+        metrics of `api.flat_round_aggregate` on the dicts, the gradients
+        in the state's dtype as the flat buffer holds them; then
+        `_result`."""
+        sdt = getattr(torch, self.fed.state_dtype)
+        agg = (api.client_mean(contrib, mask=mask,
+                               weights=api.stale_weights(stale)),
+               pt.tree_sq_norm(api.client_mean(pt.tree_cast(grads0, sdt))),
+               torch.mean(losses0),
+               torch.sum(participation_vec(losses0, mask)))
+        return self._result(state, agg, grad_evals, **updates)
+
+    def _device(self, state):
+        return pt.tree_leaves(state["x"])[0].device
 
     def _result(self, state, aggregate, grad_evals, n_scr=None, **updates):
         """(new state, metrics) of a round from the outputs of

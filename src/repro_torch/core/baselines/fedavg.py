@@ -1,8 +1,8 @@
 """FedAvg [McMahan et al. 2017], the paper's §V.D non-stochastic version:
 every client runs k0 full-batch GD steps between aggregations.
 
-Counterpart of `repro/core/baselines/fedavg.py`, flat path: the dense
-round and the active-set round. Per round, k0 gradient evaluations per
+Counterpart of `repro/core/baselines/fedavg.py`: the dense round and the
+active-set round on the flat buffers, and the per-leaf round. Per round, k0 gradient evaluations per
 client (FedGiA's: one), the computational comparison of paper Table I.
 No hand-written kernel: the local steps are the gradients' batched
 products (cuBLAS) and elementwise updates, as the reference's plain XLA
@@ -11,6 +11,7 @@ ops.
 from __future__ import annotations
 
 from repro_torch.core import api
+from repro_torch.utils import pytree as pt
 from repro_torch.core.baselines.common import (
     FlatBaseline,
     flat_value_and_grad,
@@ -72,3 +73,18 @@ class FedAvg(FlatBaseline):
             x, grads0, losses0, active, spec,
             weights=api.stale_weights(stale))
         return self._result(state, agg, self.fed.k0, n_scr, **updates)
+
+    def round(self, state, batch, mask=None, stale=None):
+        """`round_flat` on the state's dicts (`run_rounds(flat=False)`):
+        the k0 GD steps leaf by leaf, then eq. (11) and the metrics
+        (`tree_result`)."""
+        fed = self.fed
+        x = self._anchors(state, fed.num_clients, mask, stale)
+        for j in range(fed.k0):
+            losses, grads = self._vg_stacked(x, batch)
+            if j == 0:
+                losses0, grads0 = losses, grads
+            lr = lr_schedule(fed.lr, state["step"] + j, self._device(state))
+            x = pt.tree_map(lambda p, g: p - lr * g.to(p.dtype), x, grads)
+        return self.tree_result(state, x, losses0, grads0, mask, stale,
+                                fed.k0)

@@ -1,8 +1,8 @@
 """FedPD [Zhang et al. 2021], oracle choice I / option I per paper §V.D:
 primal-dual with inexact local solves.
 
-Counterpart of `repro/core/baselines/fedpd.py`, flat path: the dense
-round and the active-set round. Each local step, every client
+Counterpart of `repro/core/baselines/fedpd.py`: the dense round and the
+active-set round on the flat buffers, and the per-leaf round. Each local step, every client
 approximately solves
     x_i ≈ argmin f_i(x) + <lam_i, x − x̄_i> + 1/(2 eta) ||x − x̄_i||²
 with `inner_steps` GD iterations (lr = gamma_k), then
@@ -13,6 +13,7 @@ Aggregation every k0 steps: x̄ = mean_i x̄_i. The duals `lam` are one
 from __future__ import annotations
 
 from repro_torch.core import api
+from repro_torch.utils import pytree as pt
 from repro_torch.core.baselines.common import (
     FlatBaseline,
     flat_value_and_grad,
@@ -99,3 +100,30 @@ class FedPD(FlatBaseline):
             weights=api.stale_weights(stale))
         return self._result(state, agg, fed.k0 * fed.inner_steps, n_scr,
                             lam=lam, **updates)
+
+    def round(self, state, batch, mask=None, stale=None):
+        """`round_flat` on the state's dicts (`run_rounds(flat=False)`):
+        the primal-dual steps leaf by leaf, the frozen clients' duals
+        kept, then eq. (11) over the anchors and the metrics
+        (`tree_result`)."""
+        fed = self.fed
+        eta = fed.fedpd_eta
+        anchor = self._anchors(state, fed.num_clients, mask, stale)
+        lam = state["lam"]
+        for j in range(fed.k0):
+            lr = lr_schedule(fed.lr, state["step"] + j, self._device(state))
+            xi = anchor
+            for t in range(fed.inner_steps):
+                losses, grads = self._vg_stacked(xi, batch)
+                if j == 0 and t == 0:
+                    losses0, grads0 = losses, grads
+                g = pt.tree_map(lambda gg, x, ll, a: gg + ll + (x - a) / eta,
+                                grads, xi, lam, anchor)
+                xi = pt.tree_map(lambda p, d: p - lr * d.to(p.dtype), xi, g)
+            lam = pt.tree_map(lambda ll, x, a: ll + (x - a) / eta, lam, xi,
+                              anchor)
+            anchor = pt.tree_map(lambda x, ll: x + eta * ll, xi, lam)
+        if mask is not None:
+            lam = api.masked_update(mask, lam, state["lam"])
+        return self.tree_result(state, anchor, losses0, grads0, mask, stale,
+                                fed.k0 * fed.inner_steps, lam=lam)

@@ -2,12 +2,13 @@
 proximal objective  f_i(x) + (mu/2)||x − x̄||²  with GD, k0 steps between
 aggregations and `inner_steps` GD iterations a step.
 
-Counterpart of `repro/core/baselines/fedprox.py`, flat path: the dense
-round and the active-set round.
+Counterpart of `repro/core/baselines/fedprox.py`: the dense round and the
+active-set round on the flat buffers, and the per-leaf round.
 """
 from __future__ import annotations
 
 from repro_torch.core import api
+from repro_torch.utils import pytree as pt
 from repro_torch.core.baselines.common import (
     FlatBaseline,
     flat_value_and_grad,
@@ -72,3 +73,22 @@ class FedProx(FlatBaseline):
         return self._result(state, agg,
                             self.fed.k0 * self.fed.inner_steps, n_scr,
                             **updates)
+
+    def round(self, state, batch, mask=None, stale=None):
+        """`round_flat` on the state's dicts (`run_rounds(flat=False)`):
+        the proximal GD iterations leaf by leaf, then eq. (11) and the
+        metrics (`tree_result`)."""
+        fed = self.fed
+        xc = self._anchors(state, fed.num_clients, mask, stale)
+        x = xc
+        for j in range(fed.k0):
+            lr = lr_schedule(fed.lr, state["step"] + j, self._device(state))
+            for t in range(fed.inner_steps):
+                losses, grads = self._vg_stacked(x, batch)
+                if j == 0 and t == 0:
+                    losses0, grads0 = losses, grads
+                g = pt.tree_map(lambda gg, p, a: gg + fed.prox_mu * (p - a),
+                                grads, x, xc)
+                x = pt.tree_map(lambda p, gg: p - lr * gg.to(p.dtype), x, g)
+        return self.tree_result(state, x, losses0, grads0, mask, stale,
+                                fed.k0 * fed.inner_steps)

@@ -1,8 +1,8 @@
 """SCAFFOLD [Karimireddy et al. 2020]: controlled averaging with client
 and server control variates (paper Table I comparison set).
 
-Counterpart of `repro/core/baselines/scaffold.py`, flat path (the dense
-round and the active-set round):
+Counterpart of `repro/core/baselines/scaffold.py`: the dense round and
+the active-set round on the flat buffers, and the per-leaf round:
   local:   y ← y − lr_j (∇f_i(y) − c_i + c), k0 steps;
   control: c_i⁺ = c_i − c + (x̄ − y)/(k0·lr)   (option II);
   server:  x̄ = mean(y);  c += mean(c_i⁺ − c_i).
@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import api
+from repro_torch.utils import pytree as pt
 from repro_torch.core.baselines.common import (
     FlatBaseline,
     flat_value_and_grad,
@@ -107,3 +108,30 @@ class Scaffold(FlatBaseline):
             extra_mean_tile=ci_new_t - ci_t)
         return self._result(state, agg, self.fed.k0, n_scr,
                             c=state["c"] + dci, ci=ci, **updates)
+
+    def round(self, state, batch, mask=None, stale=None):
+        """`round_flat` on the state's dicts (`run_rounds(flat=False)`):
+        the corrected steps and the option-II control update leaf by leaf,
+        the frozen clients' variates kept, then eq. (11), the variates'
+        delta mean into c, and the metrics (`tree_result`)."""
+        fed = self.fed
+        c, ci = state["c"], state["ci"]
+        xc = self._anchors(state, fed.num_clients, mask, stale)
+        lr = lr_schedule(fed.lr, state["step"], self._device(state))
+        y = xc
+        for j in range(fed.k0):
+            losses, grads = self._vg_stacked(y, batch)
+            if j == 0:
+                losses0, grads0 = losses, grads
+            lr_j = lr_schedule(fed.lr, state["step"] + j, self._device(state))
+            y = pt.tree_map(
+                lambda p, g, cc, cci: p - lr_j * (g + cc[None] - cci).to(
+                    p.dtype), y, grads, c, ci)
+        denom = fed.k0 * lr
+        ci_new = pt.tree_map(lambda cci, cc, a, yy: cci - cc[None]
+                             + (a - yy) / denom, ci, c, xc, y)
+        if mask is not None:
+            ci_new = api.masked_update(mask, ci_new, ci)
+        dci = api.client_mean(pt.tree_sub(ci_new, ci))
+        return self.tree_result(state, y, losses0, grads0, mask, stale,
+                                fed.k0, c=pt.tree_add(c, dci), ci=ci_new)

@@ -82,6 +82,14 @@ the stale-x̄ buffers, the watchdog slot, the stop flag and the history
 so far) with a fingerprint of the run's configuration; the offload loop
 saves its own. A resumed run's history and state are the uninterrupted
 run's bit for bit.
+
+`flat=False` (`--no-flat`) runs the per-leaf rounds (`algo.round`) on a
+copy of the state's dicts in both drivers, with the policies, async
+rounds, the clocks, the stop, the guard and the checkpoints; the client
+stores, the codecs, the faults, the screening and `use_kernel=True` need
+the flat buffers and are refused, with the reference's messages. On the
+CPU the two paths give the same history and state bit for bit; the
+per-leaf round launches no kernel.
 """
 from __future__ import annotations
 
@@ -136,7 +144,10 @@ def flatten_state(algo, state, spec):
     """Ravel the state's model-shaped entries: `algo.flat_global_keys` ->
     (N,) vectors, `algo.flat_client_keys` -> one (m, N) buffer each. Each
     ravel allocates a new buffer, so in-place rounds on the result never
-    write the tensors of `state`."""
+    write the tensors of `state`. `spec=None` (the per-leaf rounds)
+    copies every tensor instead (`pt.tree_clone`)."""
+    if spec is None:
+        return pt.tree_clone(state)
     out = dict(state)
     for k in algo.flat_global_keys:
         if k in out:
@@ -148,12 +159,20 @@ def flatten_state(algo, state, spec):
 
 
 def unflatten_state(algo, state, spec):
-    """Inverse of `flatten_state`: callers see the dict layout."""
+    """Inverse of `flatten_state`: callers see the dict layout (the
+    per-leaf rounds' state, `spec=None`, has it already)."""
     out = dict(state)
+    if spec is None:
+        return out
     for k in (*algo.flat_global_keys, *algo.flat_client_keys):
         if k in out:
             out[k] = spec.unravel(out[k])
     return out
+
+
+def _device_of(state) -> torch.device:
+    """The device of a state's x̄ (a flat buffer or a dict)."""
+    return pt.tree_leaves(state["x"])[0].device
 
 
 def _stack(values):
@@ -185,7 +204,8 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                faults=None, screening=None, quorum: int = 0,
                watchdog: bool = False, watchdog_patience: int = 3,
                watchdog_factor: float = 2.0, checkpoint_every: int = 0,
-               checkpoint_dir=None, resume: bool = False) -> RoundResult:
+               checkpoint_dir=None, resume: bool = False,
+               flat: bool = True) -> RoundResult:
     """Run up to `num_rounds` communication rounds of `algo`.
 
     tol > 0 enables the paper's stopping rule (eq. 35). `scan=True` runs
@@ -244,6 +264,12 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     none) and raises where it was written under another configuration;
     `num_rounds` may differ.
 
+    `flat`: True runs `algo.round_flat` on the state raveled once into
+    flat buffers; False the per-leaf `algo.round` on the state's dicts
+    (module docstring), which the stores, the codecs, the faults and the
+    screening refuse, as does `use_kernel=True`. A checkpoint records
+    which: a run resumes only a checkpoint of its own kind.
+
     The caller's `state` is left as it was: its tensors are copied into
     fresh flat buffers at entry and its key is copied, so every
     round can run the in-place (donated) kernel, as the reference donates
@@ -262,13 +288,14 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                                 max_staleness, clock, stale_weighting)
     cap = _check_store(algo, store, aggregate,
                        participation if clock is None else ClockArrivals(
-                           clock), auto)
+                           clock), auto, flat)
     packed = aggregate == "packed"
     compressor, wire_comp = _check_uplink(
         algo, participation, clock, store, scan, auto, compression,
         error_feedback, topk_frac, faults, screening, quorum, watchdog,
         watchdog_patience, watchdog_factor, checkpoint_every,
         checkpoint_dir, resume)
+    _check_flat(algo, flat, compressor, faults, screening)
     spec = ravel_spec(state["x"])
     if clock is not None and clock.bandwidth_bps is not None:
         # the logical model size: the wire never carries the padding
@@ -280,7 +307,7 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
         ckpt = _Checkpoints(checkpoint_dir, checkpoint_every, resume,
                             _config_fingerprint(
             algo=getattr(algo, "name", type(algo).__name__),
-            num_clients=m, tol=tol, tol_metric=tol_metric, flat=True,
+            num_clients=m, tol=tol, tol_metric=tol_metric, flat=bool(flat),
             store=store, aggregate=aggregate, overlap="off",
             async_rounds=bool(async_rounds), max_staleness=max_staleness,
             stale_weighting=stale_weighting, stale_decay=stale_decay,
@@ -289,17 +316,19 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
             faults=faults, screening=screening, quorum=quorum,
             watchdog=bool(watchdog), watchdog_patience=watchdog_patience,
             watchdog_factor=watchdog_factor))
+    if not flat:  # the per-leaf rounds: the drivers' spec is None
+        spec = None
     flat = flatten_state(algo, state, spec)
     flat["rng"] = state["rng"].copy()
-    buf = (m, spec.padded_size)
     if compressor is not None and compressor.error_feedback \
             and "ef" not in flat:
-        flat["ef"] = torch.zeros(buf, dtype=spec.dtype,
-                                 device=flat["x"].device)
+        flat["ef"] = torch.zeros((m, spec.padded_size), dtype=spec.dtype,
+                                 device=_device_of(flat))
     if faults is not None and faults.needs_prev and "fault_prev" not in flat:
         # the replay fault's last honest upload, made like "ef"
-        flat["fault_prev"] = torch.zeros(buf, dtype=spec.dtype,
-                                         device=flat["x"].device)
+        flat["fault_prev"] = torch.zeros((m, spec.padded_size),
+                                         dtype=spec.dtype,
+                                         device=_device_of(flat))
     uplink = Uplink(compressor, faults, screening,
                     _Guard.make(quorum, watchdog, watchdog_patience,
                                 watchdog_factor), ckpt)
@@ -395,7 +424,7 @@ def _with_clock(res, clock):
     return res
 
 
-def _check_store(algo, store, aggregate, participation, auto):
+def _check_store(algo, store, aggregate, participation, auto, flat=True):
     """The reference's checks of `store` and `aggregate`, with its
     messages. `participation` is the round's arrival process (a policy,
     or a clock as `ClockArrivals`). Returns the tile's capacity (None for
@@ -405,6 +434,11 @@ def _check_store(algo, store, aggregate, participation, auto):
             f"unknown store {store!r}: ('dense', 'active', 'offload')")
     cap = None
     if store in ("active", "offload"):
+        if not flat:
+            raise ValueError(
+                f"store={store!r} packs the flat (m, N) client buffers — it "
+                "requires the flat round path (flat=True on an algorithm "
+                "providing round_flat; drop --no-flat)")
         if participation is None:
             raise ValueError(
                 f"store={store!r} needs a per-round participant set to pack "
@@ -496,6 +530,29 @@ def _check_uplink(algo, participation, clock, store, scan, auto,
     return compressor, wire_comp
 
 
+def _check_flat(algo, flat, compressor, faults, screening):
+    """The per-leaf rounds' refusals, with the reference's messages: the
+    codecs, the faults and the screening work on the flat (m, N) comm
+    buffer, and `use_kernel=True` asks for the fused kernel, which only
+    the flat round runs."""
+    if flat:
+        return
+    if compressor is not None:
+        raise ValueError(
+            "compression operates on the flat (m, N) comm buffer — it "
+            "requires the flat round path (flat=True on an algorithm "
+            "providing round_flat; drop --no-flat)")
+    if faults is not None or screening is not None:
+        raise ValueError(
+            "faults/screening operate on the flat (m, N) comm buffer — "
+            "they require the flat round path (flat=True on an algorithm "
+            "providing round_flat; drop --no-flat)")
+    if getattr(algo.fed, "use_kernel", None):
+        raise ValueError(
+            "use_kernel=True (--kernel on) requires the flat round path "
+            "(drop --no-flat)")
+
+
 @dataclasses.dataclass
 class Uplink:
     """What a run adds to its rounds beyond the policy and the store: the
@@ -523,8 +580,16 @@ _KEEP = ("rng", "round")  # the entries a guard never puts back
 
 
 def _where(flag, new, old):
-    return {k: torch.where(flag, v, old[k]) if k in old else v
-            for k, v in new.items()}
+    return {k: pt.tree_map(lambda a, b: torch.where(flag, a, b), v, old[k])
+            if k in old else v for k, v in new.items()}
+
+
+def _copies(st):
+    """Copies of the state's tensor entries (flat buffers or dicts of
+    them) but the key and the round counter."""
+    return {k: pt.tree_clone(v) for k, v in st.items()
+            if (torch.is_tensor(v) or isinstance(v, dict))
+            and k not in _KEEP}
 
 
 class _Guard:
@@ -559,26 +624,24 @@ class _Guard:
         """The watchdog's initial slot (copies of the state), or None."""
         if not self.watchdog:
             return None
-        dev = st["x"].device
+        dev = _device_of(st)
         return {"best": torch.full((), float("inf"), dtype=torch.float32,
                                    device=dev),
                 "bad": torch.zeros((), dtype=torch.int32, device=dev),
-                "snap": {k: v.clone() for k, v in st.items()
-                         if torch.is_tensor(v) and k not in _KEEP}}
+                "snap": _copies(st)}
 
     def before(self, st, stale):
         """What a quorum no-op puts back: copies of the state's tensors
         and of the stale-x̄ state (None without a quorum)."""
         if not self.quorum:
             return None
-        old = {k: v.clone() for k, v in st.items()
-               if torch.is_tensor(v) and k not in _KEEP}
+        old = _copies(st)
         sl = None
         if stale is not None:
             sl = {"age": stale.age.clone(),
                   "last_used": stale.last_used.clone()}
             if not stale.always_fresh:
-                sl["anchor"] = stale.anchor.clone()
+                sl["anchor"] = pt.tree_clone(stale.anchor)
         return old, sl
 
     def after(self, saved, st, stale, ws, met):
@@ -593,8 +656,8 @@ class _Guard:
             st = _where(ok, st, old)
             if sl is not None:
                 for k, v in sl.items():
-                    live = getattr(stale, k)
-                    live.copy_(torch.where(ok, live, v))
+                    pt.tree_map(lambda a, b: a.copy_(torch.where(ok, a, b)),
+                                getattr(stale, k), v)
             met["degraded"] = torch.logical_not(ok)
         if self.watchdog:
             f = met["f_xbar"]
@@ -616,7 +679,7 @@ class _Guard:
             best.copy_(best2)
             bad.copy_(torch.where(roll, 0, bad2))
             for k, v in snap2.items():
-                snap[k].copy_(v)
+                _copy_into(snap[k], v)
             met["rollback"] = roll
         return st, met
 
@@ -680,6 +743,16 @@ class _Checkpoints:
             "history": {k: str(v.dtype) for k, v in tree["history"].items()}})
 
 
+def _copy_into(dst, src):
+    """Copy a tensor, or each leaf of a dict, into `dst`'s buffers, where
+    they are not `src`'s own (an entry a round updated in place)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif src.data_ptr() != dst.data_ptr():
+        dst.copy_(src)
+
+
 def _restore(live, saved):
     """Copy a loaded tree's tensors into the live static ones."""
     if torch.is_tensor(live):
@@ -701,7 +774,9 @@ def _round(algo, st, batch, spec, mask, slots, cap, packed, stale=None,
     guard = uplink.guard
     saved = guard.before(st, stale) if guard is not None else None
     st_in = st if key is None else dict(st, codec_key=key)
-    if cap is None:
+    if spec is None:  # the per-leaf round (flat=False)
+        st, met = algo.round(st_in, batch, mask=mask, stale=stale)
+    elif cap is None:
         st, met = algo.round_flat(st_in, batch, spec, mask=mask, stale=stale,
                                   donate_kernel=True, **uplink.round_kw)
     else:
@@ -760,7 +835,7 @@ def _counters_on(flat, device, guard):
 
 def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
                      participation, cap, packed, stale=None, uplink=None):
-    device = flat["x"].device
+    device = _device_of(flat)
     uplink = uplink or Uplink()
     counters = _counters_on(flat, device, uplink.guard)
     ws = uplink.guard.slot(flat) if uplink.guard is not None else None
@@ -876,7 +951,7 @@ class _Chunked:
         self.pstate = (participation.init() if participation is not None
                        else None)
         self.st = {k: v for k, v in flat.items() if k != "rng"}
-        dev = self.device = self.st["x"].device
+        dev = self.device = _device_of(self.st)
         self.cuda = dev.type == "cuda"
         self.counters = tuple(k for k, v in flat.items()
                               if isinstance(v, int))
@@ -932,8 +1007,7 @@ class _Chunked:
         """Copy a round's new state into the static buffers (an entry the
         round updated in place, such as the donated π, is already there)."""
         for k, v in st.items():
-            if v.data_ptr() != self.st[k].data_ptr():
-                self.st[k].copy_(v)
+            _copy_into(self.st[k], v)
 
     def _program(self, length, unless_done):
         """Enqueue (or, on the CPU, run) `length` rounds on the static
@@ -994,14 +1068,9 @@ class _Chunked:
         counts = _counts()
 
         def warm():
-            copies = {k: v.clone() for k, v in self.st.items()}
+            copies = pt.tree_clone(self.st)
             stale = None if self.stale is None else self.stale.clone()
-            ws = None
-            if self.ws is not None:
-                ws = dict(self.ws, best=self.ws["best"].clone(),
-                          bad=self.ws["bad"].clone(),
-                          snap={k: v.clone()
-                                for k, v in self.ws["snap"].items()})
+            ws = None if self.ws is None else pt.tree_clone(self.ws)
             mask = slots = None
             if self.cap is not None:
                 slots = torch.arange(self.cap, device=self.device)

@@ -26,6 +26,14 @@ Async rounds (`stale=`, an `api.StaleXbar`): eq. (11) takes the
 staleness weights, and each client's gradient and branch run against its
 own last-downloaded x̄, an (m, N) anchor that the kernel reads row by
 row. Under `max_staleness == 0` the round is the synchronous masked one.
+
+`round` is the per-leaf twin of `round_flat` (`run_rounds(flat=False)`,
+`--no-flat`): the same steps on the state's dicts, leaf by leaf, with no
+kernel. Its collapsed branch is the fused update's plain version
+(`ref.fedgia_update_collapsed`) on each leaf, the arithmetic of the flat
+round's update, and its means reduce each leaf as the flat buffer's
+lanes, so on the CPU the two rounds agree bit for bit. `lagrangian` is
+L(Zᵏ) of eq. (7), the quantity Lemma IV.1 says never increases.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ import torch
 from repro_torch.config import FedConfig
 from repro_torch.core import api, hparams, prng, selection
 from repro_torch.kernels.fedgia_update import fedgia_update_flat
+from repro_torch.kernels.fedgia_update.ref import fedgia_update_collapsed
+from repro_torch.utils import pytree as pt
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -349,12 +359,151 @@ class FedGiA:
                                donate_kernel=donate_kernel, faults=faults,
                                screening=screening)
 
+    # ---------------------------------------------------------- pytree round
+    def _apply_Dinv(self, state, v):
+        """v -> (H/m + sigma I)^{-1} v on the client-stacked dict `v`,
+        leaf by leaf (`_apply_Dinv_flat`'s steps)."""
+        m, sigma = self.fed.num_clients, state["sigma"]
+        if self.fed.h_policy == "gram":
+            # single-leaf linear models; the two triangular solves, as the
+            # flat form solves them
+            u = state["gram_chol"]
+            (k, leaf), = v.items()
+            y = torch.linalg.solve_triangular(u.transpose(-1, -2),
+                                              leaf[..., None], upper=False)
+            return {k: torch.linalg.solve_triangular(u, y, upper=True)[..., 0]}
+        h = state.get("h")
+        if h is None:  # scalar policy: H = r I
+            return pt.tree_map(lambda g: g / (state["r"] / m + sigma), v)
+        return pt.tree_map(lambda g, hh: g / (hh / m + sigma), v, h)
+
+    def _admm_branch(self, state, xbar_c, gbar, sel):
+        """Both branches and the masked combine on the dicts: the ADMM
+        branch (eqs. 12-14, k0 iterations) for the selected clients and
+        the GD branch (eqs. 15-17) for the others. `xbar_c` holds the
+        (m, ...) anchors (the stride-0 broadcast of x̄, or the stale
+        ones). Returns (π', z')."""
+        fed, m, sigma = self.fed, self.fed.num_clients, state["sigma"]
+        if fed.collapsed and fed.h_policy != "gram":
+            # the fused update's plain version on each leaf
+            h = state.get("h")
+            if h is None:  # scalar policy: the 0-d r for every leaf
+                h = pt.tree_map(lambda g: state["r"].to(g.dtype), gbar)
+            pick = lambda g: sel.reshape(  # noqa: E731
+                sel.shape + (1,) * (g.dim() - 1))
+            out = pt.tree_map(
+                lambda x, g, p, hh: fedgia_update_collapsed(
+                    x, g, p, hh, pick(g), sigma, float(1.0 / m),
+                    k0=fed.k0)[1:],
+                xbar_c, gbar, state["pi"], h)
+            return (pt.tree_map(lambda t: t[0], out),
+                    pt.tree_map(lambda t: t[1], out))
+        pi_after = state["pi"]
+        for _ in range(fed.k0 - 1):
+            x = pt.tree_sub(xbar_c, self._apply_Dinv(
+                state, pt.tree_add(gbar, pi_after)))
+            pi_after = pt.tree_axpy(sigma, pt.tree_sub(x, xbar_c), pi_after)
+        x_new = pt.tree_sub(xbar_c, self._apply_Dinv(
+            state, pt.tree_add(gbar, pi_after)))
+        pia = pt.tree_axpy(sigma, pt.tree_sub(x_new, xbar_c), pi_after)
+        za = pt.tree_axpy(1.0 / sigma, pia, x_new)
+        pig = pt.tree_scale(gbar, -1.0)  # eq. (16)
+        zg = pt.tree_axpy(-1.0 / sigma, gbar, xbar_c)  # eq. (17)
+        return api.masked_update(sel, pia, pig), api.masked_update(sel, za, zg)
+
+    def round(self, state, batch, mask=None, stale=None):
+        """One communication round on the state's dicts (Algorithm 1,
+        steps (1)-(5)), leaf by leaf: the per-leaf twin of `round_flat`,
+        which `run_rounds(flat=False)` runs. Returns (new_state,
+        metrics), the metrics `round_flat`'s.
+
+        `mask` is the ADMM/GD split; None draws it from `state["rng"]`
+        and the round index, as `round_flat` draws it, so flat and
+        per-leaf runs select the same clients every round. The key splits
+        every round where the state holds one. With `stale` (async
+        rounds; `mask` is then the arrival mask) eq. (11) takes the
+        staleness weights and the gradients and branches run against each
+        client's per-leaf anchor; the stale state advances in place. No
+        kernel is launched."""
+        fed = self.fed
+        m = fed.num_clients
+        if stale is not None and mask is None:
+            raise ValueError("stale-x̄ rounds need the engine's arrival mask")
+        # (1) eq. (11)
+        xbar = api.client_mean(state["z"], weights=api.stale_weights(stale))
+        device = pt.tree_leaves(xbar)[0].device
+        # (3) client selection, the flat round's key chain
+        rng = state.get("rng")
+        if rng is not None:
+            rng, drawn = selection.round_split(rng, state["round"], m,
+                                               fed.alpha, draw=mask is None)
+            if mask is None:
+                mask = drawn.to(device)
+        elif mask is None:
+            raise ValueError("a state without a key needs the round's mask")
+        # (2) per-client gradient at the round's anchor
+        if stale is not None:
+            api.stale_xbar_view(stale, xbar, mask)
+        anchor = api.stale_anchor(stale, xbar)
+        dtype = getattr(self.model, "dtype", None)
+        cast = ((lambda t: pt.tree_cast(t, dtype))
+                if isinstance(dtype, torch.dtype) else (lambda t: t))
+        if anchor is xbar:
+            losses, grads = self._vg(cast(xbar), batch)
+        else:
+            losses, grads = self._vg_stacked(cast(anchor), batch)
+        sdt = _DTYPES[fed.state_dtype]
+        # the metric over gradients in the state's dtype, as the flat
+        # round's raveled buffer holds them
+        gsq = pt.tree_sq_norm(api.client_mean(pt.tree_cast(grads, sdt)))
+        gbar = pt.tree_map(lambda g: (g * (1.0 / m)).to(sdt), grads)
+        del grads
+        # (4) both branches, masked combine
+        xbar_c = (api.broadcast_clients(xbar, m) if anchor is xbar
+                  else anchor)  # stride-0 views, or the stale anchors
+        pi_new, z_new = self._admm_branch(state, xbar_c, gbar, mask)
+
+        new_state = dict(state)
+        new_state.update(x=xbar, z=z_new, pi=pi_new, round=state["round"] + 1)
+        if rng is not None:
+            new_state["rng"] = rng
+        if fed.h_policy == "diag_ema":
+            new_state["h"] = hparams.update_diag_h(state["h"], gbar,
+                                                   state["r"], m)
+        metrics = {
+            "f_xbar": api.client_scalar_mean(losses),
+            "grad_sq_norm": gsq,
+            "selected": api.client_scalar_sum(mask),
+            "cr": 2.0 * (state["round"] + 1),
+            "local_grad_evals": 1.0,  # per client per round (C2)
+        }
+        return new_state, metrics
+
     # ------------------------------------------------------------ diagnostics
     def client_params(self, state):
         """x_i = z_i − π_i/σ (derived; never stored), on a dict or flat
         state."""
         a = -1.0 / state["sigma"]
-        z, pi = state["z"], state["pi"]
-        if isinstance(z, dict):
-            return {k: a * pi[k] + z[k] for k in z}
-        return a * pi + z
+        return pt.tree_axpy(a, state["pi"], state["z"])
+
+    def lagrangian(self, state, batch):
+        """L(Zᵏ) of eq. (7) at a round boundary k = t·k0, on the dict
+        state: (1/m) Σ f_i(x_i) + Σ <x_i − x̄, π_i> + (σ/2) Σ ||x_i − x̄||²,
+        the monotone quantity of Lemma IV.1. The anchor is mean(z) (the
+        next round's aggregation comes first; the lemma's e1 term accounts
+        for its decrease), not the previous round's x̄."""
+        m = self.fed.num_clients
+        sigma = state["sigma"]
+        xc = self.client_params(state)
+        losses = self._vg_values(xc, batch)
+        xbar_c = api.broadcast_clients(
+            pt.tree_mean_over_axis(state["z"], axis=0), m)
+        diff = pt.tree_sub(xc, xbar_c)
+        inner = pt.tree_dot(diff, state["pi"])
+        quad = 0.5 * sigma * pt.tree_sq_norm(diff)
+        return torch.sum(losses) / m + inner + quad
+
+    def _vg_values(self, xc_stacked, batch):
+        """The (m,) losses f_i(x_i) at per-client parameters."""
+        return torch.func.vmap(lambda p, b: self.loss_fn(p, b)[0])(
+            xc_stacked, batch)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import api, prng
+from repro_torch.utils import pytree as pt
 
 EMA_BETA = 0.9
 
@@ -70,19 +71,33 @@ def estimate_lipschitz(loss_fn, params: dict, batch: dict, key,
     return torch.clamp_min(torch.stack(vals).max(), 1e-8)
 
 
-def update_diag_h(h: torch.Tensor, gbar: torch.Tensor, r_hat, m: int,
-                  out: torch.Tensor = None):
+def update_diag_h(h, gbar, r_hat, m: int, out: torch.Tensor = None):
     """EMA diagonal curvature proxy, clipped to [0, r_hat] (Remark IV.1).
 
     gbar is the scaled gradient (1/m) grad f_i; rescale to grad f_i before
     normalising so the proxy is invariant to m. Returns a new tensor, or
     writes `out` (which may be `h`). Every step but the first runs in
     place on one temporary the size of h, the same operations in the same
-    order as out of place, so the values are the same bit for bit."""
+    order as out of place, so the values are the same bit for bit.
+
+    `h` and `gbar` may be trees of leaves (the per-leaf rounds): one max
+    over every leaf, then the same steps leaf by leaf, so each element is
+    the flat buffer's; a tree is never written in place."""
+    if isinstance(h, dict):
+        g2 = pt.tree_map(lambda g: (g.float() * m).square_(), gbar)
+        peak = torch.stack([v.max() for v in pt.tree_leaves(g2)]).max()
+        gmax = api.client_scalar_max(torch.clamp_min(peak, 1e-30))
+        return pt.tree_map(lambda hh, gg: _ema(hh, gg, r_hat, gmax, None),
+                           h, g2)
     g2 = gbar.float() * m
     g2.square_()
     gmax = api.client_scalar_max(torch.clamp_min(g2.max(), 1e-30))
-    # (1 - beta) * (r_hat * g2 / gmax), and beta * h plus it
+    return _ema(h, g2, r_hat, gmax, out)
+
+
+def _ema(h, g2, r_hat, gmax, out):
+    """beta * h + (1 - beta) * (r_hat * g2 / gmax), clipped, with `g2`
+    (a temporary) and `out` written in place."""
     g2.mul_(r_hat).div_(gmax).mul_(1 - EMA_BETA)
     if out is None:
         out = EMA_BETA * h

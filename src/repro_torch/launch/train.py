@@ -34,7 +34,11 @@ captured once as a CUDA graph and replayed, with the eq. (35) stop
 checked on the device and read by the host once a chunk. `--chunk N`
 sets the rounds a chunk (0: the reference's sizing; `auto` times the
 candidate lengths 8, 32 and 128 on the live run and keeps the fastest);
-`--no-scan` runs the legacy per-round loop instead.
+`--no-scan` runs the legacy per-round loop instead. `--no-flat` runs
+the per-leaf rounds (`run_rounds(flat=False)`) in place of the flat
+buffers' rounds, in either driver, with the reference's refusals: the
+stores, the codecs, the faults, the screening and `--kernel on` need the
+flat buffers. The two give the same `done:` line (bitwise on the CPU).
 
 `--participation` moves client selection into the engine: a policy of
 `core/selection.py` draws a mask every round on the host and every
@@ -175,10 +179,13 @@ def validate_flags(args) -> dict:
     `--watchdog`, a patience < 1 or a factor <= 1, `--watchdog` with
     `--store offload`, and `--checkpoint-every`/`--resume` without
     `--checkpoint-dir`, with `--chunk auto` or with `--no-scan` on a
-    store other than offload, and `--kernel interpret` (the reference's
-    Pallas interpret mode, which has no CUDA meaning). Returns the chunk
-    size (int or "auto"), whether the rounds are async, the parsed lists
-    (or None), `FedConfig.use_kernel` and the uplink's settings."""
+    store other than offload, `--kernel interpret` (the reference's
+    Pallas interpret mode, which has no CUDA meaning), and with
+    `--no-flat` `--kernel on`, `--store active|offload`, a
+    `--compression`, `--faults` and `--screening` (each needs the flat
+    buffers). Returns the chunk size (int or "auto"), whether the rounds
+    are async and flat, the parsed lists (or None),
+    `FedConfig.use_kernel` and the uplink's settings."""
     if args.kernel == "interpret":
         raise SystemExit(
             "--kernel interpret is the reference's Pallas interpret mode, "
@@ -195,9 +202,17 @@ def validate_flags(args) -> dict:
     elif args.no_scan:
         raise SystemExit("--chunk auto tunes the scan chunk length and "
                          "cannot be combined with --no-scan")
+    if args.kernel == "on" and args.no_flat:
+        raise SystemExit(
+            "--kernel on/interpret requires the flat round path "
+            "(drop --no-flat)")
     kind, clock_kind = args.participation, args.clock
     async_rounds = args.async_rounds or clock_kind != "none"
     store = args.store
+    if store in ("active", "offload") and args.no_flat:
+        raise SystemExit(
+            f"--store {store} packs the flat (m, N) client buffers and "
+            "requires the flat round path (drop --no-flat)")
     if store in ("active", "offload") and kind == "full" and \
             clock_kind == "none":
         raise SystemExit(
@@ -251,7 +266,8 @@ def validate_flags(args) -> dict:
         speeds = _parse_csv(args.client_speeds, args.clients,
                             "--client-speeds", float)
     out = {"chunk": chunk, "async_rounds": async_rounds, "weights": weights,
-           "periods": periods, "speeds": speeds, "use_kernel": use_kernel}
+           "periods": periods, "speeds": speeds, "use_kernel": use_kernel,
+           "flat": not args.no_flat}
     out.update(_validate_uplink(args, chunk, clock_kind, kind, store))
     return out
 
@@ -261,6 +277,10 @@ def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:
     flags, with the reference's messages."""
     compression, error_feedback = args.compression, args.error_feedback
     topk_frac, bandwidth = args.topk_frac, args.bandwidth_bps
+    if compression != "none" and args.no_flat:
+        raise SystemExit(
+            "--compression runs on the flat (m, N) comm buffer and "
+            "requires the flat round path (drop --no-flat)")
     if error_feedback and compression == "none":
         raise SystemExit(
             "--error-feedback carries the codec residual — it needs a "
@@ -285,6 +305,10 @@ def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:
         raise SystemExit(
             f"--faults: unknown kind(s) {','.join(bad)} "
             f"(choose from {','.join(FAULT_KINDS)})")
+    if fault_kinds and args.no_flat:
+        raise SystemExit(
+            "--faults corrupts the flat (m, N) comm buffer and "
+            "requires the flat round path (drop --no-flat)")
     rate_arg = args.fault_rate
     if rate_arg and not fault_kinds:
         raise SystemExit(
@@ -304,6 +328,10 @@ def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:
             raise SystemExit(
                 f"--fault-rate values must be in [0, 1], got {rate_arg}")
     screening, clip_norm = args.screening, args.clip_norm
+    if screening and args.no_flat:
+        raise SystemExit(
+            "--screening filters the flat (m, N) comm buffer and "
+            "requires the flat round path (drop --no-flat)")
     if clip_norm:
         if clip_norm < 0:
             raise SystemExit(f"--clip-norm must be > 0, got {clip_norm}")
@@ -421,6 +449,9 @@ def train(args) -> dict:
         if args.algo == "fedgia":
             log.info("sigma=%.6g r_hat=%.6g (probed in %.3fs)",
                      float(state["sigma"]), float(state["r"]), probe_s)
+    if not parsed["flat"]:
+        log.info("per-leaf pytree rounds (--no-flat): the state's dicts "
+                 "leaf by leaf, no fused update kernel")
     if args.unrolled and args.algo == "fedgia":
         log.info("unrolled FedGiA round: the k0-step ADMM loop in torch "
                  "(no fused update kernel)")
@@ -486,7 +517,7 @@ def train(args) -> dict:
                      checkpoint_dir=(args.checkpoint_dir or None)
                      if (parsed["checkpoint_every"] or parsed["resume"])
                      else None,
-                     resume=parsed["resume"])
+                     resume=parsed["resume"], flat=parsed["flat"])
     history = [
         {"round": r, "f": float(res.history["f_xbar"][r]),
          "err": float(res.history["grad_sq_norm"][r])}
@@ -647,6 +678,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "else 32), or 'auto' to time the candidate "
                          "lengths (8/32/128) on the live run and keep the "
                          "fastest")
+    ap.add_argument("--no-flat", action="store_true",
+                    help="run the per-leaf pytree rounds instead of the "
+                         "flat-buffer rounds (ravel-once (m, N) client "
+                         "state, one fused update); the same results, bit "
+                         "for bit on the CPU")
     ap.add_argument("--unrolled", action="store_true",
                     help="FedGiA's k0-step ADMM loop instead of the "
                          "closed-form round (no kernel)")

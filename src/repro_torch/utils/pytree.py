@@ -10,7 +10,13 @@ every level: a key "a/b/c" (a transformer's training tree,
 `models/transformer.py`) sorts as the path ("a", "b", "c"), so both
 packages produce the same buffer from the same parameters.
 
-The second half is the client store of `run_rounds(store="active" |
+The tree arithmetic of the per-leaf rounds (`run_rounds(flat=False)`)
+follows: `tree_map` over plain, nested or "/"-keyed dicts, and the
+reductions (`tree_dot`, `tree_sq_norm`) sum their leaves onto a float32
+zero in that same leaf order, as the flat path's metric sums the leaves
+of its buffer, so a per-leaf metric can equal the flat one bit for bit.
+
+The last part is the client store of `run_rounds(store="active" |
 "offload")`: `ActiveSet`, the packed participant tile of a round, and
 `OffloadStore`, the resident client buffers in host memory.
 """
@@ -18,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -94,6 +100,122 @@ def ravel_spec(tree: Dict[str, torch.Tensor]) -> RavelSpec:
     return RavelSpec(keys=keys, shapes=shapes, dtypes=dtypes,
                      offsets=tuple(offsets), size=off,
                      padded_size=-(-off // LANES) * LANES, dtype=dtype)
+
+
+# --------------------------------------------------------------------------
+# Tree arithmetic (counterpart of `repro/utils/pytree.py`'s tree_* helpers).
+# A tree is a tensor or a dict of trees; leaves go in `ravel_spec`'s order.
+# --------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of `tree` in `ravel_spec`'s order: sorted keys at every
+    level, a "/"-separated key sorting as its path."""
+    if not isinstance(tree, dict):
+        return [tree]
+    out = []
+    for k in sorted(tree, key=lambda k: k.split("/")):
+        out += tree_leaves(tree[k])
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """`fn` applied leaf by leaf to trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_mul(a, b):
+    return tree_map(torch.mul, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha*x + y."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_ones_like(a):
+    return tree_map(torch.ones_like, a)
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Σ over leaves of <a_leaf, b_leaf>, each leaf's dot taken whole and
+    added in leaf order onto a float32 zero."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    total = torch.zeros((), dtype=torch.float32, device=la[0].device)
+    for x, y in zip(la, lb):
+        total = total + torch.dot(x.reshape(-1), y.reshape(-1))
+    return total
+
+
+def tree_sq_norm(a) -> torch.Tensor:
+    return tree_dot(a, a)
+
+
+def tree_norm(a) -> torch.Tensor:
+    return torch.sqrt(tree_sq_norm(a))
+
+
+def tree_size(a) -> int:
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def tree_bytes(a) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(a))
+
+
+def tree_cast(a, dtype):
+    return tree_map(lambda x: x.to(dtype), a)
+
+
+def tree_where(pred, a, b):
+    """Leaf-wise select; `pred` broadcasts against every leaf."""
+    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def tree_mean_over_axis(a, axis: int = 0):
+    return tree_map(lambda x: torch.mean(x, dim=axis), a)
+
+
+def tree_stack(trees, axis: int = 0):
+    return tree_map(lambda *xs: torch.stack(xs, dim=axis), *trees)
+
+
+def tree_unstack(tree, axis: int = 0):
+    n = tree_leaves(tree)[0].shape[axis]
+    return [tree_map(lambda x: x.select(axis, i), tree) for i in range(n)]
+
+
+def tree_allclose(a, b, rtol=1e-5, atol=1e-6) -> bool:
+    return all(bool(torch.allclose(x, y, rtol=rtol, atol=atol))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_clone(a):
+    """A copy of `a` with buffers of its own, each leaf in its own strides
+    where they are dense (a transposed factor stays transposed, which a
+    solve reads differently) and contiguous where they overlap (a
+    stride-0 broadcast becomes m real rows). Leaves that are no tensor
+    are kept."""
+    return tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, a)
 
 
 # --------------------------------------------------------------------------
