@@ -165,7 +165,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      version timed in tiles;
    * the same model under `--h-policy diag_ema`, 3 rounds, `--no-scan`
      (the chunked driver's warm-up copies would not fit): the batched
-     kernel once a round;
+     kernel once a round; this run and the `--no-scan` one take the
+     first run's r_hat probe (`memo_probe`: the same weights, batch and
+     keys, so the same value; a cut of 31 s, PERF.md §4);
    * reduced tinyllama-1.1b, qwen1.5-0.5b and rwkv6-3b `--arch` runs
      (bf16, 8 rounds) on the card and on the CPU: f every round within
      TRAIN_CPU_RTOL, r_hat within PROBE_CPU_RTOL, f falling;
@@ -222,6 +224,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (err < 0.15·max|logit| + 0.5); and `repro_torch.examples.
    serve_requests` (reduced, bfloat16), captured and `--no-scan`, the
    same tokens.
+3b. The head_dim-160 flash form and the MoE/MLA families, each model's
+   weights drawn on the card from prng_key(0) (init_s timed), a warm-up
+   `serve.generate` (gen 2), then the measured captured run with counts
+   reset just before and read just after; prefill_s, decode tok/s/req,
+   init_s, the peak device memory and the decode step's bound (weights
+   read a step at 3.35 TB/s) printed with the card:
+   * stablelm-12b at full width and depth (head_dim 160), batch 4,
+     prompt 2048, gen 32: exactly 40 flash launches, the captured decode
+     against --no-scan (tokens equal, logits bit for bit or within
+     CAPTURED_LOGIT_RTOL); its layer-0 flash call held to the plain
+     version at the bf16 tolerance and timed beside its bound and SDPA;
+   * deepseek-v3-671b at full width, its 3 dense layers, 1 MoE layer and
+     the MTP head (batch 4, prompt 256, gen 16; no flash launch: MLA
+     attends with the plain blocked softmax) and arctic-480b at full
+     width, 1 layer (the same sizes; 1 flash launch at H 56, Kv 8): the
+     prefill's and each decode step's logits against the train forward
+     over the same tokens at the reference's rtol 4e-2 / atol 8e-2;
+     DeepSeek-V3's MoE layer on 64 tokens with nothing dropped against
+     `moe_ref_dense`;
+   * the reduced deepseek-v3-671b and arctic-480b `--arch` rounds in
+     float32 (the CLI's config dtype replaced), card against CPU at
+     TRAIN_CPU_RTOL.
 4. Card against CPU: the reduced tinyllama-1.1b and rwkv6-3b in float32,
    parameters made on the CPU and copied to the card, prefill of 64
    tokens and 8 decode steps on both, the card's decode captured, the
@@ -414,6 +438,32 @@ PRNG_KNOWN_IDS = (
      82, 84, 85, 86, 87, 88, 89, 93, 95, 98, 99, 102, 103, 105, 106, 107,
      109, 113, 114, 119, 121, 122, 123, 124, 125, 126, 127],
 )
+# phase 3b: the hd-160 flash form, the MoE/MLA families. StableLM-2-12B
+# at full width and depth (40 layers, head_dim 5120 / 32 = 160); the two
+# MoE models at full width with their depth cut to fit one 80 GB card:
+# DeepSeek-V3's 3 dense layers and 1 MoE layer (with its MTP head, which
+# serving does not read), Arctic's 1 layer. The warm-up call before each
+# takes the same prefill, gen 2
+STABLELM = dict(arch="stablelm-12b", layers=40, batch=4, prompt=2048,
+                gen=32)
+MOE_MODELS = (dict(arch="deepseek-v3-671b", layers=4, batch=4, prompt=256,
+                   gen=16),
+              dict(arch="arctic-480b", layers=1, batch=4, prompt=256,
+                   gen=16))
+# prefill + decode against the train forward: the reference's own bounds
+# for two computations of the same bf16 logits (tests/test_serve.py,
+# test_decode_matches_forward)
+DECODE_RTOL, DECODE_ATOL = 4e-2, 8e-2
+# the router's logits (log-probabilities less their mean, spread ~1 at
+# init) of the two computations: bf16 GEMMs of other shapes below the
+# MoE layer move them by ulps of their inputs; a decode reading the wrong
+# position or cache slot would move them by O(1)
+ROUTER_DRIFT = 0.1
+# the no-drop MoE layer (4 x 16 = 64 tokens) against the dense oracle,
+# both in bf16 on the same weights: the same bound (the two sum the k
+# experts' outputs in other orders and roundings, fp32 slot space against
+# the oracle's bf16 running sum); CAPACITY_FACTOR raised so that C >= B k
+MOE_DENSE_SHAPE = (4, 16)
 # kernel vs plain version: the tolerances of tests/test_kernels.py
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.5e-2}
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -1166,6 +1216,338 @@ def card_vs_cpu(serve, Transformer, get_config, arch, counters):
     say(f"  {cfg.name} fp32: tokens equal ({want['tokens'][0].tolist()}), "
         f"logits max_abs_err={err!r} (tolerance rtol=atol={PARITY_TOL}); "
         f"card launches {n}")
+
+
+def float32_cli(train):
+    """Make `train`'s `--arch` configs float32 (the CLI has no dtype flag);
+    returns the function that puts the registry's back."""
+    real = train.get_config
+    train.get_config = lambda name: dataclasses.replace(real(name),
+                                                        dtype="float32")
+    return lambda: setattr(train, "get_config", real)
+
+
+def decode_bound_ms(model, cache):
+    """Least time of a decode step on an H100 SXM: every weight it reads
+    (all but the embedding, of which a step reads B rows, and the MTP
+    head) and the cache read once, over the HBM rate."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for k, t in model.params.items()
+                 if k != "embed" and not k.startswith("mtp/"))
+    nbytes += sum(t.numel() * t.element_size()
+                  for g in cache.values() for t in g.values())
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def serve_full_width(serve, Transformer, cfg, run, counters, card, mod,
+                     name, eager=False):
+    """`cfg` served on the card from `prng_key(0)`: `Transformer.init`
+    timed (init_s), a warm-up `serve.generate` (gen 2), then the measured
+    captured run (counts reset just before and read just after, the first
+    call of `mod.name` recorded) and, with `eager`, the `--no-scan` run on
+    the same prompts. Prints prefill_s, decode tok/s/req, init_s, the
+    peak device memory and the decode step's bound. Returns (model,
+    prompts, captured result, eager result or None, counts, recorded
+    call)."""
+    from repro_torch.core.prng import prng_key
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, "cuda").init(prng_key(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.params.values())
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (run["batch"], run["prompt"]),
+                            generator=rng, device="cuda")
+    serve.generate(model, prompts, 2)
+    store = []
+    restore = record_first_call(mod, name, store)
+    try:
+        reset_counts(counters)
+        res = serve.generate(model, prompts, run["gen"])
+        n = read_counts(counters)
+    finally:
+        restore()
+    res_eager = (serve.generate(model, prompts, run["gen"], scan=False)
+                 if eager else None)
+    peak = torch.cuda.max_memory_allocated()
+    cache = model.init_cache(run["batch"], run["prompt"] + run["gen"])
+    bound, nbytes = decode_bound_ms(model, cache)
+    del cache
+    step_ms = res["decode_s"] / (run["gen"] - 1) * 1e3
+    say(f"serve {cfg.name} captured (cuda, full width, {cfg.num_layers} "
+        f"layers, {n_params} parameters, batch {run['batch']}, prompt "
+        f"{run['prompt']}, gen {run['gen']}): init_s={init_s!r} "
+        f"prefill_s={res['prefill_s']!r} capture_s={res['capture_s']!r} "
+        f"decode_s={res['decode_s']!r} decode_tok_s_req="
+        f"{(run['gen'] - 1) / res['decode_s']!r} ({step_ms!r} ms a step; "
+        f"bound {bound!r} ms: {nbytes} bytes of weights and cache at 3.35 "
+        f"TB/s) peak device memory {peak} bytes ({gib(peak):.2f} GiB) on "
+        f"{card}")
+    say(f"  generated[0,:16] = {res['tokens'][0, :16].tolist()}; launches "
+        f"{n}")
+    if res_eager is not None:
+        say(f"  --no-scan: prefill_s={res_eager['prefill_s']!r} decode_s="
+            f"{res_eager['decode_s']!r} decode_tok_s_req="
+            f"{(run['gen'] - 1) / res_eager['decode_s']!r}")
+    tokens = res["tokens"]
+    if tokens.shape != (run["batch"], run["gen"]) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab_size or \
+            not torch.isfinite(res["logits"].float()).all():
+        raise SystemExit(f"serve {cfg.name}: bad tokens or logits")
+    if not res["capture_s"] > 0:
+        raise SystemExit(f"serve {cfg.name}: the decode was not captured")
+    return model, prompts, res, res_eager, n, (store[0] if store else None)
+
+
+def record_routing(moe, store):
+    """Replace `moe.route` by a function that appends each call's
+    (expert_idx, probs) to `store`; returns the function that puts it
+    back."""
+    real = moe.route
+
+    def route(*args, **kwargs):
+        out = real(*args, **kwargs)
+        store.append((out[2].detach().clone(), out[0].detach().clone()))
+        return out
+
+    moe.route = route
+    return lambda: setattr(moe, "route", real)
+
+
+def hold_decode_to_forward(serve, moe, model, prompts, res, what):
+    """The captured run's logits (the prefill's last, then each decode
+    step's) against the train-mode forward over the prompt and the
+    generated tokens, at DECODE_RTOL / DECODE_ATOL, row by row (a row: one
+    request at one position). The cut models have one MoE layer, their
+    last, so a position's routing reaches its own row only. The two
+    computations run the layers below it as GEMMs of other shapes (S = 1
+    a step against the whole sequence), which move the router's bf16
+    inputs by ulps, and among 256 experts the k-th and (k+1)-th
+    probabilities can lie that close: such a row routes to another expert
+    set in the two. Routing is read from an eager (`--no-scan`) decode of
+    the same prompts, whose tokens must be the captured run's: the
+    router's logits of the two (log-probabilities less their mean over
+    the experts) must agree within ROUTER_DRIFT at every row, which a
+    wrong decode path (another position, another cache slot) would not
+    meet; a row whose expert set differs is counted, its swapped experts'
+    probability gap printed, and left out; every other row is held to the
+    bound."""
+    P, gen = prompts.shape[1], res["tokens"].shape[1]
+    B = prompts.shape[0]
+    seq = torch.cat([prompts, res["tokens"][:, :gen - 1]], dim=1)
+    fwd, dec = [], []
+    restore = record_routing(moe, fwd)
+    try:
+        with torch.no_grad():
+            full = model.forward(seq)[:, P - 1:].transpose(0, 1)  # gen,B,V
+    finally:
+        restore()
+    restore = record_routing(moe, dec)
+    try:
+        eager = serve.generate(model, prompts, gen, scan=False)
+    finally:
+        restore()
+    if not torch.equal(eager["tokens"], res["tokens"]):
+        raise SystemExit(f"{what}: --no-scan tokens {eager['tokens'].tolist()}"
+                         f" != captured {res['tokens'].tolist()}")
+    if len(fwd) != 1 or len(dec) != gen:
+        raise SystemExit(f"{what}: {len(fwd)} and {len(dec)} router calls, "
+                         f"want 1 and {gen} (one MoE layer)")
+    def rows(calls, n0):  # (B, gen, ...) at positions P-1 .. P+gen-2
+        return torch.cat([calls[0].reshape(B, n0, -1)[:, -1:]]
+                         + [c.reshape(B, 1, -1) for c in calls[1:]], dim=1)
+
+    f_idx = fwd[0][0].reshape(B, P + gen - 1, -1)[:, P - 1:]
+    f_probs = fwd[0][1].reshape(B, P + gen - 1, -1)[:, P - 1:]
+    d_idx = rows([d for d, _ in dec], P)
+    d_probs = rows([pr for _, pr in dec], P)
+
+    def centred(pr):
+        lp = pr.log()
+        return lp - lp.mean(-1, keepdim=True)
+
+    drift = float((centred(f_probs) - centred(d_probs)).abs().max())
+    flipped = (f_idx.sort(-1).values != d_idx.sort(-1).values).any(-1).T
+    got, want = res["logits"].float(), full.float()  # (gen, B, V)
+    rows = ~flipped
+    err = float((got[rows] - want[rows]).abs().max())
+    torch.testing.assert_close(got[rows], want[rows], rtol=DECODE_RTOL,
+                               atol=DECODE_ATOL,
+                               msg=lambda m: f"{what} decode vs forward: {m}")
+    gaps = []
+    for t, b in flipped.nonzero().tolist():
+        a, d = set(f_idx[b, t].tolist()), set(d_idx[b, t].tolist())
+        pr = f_probs[b, t]
+        gaps.append(max(abs(float(pr[i] - pr[j]))
+                        for i in a - d for j in d - a))
+    n_flip = int(flipped.sum())
+    worst = float((got - want).abs().max())
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    say(f"  prefill + captured decode vs the train forward over the same "
+        f"{P + gen - 1} tokens: router logits within {drift!r} of each "
+        f"other (bound {ROUTER_DRIFT}); {gen * B - n_flip} of {gen * B} "
+        f"rows route alike, max_abs_err={err!r} there (rtol {DECODE_RTOL}, "
+        f"atol {DECODE_ATOL}); {n_flip} rows route to another expert set "
+        f"(forward probability gaps of the swapped experts {gaps}), "
+        f"max_abs_err over all rows {worst!r}; argmax equal at {same!r}")
+    if not drift <= ROUTER_DRIFT:
+        raise SystemExit(f"{what}: router logits {drift!r} apart")
+
+
+def moe_dense_check(moe, model, card):
+    """DeepSeek-V3's MoE layer at full width on 64 tokens, CAPACITY_FACTOR
+    raised so that nothing drops, against the dense oracle."""
+    cfg = model.cfg
+    B, S = MOE_DENSE_SHAPE
+    from repro_torch.models.transformer import _nest
+
+    layer = {k: v[0] for k, v in model.params.items()
+             if k.startswith("groups/moe/moe/")}
+    params = _nest(layer)["groups"]["moe"]["moe"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((B, S, cfg.d_model), generator=g,
+                    device="cuda").to(model.dtype)
+    real = moe.CAPACITY_FACTOR
+    moe.CAPACITY_FACTOR = float(cfg.num_experts)  # C >= B k
+    try:
+        C = moe.expert_capacity(B, cfg.num_experts, cfg.experts_per_token)
+        _, gates, idx = moe.route(params, cfg, x)
+        tok, _ = moe.slots(idx, gates, B, S, cfg.num_experts, C)
+        kept = int((tok < B).sum())
+        with torch.no_grad():
+            out, aux = moe.moe_apply(params, cfg, x)
+            want = moe.moe_ref_dense(params, cfg, x)
+        torch.cuda.synchronize()
+    finally:
+        moe.CAPACITY_FACTOR = real
+    if kept != B * S * cfg.experts_per_token:
+        raise SystemExit(f"MoE no-drop check: {kept} of "
+                         f"{B * S * cfg.experts_per_token} choices kept")
+    err = float((out.float() - want.float()).abs().max())
+    torch.testing.assert_close(out.float(), want.float(), rtol=DECODE_RTOL,
+                               atol=DECODE_ATOL,
+                               msg=lambda m: f"MoE vs moe_ref_dense: {m}")
+    say(f"  {cfg.name}'s MoE layer ({cfg.num_experts} experts, top "
+        f"{cfg.experts_per_token}, 1 shared) on {B}x{S} tokens, C={C}, "
+        f"every choice kept ({kept}): vs moe_ref_dense max_abs_err={err!r} "
+        f"(rtol {DECODE_RTOL}, atol {DECODE_ATOL}; max|out| "
+        f"{float(want.float().abs().max())!r}), aux={float(aux)!r} on {card}")
+
+
+def moe_mla_phase(serve, train, Transformer, get_config, moe, counters,
+                  launches, card, flash_ops, flash_ref):
+    """Phase 3b: the head_dim-160 flash form, StableLM-2-12B served at full
+    width and depth, DeepSeek-V3 and Arctic served at full width with
+    their depth cut, DeepSeek-V3's MoE layer against the dense oracle,
+    and reduced float32 `--arch` rounds of both against the CPU. Adds the
+    main-path launches to `launches`; returns the hd-160 form's numbers
+    for the flash entry of the kernels line."""
+    t_phase = time.perf_counter()
+    run = STABLELM
+    cfg = get_config(run["arch"])
+    say(f"phase 3b: {run['arch']} at full width and depth, then the MoE/MLA "
+        f"models at full width, on {card}:")
+    model, prompts, res, res_eager, n, call = serve_full_width(
+        serve, Transformer, cfg, run, counters, card, flash_ops,
+        "flash_attention", eager=True)
+    if n["flash_attention"] != run["layers"] or sum(n.values()) != \
+            run["layers"]:
+        raise SystemExit(f"serve {cfg.name}: launches {n}, want "
+                         f"{run['layers']} flash_attention launches")
+    launches["flash_attention"] += n["flash_attention"]
+    if not torch.equal(res["tokens"], res_eager["tokens"]):
+        raise SystemExit(f"serve {cfg.name}: captured tokens "
+                         f"{res['tokens'].tolist()} != --no-scan "
+                         f"{res_eager['tokens'].tolist()}")
+    if torch.equal(res["logits"], res_eager["logits"]):
+        say("  captured vs --no-scan: tokens equal, logits bit for bit")
+    else:
+        err = float((res["logits"].float()
+                     - res_eager["logits"].float()).abs().max())
+        scale = float(res_eager["logits"].float().abs().max())
+        say(f"  captured vs --no-scan: tokens equal, logits NOT bit for bit:"
+            f" max_abs_err={err!r} against max|logit| {scale!r} (held to "
+            f"{CAPTURED_LOGIT_RTOL} of it)")
+        if not err <= CAPTURED_LOGIT_RTOL * scale:
+            raise SystemExit(f"serve {cfg.name}: captured logits off by "
+                             f"{err!r}")
+    del model, prompts, res, res_eager
+    torch.cuda.empty_cache()
+
+    (q, k, v), kw = call
+    if q.shape[-1] != 160 or kw.get("window") is not None:
+        raise SystemExit(f"flash hd-160: main-path call {list(q.shape)} {kw}")
+    err = check_flash(flash_ops, flash_ref, q, k, v, None,
+                      "head_dim 160 (stablelm-12b layer 0)")
+    ms = median_ms(lambda: flash_ops.flash_attention(q, k, v))
+    plain_ms = median_ms(lambda: flash_ref.flash_attention_ref(q, k, v))
+    library_ms = median_ms(sdpa(q, k, v))
+    bound_ms, bound_by, flops, nbytes = flash_bound(q, k)
+    say(f"  flash_attention q {list(q.shape)} k {list(k.shape)} bf16 causal "
+        f"(median of {REPS} launches, CUDA events): kernel_us="
+        f"{ms * 1e3:.2f} plain_us={plain_ms * 1e3:.2f} library_us="
+        f"{library_ms * 1e3:.2f} (scaled_dot_product_attention) bound_us="
+        f"{bound_ms * 1e3:.2f} ({bound_by}; {flops} flop, {nbytes} bytes) "
+        f"achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"share_of_bound={bound_ms / ms:.4f} on {card}")
+    hd160 = {"shape": list(q.shape), "kv_shape": list(k.shape),
+             "launches": n["flash_attention"], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+    del q, k, v, call
+    moe_models(serve, train, Transformer, get_config, moe, counters,
+               launches, card, flash_ops)
+    say(f"phase 3b took {time.perf_counter() - t_phase!r} s")
+    return hd160
+
+
+def moe_models(serve, train, Transformer, get_config, moe, counters,
+               launches, card, flash_ops):
+    """Phase 3b's MoE/MLA half: each of MOE_MODELS served at full width
+    with its depth cut, decode held to the train forward, DeepSeek-V3's
+    MoE layer to the dense oracle; then the reduced float32 `--arch`
+    rounds against the CPU. Adds the main-path launches to `launches`."""
+    for run in MOE_MODELS:
+        cfg = dataclasses.replace(get_config(run["arch"]),
+                                  num_layers=run["layers"])
+        model, prompts, res, _, n, call = serve_full_width(
+            serve, Transformer, cfg, run, counters, card, flash_ops,
+            "flash_attention")
+        # MLA attends with the plain blocked softmax (q/k depth 192, v
+        # depth 128); Arctic's GQA prefill runs the flash kernel a layer
+        want = 0 if cfg.attention_type == "mla" else run["layers"]
+        if n["flash_attention"] != want or sum(n.values()) != want:
+            raise SystemExit(f"serve {cfg.name}: launches {n}, want {want} "
+                             "flash_attention launches")
+        launches["flash_attention"] += n["flash_attention"]
+        if call is not None:
+            (q, k, _), _ = call
+            say(f"  the prefill's flash launch: q {list(q.shape)} k "
+                f"{list(k.shape)} {str(q.dtype)[6:]}")
+            del q, k, call
+        hold_decode_to_forward(serve, moe, model, prompts, res, cfg.name)
+        if cfg.num_shared_experts:
+            moe_dense_check(moe, model, card)
+        del model, prompts, res
+        torch.cuda.empty_cache()
+
+    say("reduced --arch runs in float32, card vs CPU:")
+    restore = float32_cli(train)
+    try:
+        for run in MOE_MODELS:
+            reset_counts(counters)
+            train_vs_cpu(train, run["arch"], "float32")
+            n = read_counts(counters)
+            if n["fedgia_update_batched_donated"] != 8 or sum(n.values()) != 8:
+                raise SystemExit(f"{run['arch']} reduced: launches {n}")
+            for k_ in launches:
+                launches[k_] += n[k_]
+    finally:
+        restore()
 
 
 def client_store_phase(pop, train, counters, launches, card):
@@ -2207,17 +2589,18 @@ def full_width_update(algo, batch, flat, spec, ops, ref, card):
     return numbers
 
 
-def train_vs_cpu(train, arch):
+def train_vs_cpu(train, arch, dtype="bf16"):
     """A reduced `--arch` run on the card and on the CPU: the same rounds,
     f each round within TRAIN_CPU_RTOL of that round's f on the CPU,
-    r_hat within PROBE_CPU_RTOL."""
+    r_hat within PROBE_CPU_RTOL. The card's run goes first, so that a
+    caller's launch counts are the card's."""
     argv = ["--arch", arch] + TRAIN_REDUCED
     runs = {dev: train.main(argv + ["--device", dev])
             for dev in ("cuda", "cpu")}
     f = {dev: [h["f"] for h in r["history"]] for dev, r in runs.items()}
     r_hat = {dev: float(r["state"]["r"]) for dev, r in runs.items()}
     gap = max(abs(a - b) / abs(b) for a, b in zip(f["cuda"], f["cpu"]))
-    say(f"  {arch} reduced (bf16), card vs CPU: f {f['cuda']} vs "
+    say(f"  {arch} reduced ({dtype}), card vs CPU: f {f['cuda']} vs "
         f"{f['cpu']} (largest relative gap {gap!r}); r_hat "
         f"{r_hat['cuda']!r} vs {r_hat['cpu']!r}")
     if len(f["cuda"]) != len(f["cpu"]) or not all(
@@ -2231,6 +2614,29 @@ def train_vs_cpu(train, arch):
         raise SystemExit(f"{arch}: r_hat {r_hat}")
     if not f["cuda"][-1] < f["cuda"][0]:
         raise SystemExit(f"{arch}: f did not fall on the card")
+
+
+def memo_probe(hparams_mod):
+    """Memoise `hparams.estimate_lipschitz` on the model, the client's key
+    and its batch: a cut of phase 2g's time (PERF.md §4). Its three
+    full-width runs probe the same weights (prng_key(0)) on the same
+    batch with the same keys, so the second and third take the first's
+    r_hat (15.6 s a probe, PR 22 run 3: the same value in all three).
+    Returns the function that puts the probe back."""
+    real = hparams_mod.estimate_lipschitz
+    seen = {}
+
+    def probe(loss_fn, params, batch, key, **kw):
+        tokens = batch["tokens"]
+        memo = (getattr(loss_fn, "__self__", None).cfg.name,
+                tuple(int(x) for x in key), tuple(tokens.shape),
+                int(tokens.long().sum()), tuple(sorted(kw.items())))
+        if memo not in seen:
+            seen[memo] = real(loss_fn, params, batch, key, **kw)
+        return seen[memo].clone()
+
+    hparams_mod.estimate_lipschitz = probe
+    return lambda: setattr(hparams_mod, "estimate_lipschitz", real)
 
 
 def training_phase(train, fl_transformer, counters, launches, card, ops,
@@ -2249,7 +2655,9 @@ def training_phase(train, fl_transformer, counters, launches, card, ops,
     if int(ulps.max()) > NORMAL_MAX_ULPS:
         raise SystemExit(f"normal_t: {int(ulps.max())} ulps from numpy")
     say(f"phase 2g: FedGiA on tinyllama-1.1b at full width "
-        f"({' '.join(TRAIN_FULL)}), on {card}:")
+        f"({' '.join(TRAIN_FULL)}), on {card}; the --no-scan and diag_ema "
+        f"runs take the first run's r_hat probes (memo_probe):")
+    unmemo = memo_probe(modules[1])
     chunked, n = train_run(train, counters, TRAIN_FULL,
                            "tinyllama-1.1b full width, CUDA-graph chunk")
     rounds = chunked["rounds"]
@@ -2306,6 +2714,7 @@ def training_phase(train, fl_transformer, counters, launches, card, ops,
         launches[k] += n[k]
     numbers["fedgia_update_batched"]["launches"] = n["fedgia_update_batched"]
     del diag
+    unmemo()
     say("  (diag_ema at full width runs in the eager loop only: the chunked "
         "driver's warm-up copies of its state would not fit, PERF.md §5)")
     torch.cuda.empty_cache()
@@ -2571,6 +2980,7 @@ def main():
     from repro_torch.examples import serve_requests
     from repro_torch.launch import serve, train
     from repro_torch.models import Transformer
+    from repro_torch.models import moe as moe_mod
     from repro_torch.utils import pytree as pt
 
     counters = (ops, flash_ops, scan_ops)
@@ -2986,6 +3396,11 @@ def main():
     say("serve_requests (reduced, bfloat16):")
     serve_requests_run(serve_requests, counters, card)
 
+    # 3b. head_dim 160, MLA, MoE and MTP at full width ------------------------
+    hd160 = moe_mla_phase(serve, train, Transformer, get_config, moe_mod,
+                          counters, launches, card, flash_ops, flash_ref)
+    say(f"main-path launches after phase 3b: {launches}")
+
     # 4. card against CPU, reduced, float32 ------------------------------------
     say("card vs cpu, reduced float32 models (prefill "
         f"{PARITY_PROMPT} tokens, {PARITY_GEN - 1} decode steps; the card's "
@@ -3101,7 +3516,9 @@ def main():
         "replaces": TPU_KERNELS["flash_attention"],
         "launches": launches["flash_attention"], "max_abs_err": flash_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms})
+        "bound_by": bound_by, "library_ms": library_ms,
+        # the head_dim-160 form at stablelm-12b's prefill (phase 3b)
+        "hd160": hd160})
 
     ms = median_ms(lambda: scan_ops.rwkv6_scan(r, kk, vv, w, u))
     plain_ms = median_ms(lambda: scan_ref.rwkv6_scan_ref(r, kk, vv, w, u))

@@ -1,9 +1,9 @@
 """StableLM-2 12B — dense GQA decoder. [hf:stabilityai/stablelm-2-1_6b]
 
-At full width its head_dim is 5120 / 32 = 160, which the flash kernel
-does not take: a full-width prefill raises there (ROADMAP queue 3 q).
-Training (`--arch stablelm-12b`), which attends with the plain blocked
-softmax, and `reduced()` (head_dim 64) run.
+At full width its head_dim is 5120 / 32 = 160: the flash kernel's
+head_dim-160 form (rows padded to 192 columns in shared memory) runs its
+prefill, so it is served at full width and depth on one 80 GB card
+(~24 GB of bf16 weights).
 """
 from repro_torch.config import ModelConfig
 

@@ -112,10 +112,10 @@ def threefry2x32(key, x0, x1):
     return a, b
 
 
-def _counters(n: int):
-    """The 64-bit counters 0..n-1 as (hi, lo) uint32 halves
-    (`prng.iota_2x32_shape`)."""
-    c = np.arange(n, dtype=np.uint64)
+def _counters(n: int, offset: int = 0):
+    """The 64-bit counters offset..offset+n-1 as (hi, lo) uint32 halves
+    (`prng.iota_2x32_shape`, whose counter is an element's flat index)."""
+    c = np.arange(offset, offset + n, dtype=np.uint64)
     return (c >> np.uint64(32)).astype(_U32), c.astype(_U32)
 
 
@@ -141,10 +141,11 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.concatenate([a, b])
 
 
-def random_bits(key, n: int) -> np.ndarray:
+def random_bits(key, n: int, offset: int = 0) -> np.ndarray:
     """`jax.random.bits(key, (n,))` (32-bit words), partitionable form:
-    word i is the XOR of the two halves of the hash of counter i."""
-    a, b = threefry2x32(key, *_counters(n))
+    word i is the XOR of the two halves of the hash of the 64-bit counter
+    i. With `offset`, words offset..offset+n-1 of a longer draw."""
+    a, b = threefry2x32(key, *_counters(n, offset))
     return a ^ b
 
 
@@ -295,21 +296,25 @@ def split_t(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
-def random_bits_t(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """`random_bits(key, n)` for every key of (rows, 2) `keys`: (rows, n)
-    int64 words in [0, 2**32) (n < 2**32, so each counter's high half is
-    0)."""
+def random_bits_t(keys: torch.Tensor, n: int,
+                  offset: int = 0) -> torch.Tensor:
+    """`random_bits(key, n, offset)` for every key of (rows, 2) `keys`:
+    (rows, n) int64 words in [0, 2**32), the hash of the 64-bit counters
+    offset..offset+n-1 split into (hi, lo) halves, as the reference's
+    `iota_2x32_shape` splits them (a leaf of more than 2**32 words, such
+    as Arctic's expert leaf, has counters with a high half above 0)."""
     k0, k1 = _key_words(keys)
-    i = torch.arange(n, device=keys.device)
-    a, b = threefry2x32_t(k0[:, None], k1[:, None], torch.zeros_like(i), i)
+    i = torch.arange(offset, offset + n, device=keys.device)
+    a, b = threefry2x32_t(k0[:, None], k1[:, None], i >> 32, i & _M32)
     return a ^ b
 
 
-def uniform_t(keys: torch.Tensor, n: int) -> torch.Tensor:
+def uniform_t(keys: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
     """`uniform(key, n)` on [0, 1) for every key of (rows, 2) `keys`:
     (rows, n) float32, the 23 high bits of each word under exponent 0,
-    minus 1 (the scale by 1 - 0 and shift by 0 are exact)."""
-    bits = (random_bits_t(keys, n) >> (32 - 23)) | 0x3F800000
+    minus 1 (the scale by 1 - 0 and shift by 0 are exact). With `offset`,
+    words offset..offset+n-1 of a longer draw."""
+    bits = (random_bits_t(keys, n, offset) >> (32 - 23)) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
@@ -344,17 +349,17 @@ def _erfinv_t(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal_t(key: torch.Tensor, shape) -> torch.Tensor:
+def normal_t(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """`normal(key, shape)` on the key's device: `key` is a (2,) int64
-    key tensor (`key_t`). Returns float32 of `shape` (fewer than 2**32
-    words: each counter's high half is 0)."""
+    key tensor (`key_t`). Returns float32 of `shape`. With `offset`, the
+    words offset.. of a longer flat draw: a large leaf is drawn a tile at
+    a time (`offset` the tile's first flat index), each tile bit for bit
+    the same words of the whole draw."""
     f32 = np.float32
     shape = _shape(shape)
     n = math.prod(shape)
-    if n >= 1 << 32:
-        raise ValueError(f"normal_t draws fewer than 2**32 words, got {n}")
     lo = np.nextafter(f32(-1.0), f32(0.0))
-    bits = (random_bits_t(key.reshape(1, 2), n)[0] >> (32 - 23)) \
+    bits = (random_bits_t(key.reshape(1, 2), n, offset)[0] >> (32 - 23)) \
         | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     del bits

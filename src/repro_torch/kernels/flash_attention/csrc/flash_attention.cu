@@ -33,6 +33,14 @@
 //   warps arrive when their products have read the stage. A head_dim of
 //   128 is two 64-column (128-byte) boxes per tile. Rows past S arrive as
 //   zeros.
+// * head_dim 160 (StableLM-2-12B: 5120 / 32) is 2.5 such chunks. The
+//   tensor maps keep the inner dimension at 160 and the box at 64
+//   columns, so the third box of each row reads columns 128..191 and the
+//   TMA fills 160..191 with zeros. S = Q K^T runs over the 160 real
+//   channels (10 k-steps of 16); O += P V runs at N = 192 (a legal wgmma
+//   width; the zero columns of V leave columns 160..191 of O at 0), and
+//   only columns < 160 are stored. Shared memory then holds the padded
+//   rows: Q 48 KB, each K or V stage 24 KB.
 // * S = Q K^T: wgmma m64nBKk16, A = Q and B = K, both from shared memory
 //   and K-major (the natural layout), one instruction per 16 channels.
 // * Softmax on the accumulator fragments: a thread holds two rows of S
@@ -55,7 +63,8 @@
 //   blockIdx.x), so the grid's tail is short; GQA is free, as the 8 query
 //   heads of a group read their kv head's tiles through L2.
 // Shared memory at head_dim 64 is 112 KB (Q 16 KB, three stages of K + V
-// at 32 KB), 128 KB at 128; one block an SM.
+// at 32 KB), 128 KB at 128, 193 KB at 160 (Q 48 KB, three stages at
+// 48 KB); one block an SM.
 //
 // float32 keeps the CUDA-core body: tensor cores would take fp32 through
 // TF32 (~1e-3 relative error), which the fp32 checks against the plain
@@ -265,12 +274,19 @@ constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int STAGES = 3;          // K/V ring depth
 constexpr int ROW = 128;           // bytes of a swizzled row: 64 bf16
 
+// head_dim rounded up to whole 64-column (128-byte) chunks: the width of
+// a tile's rows in shared memory and of the P V product
+__host__ __device__ constexpr int padded(int hd) {
+  return (hd + 63) / 64 * 64;
+}
+
 template <int HD>
 struct Tiles {
   static constexpr int BK = HD == 64 ? 128 : 64;  // keys per tile
-  static constexpr int CHUNKS = HD / 64;  // 128-byte column chunks a row
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;  // one K or one V tile
+  static constexpr int HDP = padded(HD);
+  static constexpr int CHUNKS = HDP / 64;  // 128-byte column chunks a row
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;  // one K or one V tile
   // 1024 bytes of slack to align the swizzled tiles, then the barriers
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 64;
 };
@@ -459,6 +475,46 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 192, fp32) += A (64 x 16, bf16 in registers) *
+// B (16 x 192, shared, MN-major, 128-byte swizzled)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&x);
@@ -488,9 +544,9 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t qa,
 }
 
 // O += P V of one tile, asynchronous, committed as one group; V's 64-
-// column chunks lie BK rows of 128 bytes apart
+// column chunks lie BK rows of 128 bytes apart (N = the padded head_dim)
 template <int HD, int BK>
-__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
+__device__ __forceinline__ void issue_pv(float (&acc)[padded(HD) / 2],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint32_t vs) {
   wgmma_fence();
@@ -579,7 +635,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&sc)[BK / 2],
 // cur and nxt, so no register that a product in flight reads is written.
 template <int HD, int BK>
 __device__ __forceinline__ void pipeline_step(
-    float (&acc)[HD / 2], float (&sc)[BK / 2],
+    float (&acc)[padded(HD) / 2], float (&sc)[BK / 2],
     const uint32_t (&cur)[BK / 16][4], uint32_t (&nxt)[BK / 16][4], Rows& st, uint32_t qa, uint32_t k_it,
     uint32_t v_prev, uint32_t full_it, int parity, uint32_t empty_prev,
     int k0, int q0, int cq, int S, float scale_log2, int causal, int window) {
@@ -595,7 +651,8 @@ __device__ __forceinline__ void pipeline_step(
   __syncwarp();
   if (threadIdx.x % 32 == 0) mbar_arrive(empty_prev);
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] *= (i % 4) < 2 ? corr.x : corr.y;
+  for (int i = 0; i < padded(HD) / 2; ++i)
+    acc[i] *= (i % 4) < 2 ? corr.x : corr.y;
 }
 
 template <int HD>
@@ -671,9 +728,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   st.r1 = st.r0 + 8;
   st.m0 = st.m1 = NEG_INF;
   st.l0 = st.l1 = 0.0f;
-  float acc[HD / 2];
+  float acc[C::HDP / 2];  // columns of the padded head_dim
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < C::HDP / 2; ++i) acc[i] = 0.0f;
   const uint32_t qa = q_s + 64 * wg * ROW;
   float sc[BK / 2];
   uint32_t pa[BK / 16][4];   // P of the tile whose P V is next
@@ -716,7 +773,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   __nv_bfloat16* ob = o + b * so.b + h * so.h + cq;
 #pragma unroll
-  for (int i = 0; i < HD / 2; i += 2) {
+  for (int i = 0; i < HD / 2; i += 2) {  // the columns < HD only
     const int row = (i % 4) < 2 ? st.r0 : st.r1;
     const float d = (i % 4) < 2 ? d0 : d1;
     if (row < S) {
@@ -830,6 +887,12 @@ extern "C" int flash_attention_launch(
                             window, s);
   if (dtype == 1 && hd == 128)
     return bf16::launch<128>(q, k, v, o, B, H, Kv, S, st, scale, causal,
+                             window, s);
+  if (dtype == 0 && hd == 160)
+    return fp32::launch<160>(q, k, v, o, B, H, Kv, S, st, scale, causal,
+                             window, s);
+  if (dtype == 1 && hd == 160)
+    return bf16::launch<160>(q, k, v, o, B, H, Kv, S, st, scale, causal,
                              window, s);
   return (int)cudaErrorInvalidValue;
 }

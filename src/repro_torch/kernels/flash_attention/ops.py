@@ -16,13 +16,16 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (queries per block, keys per tile) of each form of the kernel, by dtype
-# and head_dim: the bfloat16 forms run on the tensor cores (wgmma, TMA),
-# the float32 forms on the CUDA cores
+# and head_dim: the bfloat16 forms run on the tensor cores (wgmma, TMA;
+# head_dim 160 in rows padded to 192 columns), the float32 forms on the
+# CUDA cores
 TILES = {(torch.bfloat16, 64): (128, 128), (torch.bfloat16, 128): (128, 64),
-         (torch.float32, 64): (64, 64), (torch.float32, 128): (64, 64)}
+         (torch.bfloat16, 160): (128, 64),
+         (torch.float32, 64): (64, 64), (torch.float32, 128): (64, 64),
+         (torch.float32, 160): (64, 64)}
 TMA_ALIGN = 16  # bytes: TMA's alignment of base pointers and strides
 
 launches = {"flash_attention": 0}
@@ -136,7 +139,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     key j is visible to query i iff j <= i (causal) and i - j < window.
     Any strides with a unit stride on hd (the model passes
     `transpose(1, 2)` views of its (B,S,H,hd) tensors). On CUDA: head_dim
-    64 or 128, float32 or bfloat16, fp32 accumulation; the output is in
+    64, 128 or 160, float32 or bfloat16, fp32 accumulation; the output is in
     q's dtype and q's layout. bfloat16 runs on the tensor cores and reads
     q, k, v by TMA, so their base pointers and strides must be multiples
     of 16 bytes (`tma_strides`); float32 takes any strides.

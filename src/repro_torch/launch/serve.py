@@ -17,6 +17,11 @@ versions stand in for the CUDA kernels and the same step runs eagerly.
 Parameters are drawn from the threefry key of `--seed`, as the
 reference's `model.init(PRNGKey(seed))` draws them (`Transformer.init`);
 the prompts from a generator on the run's device seeded by `--seed`.
+Every registered architecture serves (`--arch`), the MoE/MLA ones
+(deepseek-v3-671b, arctic-480b) at `--reduced` size: whole, they do not
+fit one card. A caller serves them at full width with fewer layers
+through `generate` on `Transformer(dataclasses.replace(cfg,
+num_layers=n))`, as chip_smoke.py does.
 """
 from __future__ import annotations
 

@@ -9,8 +9,10 @@ transformers.
       --reduced --algo fedgia --clients 4 --rounds 20 --seq-len 64 \
       --batch 2
 
-`--arch X [--reduced]` trains a registered dense GQA or RWKV-6
-architecture (`repro_torch.configs`) on the synthetic bigram token
+`--arch X [--reduced]` trains a registered dense GQA, RWKV-6 or MoE/MLA
+architecture (`repro_torch.configs`; the MoE/MLA ones, deepseek-v3-671b
+and arctic-480b, with `--reduced`: their fp32 router makes the flat
+buffer float32) on the synthetic bigram token
 stream (`data/tokens.py`, `--batch` sequences of `--seq-len` tokens a
 client), from the weights the reference draws from `--seed`
 (`models.transformer.init_params`), with r_hat probed at the start

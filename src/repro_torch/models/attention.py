@@ -1,18 +1,22 @@
-"""Attention: GQA (llama-style, optional QKV bias / sliding window).
+"""Attention: GQA (llama-style, optional QKV bias / sliding window) and MLA
+(DeepSeek-V3 latent attention, absorbed decode path).
 
-Counterpart of the GQA part of `repro/models/attention.py` (MLA is still
-to port). Prefill attends over the fresh K/V through the flash attention
-kernel's wrapper (`kernels/flash_attention`). Train and decode attend
-with `blocked_attention`, the model's own streaming softmax in plain
-PyTorch, as the reference trains and decodes with it: the reference
-trains through no kernel, and the CUDA kernel has no backward.
+Counterpart of `repro/models/attention.py`. GQA's prefill attends over
+the fresh K/V through the flash attention kernel's wrapper
+(`kernels/flash_attention`). Train and decode attend with
+`blocked_attention`, the model's own streaming softmax in plain PyTorch,
+as the reference trains and decodes with it: the reference trains
+through no kernel, and the CUDA kernel has no backward. MLA attends with
+`blocked_attention` in every mode, as the reference does: its prefill
+has q/k depth nope + rope = 192 and v depth 128, which neither the
+Pallas kernel (one head_dim for q, k and v) nor its port takes.
 
-The KV cache is updated in place (the reference returns a new one): the
-tensors of `cache` are written and the same dict is returned, with no
-host value read, so a decode step can be captured in a CUDA graph
-(`core/graphs.py::scan_steps`). The cache may be float8 (the reference's
-`cache_dtype`): values are cast by the reference's rule and read back
-block by block, upcast to float32.
+The KV cache (MLA's: the compressed latent) is updated in place (the
+reference returns a new one): the tensors of `cache` are written and the
+same dict is returned, with no host value read, so a decode step can be
+captured in a CUDA graph (`core/graphs.py::scan_steps`). The cache may
+be float8 (the reference's `cache_dtype`): values are cast by the
+reference's rule and read back block by block, upcast to float32.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm
 
 NEG_INF = -1e30
 
@@ -141,23 +145,30 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     }
 
 
-def _write_cache(cache, k_new, v_new, positions):
-    """Ring-buffer write, in place: entries land at position % W.
-    positions: (S,), on the device (a decode step's comes from a 0-d
-    tensor, so nothing here reads a host value). When S > W only the LAST
-    W entries are written (unique slots, as in the reference). A float8
-    cache takes `cast_to_cache`'s values, written as bits."""
-    W = cache["k"].shape[1]
-    S = k_new.shape[1]
-    if S > W:
-        k_new, v_new, positions = k_new[:, -W:], v_new[:, -W:], positions[-W:]
+def _write_entries(cache, new: dict, positions):
+    """Ring-buffer write, in place: the entries of each `new[name]` (B, S,
+    ...) land in `cache[name]` at position % W. positions: (S,), on the
+    device (a decode step's comes from a 0-d tensor, so nothing here reads
+    a host value). When S > W only the LAST W entries are written (unique
+    slots, as in the reference's GQA write; its MLA write leaves S > W
+    undefined). A float8 cache takes `cast_to_cache`'s values, written as
+    bits."""
+    W = cache["slot_pos"].shape[0]
+    if positions.shape[0] > W:
+        new = {k: v[:, -W:] for k, v in new.items()}
+        positions = positions[-W:]
     idx = positions % W
-    for name, new in (("k", k_new), ("v", v_new)):
+    for name, t in new.items():
         buf = cache[name]
-        _bits(buf)[:, idx] = _bits(cast_to_cache(new, buf.dtype))
+        _bits(buf)[:, idx] = _bits(cast_to_cache(t, buf.dtype))
     cache["slot_pos"][idx] = positions.to(torch.int32)
     cache["pos"].copy_(positions[-1] + 1)
     return cache
+
+
+def _write_cache(cache, k_new, v_new, positions):
+    """GQA's write (`_write_entries` of k and v)."""
+    return _write_entries(cache, {"k": k_new, "v": v_new}, positions)
 
 
 def gqa_apply(params, cfg: ModelConfig, x, positions, cache, mode: AttnMode):
@@ -195,4 +206,85 @@ def gqa_apply(params, cfg: ModelConfig, x, positions, cache, mode: AttnMode):
             q, cache["k"], cache["v"], positions, cache["slot_pos"],
             window=mode.window, block_k=mode.block_k)
     out = out.reshape(B, S, H * hd)
+    return out @ params["wo"], cache
+
+
+# ===================================================================== MLA
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device=None):
+    """MLA caches the COMPRESSED latent (kv_lora + rope) — its memory win."""
+    return {
+        "ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                             dtype=dtype, device=device),
+        "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                               device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _mla_qkv(params, cfg: ModelConfig, x, positions):
+    """The query's no-rope and rope parts (B,S,H,nope), (B,S,H,rope), the
+    normed latent (B,S,kv_lora) and the shared rope key (B,S,rope). The
+    latents' norms take the reference's default eps, not cfg.norm_eps."""
+    B, S, _ = x.shape
+    H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_lat = rmsnorm(params["q_norm"], x @ params["wq_a"])
+    q = (q_lat @ params["wq_b"]).reshape(B, S, H, nope + rope)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kv_a = x @ params["wkv_a"]
+    ckv = rmsnorm(params["kv_norm"], kv_a[..., :cfg.kv_lora_rank])
+    k_rope = apply_rope(kv_a[..., cfg.kv_lora_rank:][:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _cat_last(a, b):
+    """torch.cat on the last axis, float8 as bits."""
+    out = torch.cat([_bits(a), _bits(b)], dim=-1)
+    return out.view(a.dtype) if _is_fp8(a) else out
+
+
+def mla_apply(params, cfg: ModelConfig, x, positions, cache, mode: AttnMode):
+    """x: (B,S,d); positions: (S,). Returns (out, cache).
+
+    Train and prefill take the naive path: the latents expanded to
+    per-head K (nope + rope) and V, attended over the FRESH tokens (the
+    prefill writes only the latent cache). Decode takes the absorbed
+    path: q_nope·wk_b into latent space, then one KV head of depth
+    kv_lora + rope against the cached latents, v depth kv_lora, and wv_b
+    after."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, cfg, x, positions)
+    scale = 1.0 / ((nope + rope) ** 0.5)
+
+    if mode.kind in ("train", "prefill"):
+        if mode.kind == "prefill":
+            _write_entries(cache, {"ckv": ckv, "krope": k_rope}, positions)
+        k_nope = (ckv @ params["wk_b"]).reshape(B, S, H, nope)
+        val = (ckv @ params["wv_b"]).reshape(B, S, H, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = blocked_attention(q, k, val, positions, positions,
+                                window=mode.window, block_k=mode.block_k,
+                                scale=scale)
+    else:
+        _write_entries(cache, {"ckv": ckv, "krope": k_rope}, positions)
+        wk_b = params["wk_b"].reshape(kvr, H, nope)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
+        q_full = torch.cat([q_lat, q_rope], dim=-1)  # (B,S,H,kvr+rope)
+        k_full = _cat_last(cache["ckv"], cache["krope"])  # (B,T,kvr+rope)
+        out_lat = blocked_attention(
+            q_full, k_full[:, :, None, :], cache["ckv"][:, :, None, :],
+            positions, cache["slot_pos"], window=mode.window,
+            block_k=mode.block_k, scale=scale)  # (B,S,H,kvr)
+        wv_b = params["wv_b"].reshape(kvr, H, dv)
+        out = torch.einsum("bshr,rhv->bshv", out_lat, wv_b)
+    out = out.reshape(B, S, H * dv)
     return out @ params["wo"], cache

@@ -1,4 +1,5 @@
-"""Decoder-only transformer: dense GQA and RWKV-6, served and trained.
+"""Decoder-only transformer: dense GQA, RWKV-6 and the MoE/MLA families
+(DeepSeek-V3, Arctic), served and trained.
 
 Counterpart of `repro/models/transformer.py`. The parameters are a
 training tree (`init_params`): a flat dict with one tensor per leaf of
@@ -10,8 +11,10 @@ FedGiA's flat (m, N) buffers are the reference's lane for lane, and
 holds one such tree (`Transformer.params`); a forward unbinds each
 stacked leaf into its layers once.
 
-Layers run in a Python loop. The cache keeps the reference's layout, each
-group's tensors stacked on a leading layer axis, and is updated in place.
+Layers are stacked into homogeneous groups (DeepSeek-V3: its leading
+dense layers, then its MoE layers) and run in a Python loop. The cache
+keeps the reference's layout, each group's tensors stacked on a leading
+layer axis, and is updated in place.
 A decode step reads no host value (its position is a 0-d tensor on the
 device), so `launch/serve.py` captures it once as a CUDA graph and
 replays it for every token.
@@ -26,7 +29,10 @@ Modes:
   decode   — ONE new token against the cache (ring buffer when the
              sliding-window long-context variant is on)
 
-MoE, MLA, the hybrid SSM and the MTP head are ROADMAP queue 1 item 7b.
+MLA layers attend with the plain blocked softmax in every mode (its
+q/k depth differs from its v depth, which no kernel takes), as the
+reference does. The hybrid SSM kind and embeds inputs are ROADMAP queue
+1 item 7b.
 """
 from __future__ import annotations
 
@@ -40,28 +46,39 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.attention import AttnMode
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mlp import mlp_apply
 
 IGNORE_LABEL = -1
+MTP_WEIGHT = 0.3
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerGroup:
     name: str
     count: int
-    kind: str  # dense | rwkv
+    kind: str  # dense | moe | rwkv
 
 
 def _layer_groups(cfg: ModelConfig):
     if cfg.attention_type == "rwkv":
         return [LayerGroup("rwkv", cfg.num_layers, "rwkv")]
-    if cfg.moe or cfg.attention_type != "gqa":
+    if cfg.attention_type not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA and hybrid layers are not ported yet "
-            "(ROADMAP queue 1 item 7b); the port runs dense GQA and RWKV-6")
+            f"{cfg.name}: {cfg.attention_type} layers are not ported yet "
+            "(ROADMAP queue 1 item 7b); the port runs GQA, MLA, MoE and "
+            "RWKV-6")
+    if cfg.moe:
+        groups = []
+        if cfg.first_dense_layers:
+            groups.append(LayerGroup("dense", cfg.first_dense_layers,
+                                     "dense"))
+        groups.append(LayerGroup("moe", cfg.num_layers
+                                 - cfg.first_dense_layers, "moe"))
+        return groups
     return [LayerGroup("dense", cfg.num_layers, "dense")]
 
 
@@ -108,6 +125,9 @@ class Transformer:
         if kind == "rwkv":
             return rwkv_lib.init_rwkv_state(self.cfg, batch, dtype,
                                             self.device)
+        if self.cfg.attention_type == "mla":
+            return attn_lib.init_mla_cache(self.cfg, batch, cache_len, dtype,
+                                           self.device)
         return attn_lib.init_gqa_cache(self.cfg, batch, cache_len, dtype,
                                        self.device)
 
@@ -127,7 +147,8 @@ class Transformer:
     def _block_apply(self, kind: str, params, x, cache, positions,
                      mode: AttnMode):
         """One layer; `cache` (this layer's views of the stacked cache, or
-        None) is updated in place."""
+        None) is updated in place. Returns (x, the MoE layer's aux loss,
+        None for the other kinds)."""
         cfg = self.cfg
         if kind == "rwkv":
             state = (cache if cache
@@ -151,18 +172,28 @@ class Transformer:
                 cache["shift"].copy_(tm_new["shift"])
                 cache["wkv"].copy_(tm_new["wkv"])
                 cache["cm_shift"].copy_(cm_new)
-            return x
+            return x, None
 
         xn = rmsnorm(params["norm1"], x, cfg.norm_eps)
-        h, _ = attn_lib.gqa_apply(params["attn"], cfg, xn, positions, cache,
-                                  mode)
+        attend = (attn_lib.mla_apply if cfg.attention_type == "mla"
+                  else attn_lib.gqa_apply)
+        h, _ = attend(params["attn"], cfg, xn, positions, cache, mode)
         x = x + h
-        h = mlp_apply(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps))
-        return x + h
+        xn = rmsnorm(params["norm2"], x, cfg.norm_eps)
+        aux = None
+        if kind == "moe":
+            h, aux = moe_lib.moe_apply(params["moe"], cfg, xn)
+            if cfg.dense_residual:
+                h = h + mlp_apply(params["mlp"], xn)
+        else:
+            h = mlp_apply(params["mlp"], xn)
+        return x + h, aux
 
     def _hidden(self, tree, tokens, cache, positions, mode):
         """The layers over `tree` (`_nest` of a training tree), each
-        group's stacked leaves unbound into its layers once."""
+        group's stacked leaves unbound into its layers once. Returns (the
+        hidden state before the final norm, the MoE layers' summed aux
+        loss, a 0-d float32)."""
         x = tree["embed"][tokens]
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
@@ -170,15 +201,18 @@ class Transformer:
                 positions.cpu().long(), torch.arange(x.shape[1])):
             # the flash kernel masks by index (ROADMAP queue 3 i)
             raise ValueError("prefill takes positions 0..S-1")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in self.layer_groups:
             layers = _unstack(tree["groups"][g.name], g.count)
             group_cache = cache[g.name] if cache else None
             for i in range(g.count):
                 c_i = ({k: a[i] for k, a in group_cache.items()}
                        if group_cache else None)
-                x = self._block_apply(g.kind, layers[i], x, c_i, positions,
-                                      mode)
-        return x
+                x, a = self._block_apply(g.kind, layers[i], x, c_i,
+                                         positions, mode)
+                if a is not None:
+                    aux = aux + a
+        return x, aux
 
     def _logits(self, tree, x):
         x = rmsnorm(tree["final_norm"], x, self.cfg.norm_eps)
@@ -195,28 +229,51 @@ class Transformer:
         (default 0..S-1; prefill takes only those). `cache`
         (`init_cache`) is written in place in prefill and decode modes."""
         tree = _nest(self.params if params is None else params)
-        return self._logits(tree, self._hidden(tree, tokens, cache,
-                                               positions, mode))
+        x, _ = self._hidden(tree, tokens, cache, positions, mode)
+        return self._logits(tree, x)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, mode: AttnMode = AttnMode("train")):
         """The reference's `Transformer.loss` on a training tree: batch
         {"tokens": (B, S+1)} predicts tokens[:, 1:] from tokens[:, :-1].
-        Returns (loss, {"ce", "moe_aux", "acc", "loss"}); moe_aux is 0
-        for the dense and RWKV kinds. A pure function of its arguments (no
-        host read, no write to them), so `torch.func.vmap(grad_and_value)`
-        takes it over clients."""
+        Returns (loss, {"ce", "moe_aux", "acc", "loss"}, and "mtp" where
+        the config has the MTP head): ce + moe_aux (0 for the dense and
+        RWKV kinds) + MTP_WEIGHT · mtp. A pure function of its arguments
+        (no host read, no write to them), so `torch.func.vmap(
+        grad_and_value)` takes it over clients."""
         if "tokens" not in batch or "embeds" in batch:
             raise NotImplementedError(
                 "the port trains on token inputs only; embeds and VLM "
                 "inputs are ROADMAP queue 1 item 7b")
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        logits = self.forward(inputs, mode=mode, params=params)
-        ce, acc = _masked_ce(logits, labels)
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        tree = _nest(params)
+        hidden, aux = self._hidden(tree, inputs, None, None, mode)
+        ce, acc = _masked_ce(self._logits(tree, hidden), labels)
         total = ce + aux
-        return total, {"ce": ce, "moe_aux": aux, "acc": acc, "loss": total}
+        metrics = {"ce": ce, "moe_aux": aux, "acc": acc}
+        if self.cfg.mtp:
+            mtp = self._mtp_loss(tree, hidden, inputs, labels)
+            total = total + MTP_WEIGHT * mtp
+            metrics["mtp"] = mtp
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, tree, hidden, inputs, labels):
+        """DeepSeek-V3's multi-token prediction: predict token t+2 from
+        [h_t; emb_{t+1}] through the MTP head's projection, its dense
+        block and norm, and the model's output head."""
+        cfg = self.cfg
+        emb = tree["embed"][inputs]
+        z = torch.cat([hidden[:, :-1], emb[:, 1:]], dim=-1)
+        z = z @ tree["mtp"]["proj"]
+        pos = torch.arange(z.shape[1], device=z.device)
+        z, _ = self._block_apply("dense", tree["mtp"]["block"], z, None, pos,
+                                 AttnMode("train"))
+        z = rmsnorm(tree["mtp"]["norm"], z, cfg.norm_eps)
+        head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
+        ce, _ = _masked_ce(z @ head, labels[:, 1:])
+        return ce
 
     # ------------------------------------------------------------- serving
     def prefill(self, tokens, *, cache_len: int,
@@ -228,7 +285,7 @@ class Transformer:
         cache = self.init_cache(tokens.shape[0], cache_len, cache_dtype)
         mode = AttnMode("prefill", window=window)
         tree = _nest(self.params)
-        x = self._hidden(tree, tokens, cache, None, mode)
+        x, _ = self._hidden(tree, tokens, cache, None, mode)
         return self._logits(tree, x[:, -1]), cache
 
     def decode_step(self, cache, tokens, pos,
@@ -244,7 +301,7 @@ class Transformer:
                                    device=tokens.device)
         mode = AttnMode("decode", window=window)
         tree = _nest(self.params)
-        x = self._hidden(tree, tokens, cache, positions, mode)
+        x, _ = self._hidden(tree, tokens, cache, positions, mode)
         return self._logits(tree, x)[:, -1], cache
 
 
@@ -297,29 +354,69 @@ def _flatten(tree, prefix=""):
 
 
 # ------------------------------------------------- weights from the key
+# words of one on-card draw: a leaf is drawn this many at a time, each
+# tile from its own offset into the leaf's flat counter range (the int64
+# lanes of the device threefry take ~40 bytes a word while a tile is drawn)
+DRAW_TILE = 1 << 26
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """One leaf of the reference's init, not yet drawn: normal(key,
+    shape)·scale cast to `dtype`, or a constant `value` where `key` is
+    None."""
+    shape: tuple
+    dtype: torch.dtype
+    key: Optional[np.ndarray] = None
+    scale: float = 1.0
+    value: float = 0.0
+
+
 class _Draws:
     """The reference's initializers on the reference's threefry stream
-    (`core/prng.py`): the numpy forms on the CPU, the torch forms on the
-    card."""
+    (`core/prng.py`): `he`, `normal` and `full` describe a leaf (`_Leaf`),
+    `fill` draws it into a tensor: the numpy forms on the CPU, the torch
+    forms on the card (a tile of DRAW_TILE words at a time, so a leaf of
+    billions of weights needs no float32 copy of itself)."""
 
     def __init__(self, dtype, device):
         self.dtype, self.device = dtype, device
 
-    def normal(self, key, shape):
-        if self.device.type == "meta":  # shapes only (`load_params`)
-            return torch.empty(shape, device="meta")
-        if self.device.type == "cpu":
-            return torch.from_numpy(prng.normal(key, shape))
-        return prng.normal_t(prng.key_t(key, self.device), shape)
+    def normal(self, key, shape, scale):
+        return _Leaf(tuple(shape), self.dtype, key, float(scale))
 
-    def he(self, key, shape, fan_in):
+    def he(self, key, shape, fan_in, dtype=None):
         """The reference's `layers.he_init`: normal · (1/sqrt(fan_in)),
-        both in float32."""
+        both in float32, cast to `dtype` (default the model's)."""
         scale = np.float32(1.0) / np.sqrt(np.float32(max(fan_in, 1)))
-        return (self.normal(key, shape) * float(scale)).to(self.dtype)
+        return _Leaf(tuple(shape), dtype or self.dtype, key, float(scale))
 
     def full(self, shape, value):
-        return torch.full(shape, value, dtype=self.dtype, device=self.device)
+        return _Leaf(tuple(shape), self.dtype, value=float(value))
+
+    def empty(self, shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def fill(self, leaf: _Leaf, out: torch.Tensor) -> None:
+        """Write `leaf`'s values into `out` (its shape and dtype)."""
+        if self.device.type == "meta":  # shapes only (`load_params`)
+            return
+        if leaf.key is None:
+            out.fill_(leaf.value)
+        elif self.device.type == "cpu":
+            out.copy_(torch.from_numpy(prng.normal(leaf.key, leaf.shape))
+                      * leaf.scale)
+        else:
+            key = prng.key_t(leaf.key, self.device)
+            flat = out.view(-1)
+            for o in range(0, flat.numel(), DRAW_TILE):
+                n = min(DRAW_TILE, flat.numel() - o)
+                flat[o:o + n] = prng.normal_t(key, n, offset=o) * leaf.scale
+
+    def make(self, leaf: _Leaf) -> torch.Tensor:
+        out = self.empty(leaf.shape, leaf.dtype)
+        self.fill(leaf, out)
+        return out
 
 
 def _gqa_init(dr: _Draws, key, cfg: ModelConfig):
@@ -336,10 +433,40 @@ def _gqa_init(dr: _Draws, key, cfg: ModelConfig):
     return p
 
 
+def _mla_init(dr: _Draws, key, cfg: ModelConfig):
+    """The reference's `attention.mla_init`."""
+    d, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    ks = prng.split(key, 6)
+    return {"wq_a": dr.he(ks[0], (d, qr), d),
+            "q_norm": {"scale": dr.full((qr,), 1.0)},
+            "wq_b": dr.he(ks[1], (qr, H * (nope + rope)), qr),
+            "wkv_a": dr.he(ks[2], (d, kvr + rope), d),
+            "kv_norm": {"scale": dr.full((kvr,), 1.0)},
+            "wk_b": dr.he(ks[3], (kvr, H * nope), kvr),
+            "wv_b": dr.he(ks[4], (kvr, H * dv), kvr),
+            "wo": dr.he(ks[5], (H * dv, d), H * dv)}
+
+
 def _mlp_init(dr: _Draws, key, d, f):
     ks = prng.split(key, 3)
     return {"w1": dr.he(ks[0], (d, f), d), "w3": dr.he(ks[1], (d, f), d),
             "w2": dr.he(ks[2], (f, d), f)}
+
+
+def _moe_init(dr: _Draws, key, cfg: ModelConfig):
+    """The reference's `moe.moe_init`: the router in float32, the experts
+    stacked on a leading E axis, the shared experts one wide MLP."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    ks = prng.split(key, 5)
+    p = {"router": dr.he(ks[0], (d, E), d, torch.float32),
+         "experts": {"w1": dr.he(ks[1], (E, d, f), d),
+                     "w3": dr.he(ks[2], (E, d, f), d),
+                     "w2": dr.he(ks[3], (E, f, d), f)}}
+    if cfg.num_shared_experts:
+        p["shared"] = _mlp_init(dr, ks[4], d, f * cfg.num_shared_experts)
+    return p
 
 
 def _rwkv_init(dr: _Draws, ks, cfg: ModelConfig):
@@ -372,7 +499,7 @@ def _rwkv_init(dr: _Draws, ks, cfg: ModelConfig):
 
 
 def _block_from_key(dr: _Draws, cfg: ModelConfig, kind: str, key):
-    """The reference's `Transformer._block_init(kind, key)`."""
+    """The reference's `Transformer._block_init(kind, key)`, as leaves."""
     d = cfg.d_model
     ks = prng.split(key, 6)
     norm = lambda: {"scale": dr.full((d,), 1.0)}  # noqa: E731
@@ -380,44 +507,60 @@ def _block_from_key(dr: _Draws, cfg: ModelConfig, kind: str, key):
         p = _rwkv_init(dr, ks, cfg)
         return {"norm1": norm(), "time_mix": p["time_mix"], "norm2": norm(),
                 "channel_mix": p["channel_mix"]}
-    return {"norm1": norm(), "attn": _gqa_init(dr, ks[0], cfg),
-            "norm2": norm(), "mlp": _mlp_init(dr, ks[1], d, cfg.d_ff)}
+    attn = (_mla_init if cfg.attention_type == "mla" else _gqa_init)
+    p = {"norm1": norm(), "attn": attn(dr, ks[0], cfg), "norm2": norm()}
+    if kind == "moe":
+        p["moe"] = _moe_init(dr, ks[1], cfg)
+        if cfg.dense_residual:
+            p["mlp"] = _mlp_init(dr, ks[2], d, cfg.d_ff)
+    else:
+        p["mlp"] = _mlp_init(dr, ks[1], d, cfg.d_ff)
+    return p
 
 
 def init_params(cfg: ModelConfig, key, device=None) -> dict:
     """The training tree that the reference's `Transformer(cfg).init(key)`
     draws, from the same threefry key (`prng.prng_key(seed)` for
     `jax.random.PRNGKey(seed)`): the split into len(groups) + 4 keys, the
-    embedding's 0.02·normal, He-scaled normals for the matrices, and per
-    layer the reference's `vmap` over split(k, count), one key a layer,
-    each split again as `gqa_init`, `mlp_init` and the RWKV inits split
-    theirs; zero biases and unit norms. Drawn with the numpy forms on the
-    CPU and the torch forms on the card, layer by layer and leaf by leaf,
-    then stacked. The integer stream is the reference's bit for bit; a
-    normal sits within 4 float32 ulps of the reference's (numpy's `log1p`
-    against XLA's), so the bfloat16 weights are the reference's bit for
-    bit except where those ulps cross a rounding boundary
-    (tests/test_torch_train_arch.py states the share)."""
+    embedding's 0.02·normal, He-scaled normals for the matrices (the MoE
+    router's in float32), and per layer the reference's `vmap` over
+    split(k, count), one key a layer, each split again as `gqa_init`,
+    `mla_init`, `mlp_init`, `moe_init` and the RWKV inits split theirs;
+    zero biases and unit norms; the MTP head from key len(groups) + 2.
+    Drawn with the numpy forms on the CPU and the torch forms on the
+    card, layer by layer straight into each stacked leaf. The integer
+    stream is the reference's bit for bit; a normal sits within 4
+    float32 ulps of the reference's (numpy's `log1p` against XLA's), so
+    the bfloat16 weights are the reference's bit for bit except where
+    those ulps cross a rounding boundary (tests/test_torch_train_arch.py
+    states the share)."""
     device = resolve_device(device)
     return _draw(cfg, key, _Draws(getattr(torch, cfg.dtype), device))
 
 
 def _draw(cfg: ModelConfig, key, dr: _Draws) -> dict:
     groups = _layer_groups(cfg)
+    d = cfg.d_model
     ks = prng.split(np.asarray(key, np.uint32), len(groups) + 4)
     tree = {
-        "embed": (dr.normal(ks[0], (cfg.vocab_size, cfg.d_model))
-                  * 0.02).to(dr.dtype),
-        "final_norm": {"scale": dr.full((cfg.d_model,), 1.0)},
+        "embed": dr.normal(ks[0], (cfg.vocab_size, d), 0.02),
+        "final_norm": {"scale": dr.full((d,), 1.0)},
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = dr.he(ks[1], (cfg.d_model, cfg.vocab_size),
-                                cfg.d_model)
-    out = _flatten(tree)
+        tree["lm_head"] = dr.he(ks[1], (d, cfg.vocab_size), d)
+    if cfg.mtp:
+        km = prng.split(ks[len(groups) + 2], 2)
+        tree["mtp"] = {"proj": dr.he(km[0], (2 * d, d), 2 * d),
+                       "block": _block_from_key(dr, cfg, "dense", km[1]),
+                       "norm": {"scale": dr.full((d,), 1.0)}}
+    out = {k: dr.make(leaf) for k, leaf in _flatten(tree).items()}
     for g, k in zip(groups, ks[2:]):
         layers = [_flatten(_block_from_key(dr, cfg, g.kind, lk))
                   for lk in prng.split(k, g.count)]
-        for leaf in list(layers[0]):
-            out[f"groups/{g.name}/{leaf}"] = torch.stack(
-                [layer.pop(leaf) for layer in layers])
+        for name, first in layers[0].items():
+            # each layer drawn straight into its slice of the stacked leaf
+            buf = dr.empty((g.count,) + first.shape, first.dtype)
+            for i, layer in enumerate(layers):
+                dr.fill(layer[name], buf[i])
+            out[f"groups/{g.name}/{name}"] = buf
     return out

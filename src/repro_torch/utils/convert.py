@@ -32,7 +32,9 @@ def training_tree_from_numpy(tree, device) -> dict:
     """A JAX `Transformer.init` pytree as numpy -> the port's training tree
     (`models.transformer.init_params`): one tensor a leaf, bit for bit,
     keyed by its path joined with "/", each group's layers stacked on
-    axis 0 as in the reference."""
+    axis 0 as in the reference. Every leaf keeps its dtype: the bf16
+    weights, and the MoE router's float32 (whose leaf makes the flat
+    buffer float32, `utils.pytree.ravel_spec`)."""
     out = {}
 
     def walk(node, path):

@@ -37,6 +37,7 @@ SHAPES = [
     (1, 8, 2, 200, 64, None, 64, 64),   # GQA, unaligned seq
     (2, 4, 1, 192, 128, None, 128, 64), # MQA
     (1, 4, 4, 256, 64, 64, 64, 64),     # sliding window
+    (1, 4, 2, 160, 160, None, 64, 64),  # head_dim 160 (stablelm-12b's)
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2.5e-2)}
@@ -178,6 +179,21 @@ def test_bf16_kernel_checks_its_tma_layout_and_never_falls_back(what, match):
     v = _meta_bf16(1, 2, 130, hd, offset=1 if what == "misaligned v" else 0)
     with pytest.raises(ValueError, match=match):
         ops.flash_attention(q, k, v)
+    assert ops.launches["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("seq_stride", [None, 32 * 160])
+def test_bf16_kernel_takes_head_dim_160(seq_stride):
+    """head_dim 160 (stablelm-12b: 5120 / 32) has a bfloat16 form: the
+    model's transposed views pass the TMA checks (row strides of 320
+    bytes) and stop only at the device, where the kernel path would run
+    (a meta tensor has none). It raised at the head_dim check before
+    the form existed."""
+    q = _meta_bf16(2, 32, 130, 160, seq_stride=seq_stride)
+    k = _meta_bf16(2, 8, 130, 160)
+    assert ops.TILES[(torch.bfloat16, 160)] == (128, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, k.clone())
     assert ops.launches["flash_attention"] == 0
 
 
