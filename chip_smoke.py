@@ -34,10 +34,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2b. The paper's comparison baselines (FedAvg, FedProx, FedPD, SCAFFOLD),
    with counts reset just before each run and read just after:
    * each at the paper run's size (`--algo X --lr a` with a from the
-     runners' ALGO_HPARAMS, up to 500 rounds, tol 1e-7), replayed against
-     eager `--no-scan` (the same rounds, a final state bitwise equal) and
-     on the card against the CPU (the same rounds under the rule above, f
-     at rel 1e-5); no hand-written kernel is launched;
+     runners' ALGO_HPARAMS, tol 1e-7), replayed against eager
+     `--no-scan` over BASELINE_PAIR's 100 rounds (the same rounds, a
+     final state bitwise equal) and on the card against the CPU over up
+     to 500 rounds (the same rounds under the rule above, f at rel
+     1e-5); no hand-written kernel is launched;
    * each at the population size (20 rounds, tol 0, on the population
      run's own data, through `engine.run_rounds`), replayed against
      eager, the bit patterns of the final states compared (a value that
@@ -246,6 +247,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    * the reduced deepseek-v3-671b and arctic-480b `--arch` rounds in
      float32 (the CLI's config dtype replaced), card against CPU at
      TRAIN_CPU_RTOL.
+3c. The hybrid SSM block and the embeds inputs at full width and depth,
+   each model's weights drawn on the card from prng_key(0) (init_s
+   timed), a warm-up (gen 2), then the measured runs with counts reset
+   just before and read just after; prefill_s, capture_s, decode
+   tok/s/req, the peak device memory and the decode step's bound printed
+   with the card:
+   * hymba-1.5b (32 layers; attention and SSM heads in parallel) through
+     the serve CLI, batch 4, prompt 1024, gen 32, captured and
+     `--no-scan`: exactly 32 flash launches each (GQA group 5 over 25
+     heads), tokens equal and logits bit for bit or within
+     CAPTURED_LOGIT_RTOL, and the SSM branch's share of a prefill (CUDA
+     events around each layer's `ssm_apply`);
+   * llava-next-mistral-7b, batch 4, 2880 patch embeddings and 128 text
+     tokens a request (a 3008-position prompt), and musicgen-large,
+     batch 4, 1500 frame embeddings, each gen 32 through
+     `serve.generate(embeds=...)`: exactly 32 and 48 flash launches;
+   * for each, the prefill's and every decode step's logits against the
+     train forward over the same inputs: in bf16 the gap printed (at 32
+     and 48 layers it nears or passes the reference's rtol 4e-2 / atol
+     8e-2, in the reference too: tests/test_torch_hybrid_ssm.py), and a
+     float32 copy of the weights, served captured, held at DECODE_RTOL /
+     DECODE_ATOL;
+   * each model's layer-0 flash call held to the plain version at the
+     bf16 tolerance and timed beside its bound and SDPA;
+   * the reduced float32 `--arch` rounds of the three, card against CPU
+     at TRAIN_CPU_RTOL.
 4. Card against CPU: the reduced tinyllama-1.1b and rwkv6-3b in float32,
    parameters made on the CPU and copied to the card, prefill of 64
    tokens and 8 decode steps on both, the card's decode captured, the
@@ -259,8 +286,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    attention and the WKV scan on the prefill's layer-0 inputs and at
    edge cases (window, ragged length, MQA at head_dim 128, a single
    query, one whole tile and a ragged one, a GQA group of 8 at head_dim
-   128 with a window, float32 and bfloat16; the scan at one step and at
-   head_dim 32), held to the tolerances of tests/test_kernels.py. Then
+   128 with a window, phase 3c's group of 5 over 25 heads, ragged 3008 at
+   head_dim 128 and group 1 over 32 heads at 1500, float32 and bfloat16;
+   the scan at one step and at head_dim 32), held to the tolerances of
+   tests/test_kernels.py. Then
    CUDA-event times (median of 25 launches after warm-up) of each kernel
    at its main-path shape, of its plain version and, for flash
    attention, of PyTorch's `scaled_dot_product_attention` on the same
@@ -314,6 +343,11 @@ STATE_RTOL, STATE_ATOL = 1e-5, 1e-6
 
 PAPER = ["--rounds", "500"]
 PAPER_TOL = 1e-7  # the CLI's default --tol
+# a cut of depth for the script's time (PERF.md §4): phase 2b's baselines
+# hold replayed against eager (bitwise, so at any length) over this many
+# rounds of the paper run, and card against CPU over PAPER's 500 (their
+# eager runs took 60-100 s of a slow host's 212 s phase)
+BASELINE_PAIR = ["--rounds", "100"]
 # a cut of depth for the script's time (PERF.md §4): phase 2e's
 # wallclock_bench rows run to 200 rounds on the card and on the CPU (the
 # reference's 400: its rows that converge do so by round 56, and the
@@ -450,6 +484,22 @@ MOE_MODELS = (dict(arch="deepseek-v3-671b", layers=4, batch=4, prompt=256,
                    gen=16),
               dict(arch="arctic-480b", layers=1, batch=4, prompt=256,
                    gen=16))
+# phase 3c: the hybrid SSM block and the embeds inputs at full width and
+# depth. Hymba-1.5B (32 layers, 25 heads over 5 KV heads, head_dim 64)
+# through the serve CLI, captured and --no-scan, on weights drawn once
+# from prng_key(0); LLaVA-NeXT on Mistral-7B with a 2880-patch anyres
+# prefix (5 tiles of 576) and 128 text tokens (a 3008-position prompt at
+# head_dim 128); MusicGen-large with 1500 EnCodec frame embeddings (30 s
+# at 50 Hz; 32 heads, group 1). The embeddings are float32 standard
+# normals from numpy's default_rng(0), as `synthetic_batch_for` draws
+# them. The warm-up call before each takes the same prefill, gen 2
+HYMBA = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len", "1024",
+         "--gen", "32", "--seed", "0"]
+EMBEDS_MODELS = (dict(arch="llava-next-mistral-7b", batch=4, frames=2880,
+                      prompt=128, gen=32),
+                 dict(arch="musicgen-large", batch=4, frames=1500, prompt=0,
+                      gen=32))
+SLICE14_ARCHS = ("hymba-1.5b", "llava-next-mistral-7b", "musicgen-large")
 # prefill + decode against the train forward: the reference's own bounds
 # for two computations of the same bf16 logits (tests/test_serve.py,
 # test_decode_matches_forward)
@@ -550,15 +600,22 @@ def record_first_call(mod, name, store):
     return lambda: setattr(mod, name, real)
 
 
-def serve_main_path(serve, counters, argv, mod, name):
+def serve_main_path(serve, counters, argv, mod, name, params=None,
+                    prompts=None):
     """A warm-up serve run, then the measured one: counts reset before and
     read after, the first call of `mod.name` recorded, the prefill and
     decode times read from serve's log lines (and the capture's, when the
     decode was captured), the logits that `generate` returned kept.
-    Returns (tokens, counts, times, the recorded call, logits)."""
+    `params` and `prompts` go to `serve.serve` (None: the CLI draws them
+    from --seed). Returns (tokens, counts, times, the recorded call,
+    logits)."""
+    def run(args):
+        return serve.serve(serve.build_parser().parse_args(args), params,
+                           prompts)
+
     warm = list(argv)
     warm[warm.index("--gen") + 1] = "2"
-    serve.main(warm)
+    run(warm)
     logs = LogRecords()
     serve.log.addHandler(logs)
     store, seen = [], []
@@ -573,7 +630,7 @@ def serve_main_path(serve, counters, argv, mod, name):
     serve.generate = keep
     try:
         reset_counts(counters)
-        tokens = serve.main(argv)
+        tokens = run(argv)
         counts = read_counts(counters)
     finally:
         serve.generate = generate
@@ -1227,6 +1284,16 @@ def float32_cli(train):
     return lambda: setattr(train, "get_config", real)
 
 
+def tensors_of(tree):
+    """The tensors of a nested dict (a cache: a hybrid group nests its
+    attention's under "attn")."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tensors_of(v)
+        else:
+            yield v
+
+
 def decode_bound_ms(model, cache):
     """Least time of a decode step on an H100 SXM: every weight it reads
     (all but the embedding, of which a step reads B rows, and the MTP
@@ -1234,9 +1301,22 @@ def decode_bound_ms(model, cache):
     nbytes = sum(t.numel() * t.element_size()
                  for k, t in model.params.items()
                  if k != "embed" and not k.startswith("mtp/"))
-    nbytes += sum(t.numel() * t.element_size()
-                  for g in cache.values() for t in g.values())
+    nbytes += sum(t.numel() * t.element_size() for t in tensors_of(cache))
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def frame_embeds(cfg, run):
+    """`run["frames"]` embeddings a request ((batch, frames, d_model), on
+    the card in the model's dtype), float32 standard normals from numpy's
+    default_rng(0), as `synthetic_batch_for` draws a client's; None
+    without frames."""
+    if not run.get("frames"):
+        return None
+    import numpy as np
+
+    emb = np.random.default_rng(0).standard_normal(
+        (run["batch"], run["frames"], cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(emb).cuda()
 
 
 def serve_full_width(serve, Transformer, cfg, run, counters, card, mod,
@@ -1245,10 +1325,11 @@ def serve_full_width(serve, Transformer, cfg, run, counters, card, mod,
     timed (init_s), a warm-up `serve.generate` (gen 2), then the measured
     captured run (counts reset just before and read just after, the first
     call of `mod.name` recorded) and, with `eager`, the `--no-scan` run on
-    the same prompts. Prints prefill_s, decode tok/s/req, init_s, the
-    peak device memory and the decode step's bound. Returns (model,
-    prompts, captured result, eager result or None, counts, recorded
-    call)."""
+    the same prompts. `run["frames"]` embeddings (`frame_embeds`) are
+    prefilled before the `run["prompt"]` tokens (none: no prompt tokens).
+    Prints prefill_s, decode tok/s/req, init_s, the peak device memory
+    and the decode step's bound. Returns (model, prompts, captured
+    result, eager result or None, counts, recorded call, embeds)."""
     from repro_torch.core.prng import prng_key
 
     torch.cuda.empty_cache()
@@ -1260,27 +1341,32 @@ def serve_full_width(serve, Transformer, cfg, run, counters, card, mod,
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in model.params.values())
     rng = torch.Generator(device="cuda").manual_seed(0)
-    prompts = torch.randint(0, cfg.vocab_size, (run["batch"], run["prompt"]),
-                            generator=rng, device="cuda")
-    serve.generate(model, prompts, 2)
+    prompts = (torch.randint(0, cfg.vocab_size, (run["batch"],
+                                                 run["prompt"]),
+                             generator=rng, device="cuda")
+               if run["prompt"] else None)
+    embeds = frame_embeds(cfg, run)
+    serve.generate(model, prompts, 2, embeds=embeds)
     store = []
     restore = record_first_call(mod, name, store)
     try:
         reset_counts(counters)
-        res = serve.generate(model, prompts, run["gen"])
+        res = serve.generate(model, prompts, run["gen"], embeds=embeds)
         n = read_counts(counters)
     finally:
         restore()
-    res_eager = (serve.generate(model, prompts, run["gen"], scan=False)
-                 if eager else None)
+    res_eager = (serve.generate(model, prompts, run["gen"], scan=False,
+                                embeds=embeds) if eager else None)
     peak = torch.cuda.max_memory_allocated()
-    cache = model.init_cache(run["batch"], run["prompt"] + run["gen"])
+    cache = model.init_cache(run["batch"], run.get("frames", 0)
+                             + run["prompt"] + run["gen"])
     bound, nbytes = decode_bound_ms(model, cache)
     del cache
     step_ms = res["decode_s"] / (run["gen"] - 1) * 1e3
     say(f"serve {cfg.name} captured (cuda, full width, {cfg.num_layers} "
-        f"layers, {n_params} parameters, batch {run['batch']}, prompt "
-        f"{run['prompt']}, gen {run['gen']}): init_s={init_s!r} "
+        f"layers, {n_params} parameters, batch {run['batch']}, "
+        f"{run.get('frames', 0)} embeddings and {run['prompt']} prompt "
+        f"tokens a request, gen {run['gen']}): init_s={init_s!r} "
         f"prefill_s={res['prefill_s']!r} capture_s={res['capture_s']!r} "
         f"decode_s={res['decode_s']!r} decode_tok_s_req="
         f"{(run['gen'] - 1) / res['decode_s']!r} ({step_ms!r} ms a step; "
@@ -1300,7 +1386,8 @@ def serve_full_width(serve, Transformer, cfg, run, counters, card, mod,
         raise SystemExit(f"serve {cfg.name}: bad tokens or logits")
     if not res["capture_s"] > 0:
         raise SystemExit(f"serve {cfg.name}: the decode was not captured")
-    return model, prompts, res, res_eager, n, (store[0] if store else None)
+    return (model, prompts, res, res_eager, n,
+            (store[0] if store else None), embeds)
 
 
 def record_routing(moe, store):
@@ -1438,6 +1525,32 @@ def moe_dense_check(moe, model, card):
         f"{float(want.float().abs().max())!r}), aux={float(aux)!r} on {card}")
 
 
+def flash_main_path(flash_ops, flash_ref, call, what, card, launches):
+    """A flash call recorded on a main path ((q, k, v), kwargs: causal, no
+    window) held to the plain version at FLASH_TOL, then timed (median of
+    REPS launches, CUDA events) beside the plain version, SDPA and its
+    bound. Returns the numbers for the kernels line."""
+    (q, k, v), kw = call
+    if kw.get("window") is not None or not kw.get("causal", True):
+        raise SystemExit(f"flash {what}: unexpected main-path options {kw}")
+    err = check_flash(flash_ops, flash_ref, q, k, v, None, what)
+    ms = median_ms(lambda: flash_ops.flash_attention(q, k, v))
+    plain_ms = median_ms(lambda: flash_ref.flash_attention_ref(q, k, v))
+    library_ms = median_ms(sdpa(q, k, v))
+    bound_ms, bound_by, flops, nbytes = flash_bound(q, k)
+    say(f"  flash_attention q {list(q.shape)} k {list(k.shape)} bf16 causal "
+        f"(median of {REPS} launches, CUDA events): kernel_us="
+        f"{ms * 1e3:.2f} plain_us={plain_ms * 1e3:.2f} library_us="
+        f"{library_ms * 1e3:.2f} (scaled_dot_product_attention) bound_us="
+        f"{bound_ms * 1e3:.2f} ({bound_by}; {flops} flop, {nbytes} bytes) "
+        f"achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"share_of_bound={bound_ms / ms:.4f} on {card}")
+    return {"shape": list(q.shape), "kv_shape": list(k.shape),
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def moe_mla_phase(serve, train, Transformer, get_config, moe, counters,
                   launches, card, flash_ops, flash_ref):
     """Phase 3b: the head_dim-160 flash form, StableLM-2-12B served at full
@@ -1451,7 +1564,7 @@ def moe_mla_phase(serve, train, Transformer, get_config, moe, counters,
     cfg = get_config(run["arch"])
     say(f"phase 3b: {run['arch']} at full width and depth, then the MoE/MLA "
         f"models at full width, on {card}:")
-    model, prompts, res, res_eager, n, call = serve_full_width(
+    model, prompts, res, res_eager, n, call, _ = serve_full_width(
         serve, Transformer, cfg, run, counters, card, flash_ops,
         "flash_attention", eager=True)
     if n["flash_attention"] != run["layers"] or sum(n.values()) != \
@@ -1459,46 +1572,19 @@ def moe_mla_phase(serve, train, Transformer, get_config, moe, counters,
         raise SystemExit(f"serve {cfg.name}: launches {n}, want "
                          f"{run['layers']} flash_attention launches")
     launches["flash_attention"] += n["flash_attention"]
-    if not torch.equal(res["tokens"], res_eager["tokens"]):
-        raise SystemExit(f"serve {cfg.name}: captured tokens "
-                         f"{res['tokens'].tolist()} != --no-scan "
-                         f"{res_eager['tokens'].tolist()}")
-    if torch.equal(res["logits"], res_eager["logits"]):
-        say("  captured vs --no-scan: tokens equal, logits bit for bit")
-    else:
-        err = float((res["logits"].float()
-                     - res_eager["logits"].float()).abs().max())
-        scale = float(res_eager["logits"].float().abs().max())
-        say(f"  captured vs --no-scan: tokens equal, logits NOT bit for bit:"
-            f" max_abs_err={err!r} against max|logit| {scale!r} (held to "
-            f"{CAPTURED_LOGIT_RTOL} of it)")
-        if not err <= CAPTURED_LOGIT_RTOL * scale:
-            raise SystemExit(f"serve {cfg.name}: captured logits off by "
-                             f"{err!r}")
+    hold_captured_to_eager(f"serve {cfg.name}",
+                           (res["tokens"], res["logits"]),
+                           (res_eager["tokens"], res_eager["logits"]))
     del model, prompts, res, res_eager
     torch.cuda.empty_cache()
 
-    (q, k, v), kw = call
-    if q.shape[-1] != 160 or kw.get("window") is not None:
-        raise SystemExit(f"flash hd-160: main-path call {list(q.shape)} {kw}")
-    err = check_flash(flash_ops, flash_ref, q, k, v, None,
-                      "head_dim 160 (stablelm-12b layer 0)")
-    ms = median_ms(lambda: flash_ops.flash_attention(q, k, v))
-    plain_ms = median_ms(lambda: flash_ref.flash_attention_ref(q, k, v))
-    library_ms = median_ms(sdpa(q, k, v))
-    bound_ms, bound_by, flops, nbytes = flash_bound(q, k)
-    say(f"  flash_attention q {list(q.shape)} k {list(k.shape)} bf16 causal "
-        f"(median of {REPS} launches, CUDA events): kernel_us="
-        f"{ms * 1e3:.2f} plain_us={plain_ms * 1e3:.2f} library_us="
-        f"{library_ms * 1e3:.2f} (scaled_dot_product_attention) bound_us="
-        f"{bound_ms * 1e3:.2f} ({bound_by}; {flops} flop, {nbytes} bytes) "
-        f"achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
-        f"share_of_bound={bound_ms / ms:.4f} on {card}")
-    hd160 = {"shape": list(q.shape), "kv_shape": list(k.shape),
-             "launches": n["flash_attention"], "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}
-    del q, k, v, call
+    if call[0][0].shape[-1] != 160:
+        raise SystemExit(f"flash hd-160: main-path call "
+                         f"{list(call[0][0].shape)}")
+    hd160 = flash_main_path(flash_ops, flash_ref, call,
+                            "head_dim 160 (stablelm-12b layer 0)", card,
+                            n["flash_attention"])
+    del call
     moe_models(serve, train, Transformer, get_config, moe, counters,
                launches, card, flash_ops)
     say(f"phase 3b took {time.perf_counter() - t_phase!r} s")
@@ -1514,7 +1600,7 @@ def moe_models(serve, train, Transformer, get_config, moe, counters,
     for run in MOE_MODELS:
         cfg = dataclasses.replace(get_config(run["arch"]),
                                   num_layers=run["layers"])
-        model, prompts, res, _, n, call = serve_full_width(
+        model, prompts, res, _, n, call, _ = serve_full_width(
             serve, Transformer, cfg, run, counters, card, flash_ops,
             "flash_attention")
         # MLA attends with the plain blocked softmax (q/k depth 192, v
@@ -1548,6 +1634,245 @@ def moe_models(serve, train, Transformer, get_config, moe, counters,
                 launches[k_] += n[k_]
     finally:
         restore()
+
+
+def hold_captured_to_eager(what, cap, eager):
+    """The captured decode's tokens and logits against the `--no-scan`
+    run's: tokens equal; logits bit for bit, expected, else within
+    CAPTURED_LOGIT_RTOL of the largest logit (cuBLAS may pick another GEMM
+    algorithm inside a capture), and said so. `cap`, `eager`: (tokens,
+    logits)."""
+    (t_cap, l_cap), (t_eager, l_eager) = cap, eager
+    if not torch.equal(torch.as_tensor(t_cap), torch.as_tensor(t_eager)):
+        raise SystemExit(f"{what}: captured tokens {t_cap.tolist()} != "
+                         f"--no-scan {t_eager.tolist()}")
+    if torch.equal(l_cap, l_eager):
+        say("  captured vs --no-scan: tokens equal, logits bit for bit")
+        return
+    err = float((l_cap.float() - l_eager.float()).abs().max())
+    scale = float(l_eager.float().abs().max())
+    say(f"  captured vs --no-scan: tokens equal, logits NOT bit for bit: "
+        f"max_abs_err={err!r} against max|logit| {scale!r} (held to "
+        f"{CAPTURED_LOGIT_RTOL} of it)")
+    if not err <= CAPTURED_LOGIT_RTOL * scale:
+        raise SystemExit(f"{what}: captured logits off by {err!r}")
+
+
+def decode_vs_forward(model, prompts, embeds, tokens, logits, what,
+                      hold=True):
+    """A run's logits (the prefill's last, then each decode step's; (gen,
+    B, V)) against the train-mode forward over the same inputs (the
+    embeddings, the prompt and the generated tokens but the last): held
+    at DECODE_RTOL / DECODE_ATOL, or, without `hold`, the gap printed."""
+    gen = tokens.shape[1]
+    seq = (tokens[:, :gen - 1] if prompts is None
+           else torch.cat([prompts, tokens[:, :gen - 1]], dim=1))
+    P = seq.shape[1] - (gen - 1) + (0 if embeds is None else embeds.shape[1])
+    with torch.no_grad():
+        full = model.forward(seq, embeds=embeds)[:, P - 1:].transpose(0, 1)
+    got, want = logits.float(), full.float()
+    err = float((got - want).abs().max())
+    over = float(((got - want).abs() - DECODE_ATOL
+                  - DECODE_RTOL * want.abs()).max())
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if hold:
+        torch.testing.assert_close(
+            got, want, rtol=DECODE_RTOL, atol=DECODE_ATOL,
+            msg=lambda m: f"{what} decode vs forward: {m}")
+    say(f"  {what}: prefill + decode vs the train forward over the same "
+        f"{P + gen - 1} positions: max_abs_err={err!r}, largest excess over"
+        f" rtol {DECODE_RTOL} / atol {DECODE_ATOL} {over!r} "
+        f"({'held' if hold else 'printed, not held'}; max|logit| "
+        f"{float(want.abs().max())!r}); argmax equal at {same!r}")
+
+
+def hold_float32_to_forward(serve, Transformer, model, prompts, embeds,
+                            gen, what):
+    """The decode path held to the train forward at full width and depth
+    in float32: a float32 copy of `model`'s weights serves `prompts`
+    (after `embeds`) through `serve.generate` (captured, its own tokens),
+    and its logits are held to the float32 forward at DECODE_RTOL /
+    DECODE_ATOL. In bfloat16 the two part by more at depth, in the
+    reference too (tests/test_torch_hybrid_ssm.py), so there the gap is
+    printed."""
+    wide = Transformer(dataclasses.replace(model.cfg, dtype="float32"),
+                       "cuda").load_params({k: v.float() for k, v in
+                                            model.params.items()})
+    res = serve.generate(wide, prompts, gen, embeds=embeds)
+    decode_vs_forward(wide, prompts, embeds, res["tokens"], res["logits"],
+                      f"{what} float32 copy")
+    del wide, res
+    torch.cuda.empty_cache()
+
+
+def ssm_prefill_share(model, ssm, prompts, cache_len, card):
+    """One more prefill of `prompts` with CUDA events around each layer's
+    `ssm_apply`: the SSM branch's device time (which, the scan being one
+    launch a step, is the host's enqueue time) against the prefill's wall
+    time, printed. Returns (ssm seconds, prefill seconds)."""
+    events = []
+    real = ssm.ssm_apply
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    ssm.ssm_apply = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(prompts, cache_len=cache_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ssm.ssm_apply = real
+    ms = [s.elapsed_time(e) for s, e in events]
+    if len(ms) != model.cfg.num_layers:
+        raise SystemExit(f"ssm share: {len(ms)} ssm_apply calls")
+    say(f"  the SSM branch in a prefill of {list(prompts.shape)}: "
+        f"{sum(ms)!r} ms of {wall * 1e3!r} ms (share {sum(ms) / 1e3 / wall!r}"
+        f"; layer 0 {ms[0]!r} ms, median layer {statistics.median(ms)!r} ms;"
+        f" CUDA events, plain PyTorch scan, one launch a step) on {card}")
+    return sum(ms) / 1e3, wall
+
+
+def hymba_serve(serve, Transformer, get_config, ssm, counters, launches,
+                card, flash_ops):
+    """Hymba-1.5B at full width and depth through the serve CLI
+    (`serve.serve` given the weights drawn once from prng_key(0), timed,
+    and the CLI's own prompts), captured and `--no-scan`: 32 flash
+    launches each, the two runs' tokens and logits held to each other,
+    decode against the train forward (the bf16 gap printed, a float32
+    copy held), the SSM branch's share of a prefill. Returns the recorded
+    layer-0 flash call."""
+    from repro_torch.core.prng import prng_key
+
+    argv = HYMBA
+    cfg = get_config(argv[1])
+    batch, P, gen = (int(argv[argv.index(f) + 1])
+                     for f in ("--batch", "--prompt-len", "--gen"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, "cuda").init(prng_key(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.params.values())
+    # the CLI's prompts: a generator on the card seeded with --seed
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, P), generator=rng,
+                            device="cuda")
+    runs, call = {}, None
+    for mode, extra in (("captured", []), ("--no-scan", ["--no-scan"])):
+        tokens, n, times, rec, logits = serve_main_path(
+            serve, counters, argv + extra, flash_ops, "flash_attention",
+            params=model.params, prompts=prompts)
+        tokens = torch.as_tensor(tokens)
+        capture = ("" if times["capture_s"] is None
+                   else f"capture_s={times['capture_s']!r} ")
+        say(f"serve {cfg.name} {mode} (cuda, full width and depth, "
+            f"{cfg.num_layers} layers, {n_params} parameters, batch {batch},"
+            f" prompt {P}, gen {gen}): init_s={init_s!r} "
+            f"prefill_s={times['prefill_s']!r} {capture}"
+            f"decode_s={times['decode_s']!r} "
+            f"decode_tok_s_req={times['decode_tok_s_req']!r} on {card}")
+        say(f"  generated[0,:16] = {tokens[0, :16].tolist()}; launches {n}")
+        if n["flash_attention"] != cfg.num_layers or \
+                sum(n.values()) != cfg.num_layers:
+            raise SystemExit(f"serve {cfg.name} {mode}: launches {n}, want "
+                             f"{cfg.num_layers} flash_attention launches")
+        if tokens.shape != (batch, gen) or tokens.min() < 0 or \
+                tokens.max() >= cfg.vocab_size or \
+                not torch.isfinite(logits.float()).all():
+            raise SystemExit(f"serve {cfg.name}: bad tokens or logits")
+        if mode == "captured":
+            if not times["capture_s"]:
+                raise SystemExit(f"serve {cfg.name}: no capture logged")
+            launches["flash_attention"] += n["flash_attention"]
+            call, step_ms = rec, times["decode_s"] / (gen - 1) * 1e3
+        runs[mode] = tokens, logits
+    peak = torch.cuda.max_memory_allocated()
+    cache = model.init_cache(batch, P + gen)
+    bound, nbytes = decode_bound_ms(model, cache)
+    del cache
+    say(f"  captured decode {step_ms!r} ms a step against its bound "
+        f"{bound!r} ms ({nbytes} bytes of weights and cache at 3.35 TB/s);"
+        f" peak device memory {peak} bytes ({gib(peak):.2f} GiB) on {card}")
+    hold_captured_to_eager(f"serve {cfg.name}", runs["captured"],
+                           runs["--no-scan"])
+    tokens, logits = runs["captured"]
+    decode_vs_forward(model, prompts, None, tokens.cuda(), logits,
+                      f"{cfg.name} bf16", hold=False)
+    hold_float32_to_forward(serve, Transformer, model, prompts, None, gen,
+                            cfg.name)
+    ssm_prefill_share(model, ssm, prompts, P + gen, card)
+    del model, runs
+    torch.cuda.empty_cache()
+    return call
+
+
+def hybrid_embeds_phase(serve, train, Transformer, get_config, ssm,
+                        counters, launches, card, flash_ops, flash_ref):
+    """Phase 3c: Hymba-1.5B (`hymba_serve`), LLaVA-NeXT and MusicGen-large
+    served at full width and depth (`serve_full_width` with their
+    embeddings; decode against the train forward as Hymba's), each
+    model's layer-0 flash call held to the plain version and timed beside
+    its bound and SDPA, then the reduced float32 `--arch` rounds of the
+    three against the CPU. Adds the main-path launches to `launches`;
+    returns the flash numbers a model for the kernels line."""
+    t_phase = time.perf_counter()
+    say(f"phase 3c: the hybrid SSM block and the embeds inputs at full width "
+        f"and depth, on {card}:")
+    calls = {"hymba-1.5b": hymba_serve(serve, Transformer, get_config, ssm,
+                                       counters, launches, card, flash_ops)}
+    for run in EMBEDS_MODELS:
+        cfg = get_config(run["arch"])
+        model, prompts, res, _, n, call, embeds = serve_full_width(
+            serve, Transformer, cfg, run, counters, card, flash_ops,
+            "flash_attention")
+        if n["flash_attention"] != cfg.num_layers or \
+                sum(n.values()) != cfg.num_layers:
+            raise SystemExit(f"serve {cfg.name}: launches {n}, want "
+                             f"{cfg.num_layers} flash_attention launches")
+        launches["flash_attention"] += n["flash_attention"]
+        decode_vs_forward(model, prompts, embeds, res["tokens"],
+                          res["logits"], f"{cfg.name} bf16", hold=False)
+        hold_float32_to_forward(serve, Transformer, model, prompts, embeds,
+                                run["gen"], cfg.name)
+        calls[run["arch"]] = call
+        del model, prompts, res, embeds
+        torch.cuda.empty_cache()
+
+    flash = {}
+    for arch in SLICE14_ARCHS:
+        cfg = get_config(arch)
+        flash[arch] = flash_main_path(
+            flash_ops, flash_ref, calls.pop(arch),
+            f"{arch} layer 0 (H {cfg.num_heads}, Kv {cfg.num_kv_heads})",
+            card, cfg.num_layers)
+        torch.cuda.empty_cache()
+
+    say("reduced --arch runs in float32, card vs CPU:")
+    restore = float32_cli(train)
+    try:
+        for arch in SLICE14_ARCHS:
+            reset_counts(counters)
+            train_vs_cpu(train, arch, "float32")
+            n = read_counts(counters)
+            if n["fedgia_update_batched_donated"] != 8 or sum(n.values()) != 8:
+                raise SystemExit(f"{arch} reduced: launches {n}")
+            for k_ in launches:
+                launches[k_] += n[k_]
+    finally:
+        restore()
+    say(f"phase 3c took {time.perf_counter() - t_phase!r} s")
+    return flash
 
 
 def client_store_phase(pop, train, counters, launches, card):
@@ -2981,6 +3306,7 @@ def main():
     from repro_torch.launch import serve, train
     from repro_torch.models import Transformer
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.utils import pytree as pt
 
     counters = (ops, flash_ops, scan_ops)
@@ -3062,16 +3388,20 @@ def main():
     per_round = {}
     for name in BASELINES:
         argv = ["--algo", name, "--lr",
-                str(bench_common.ALGO_HPARAMS[name]["lr"])] + PAPER
-        got, n, eager, _ = run_pair(train, counters, argv,
-                                    f"{name} paper run")
-        if sum(n.values()):
-            raise SystemExit(f"{name} paper run launched kernels: {n}")
-        cpu = train.main(argv + ["--device", "cpu"])
+                str(bench_common.ALGO_HPARAMS[name]["lr"])]
+        short, n, eager, _ = run_pair(train, counters, argv + BASELINE_PAIR,
+                                      f"{name} paper run, "
+                                      f"{BASELINE_PAIR[1]} rounds")
+        got, n_full = run_main_path(train, counters, argv + PAPER)
+        say(done_line(f"{name} paper run (cuda, CUDA-graph chunks)", got))
+        if sum(n.values()) or sum(n_full.values()):
+            raise SystemExit(f"{name} paper run launched kernels: {n}, "
+                             f"{n_full}")
+        cpu = train.main(argv + PAPER + ["--device", "cpu"])
         say(done_line(f"{name} paper run (cpu)", cpu))
         card_vs_cpu_run(got, cpu, f"{name} paper run")
         per_round[name] = [per_round_ms(got), per_round_ms(eager)]
-        for res in (got, eager, cpu):
+        for res in (short, got, eager, cpu):
             del res["batch"], res["state"]
     per_round["fedgia"] = [per_round_ms(paper), per_round_ms(paper_eager)]
     say("  paper size, ms a round (replayed, eager): " + ", ".join(
@@ -3368,24 +3698,9 @@ def main():
                     raise SystemExit(f"serve {arch}: no capture logged")
                 launches[name] += n[name]
                 served[name] = call
-        (t_cap, l_cap), (t_eager, l_eager) = (runs["captured"],
-                                              runs["--no-scan"])
-        if not (t_cap == t_eager).all():
-            raise SystemExit(f"serve {arch}: captured tokens "
-                             f"{t_cap.tolist()} != --no-scan "
-                             f"{t_eager.tolist()}")
-        if torch.equal(l_cap, l_eager):
-            say("  captured vs --no-scan: tokens equal, logits bit for bit")
-        else:  # cuBLAS may pick another GEMM algorithm inside a capture
-            err = float((l_cap.float() - l_eager.float()).abs().max())
-            scale = float(l_eager.float().abs().max())
-            say(f"  captured vs --no-scan: tokens equal, logits NOT bit for "
-                f"bit: max_abs_err={err!r} against max|logit| {scale!r} "
-                f"(held to {CAPTURED_LOGIT_RTOL} of it: another GEMM "
-                f"algorithm inside the graph rounds {cfg.dtype} sums apart)")
-            if not err <= CAPTURED_LOGIT_RTOL * scale:
-                raise SystemExit(f"serve {arch}: captured logits off by "
-                                 f"{err!r}")
+        hold_captured_to_eager(f"serve {arch}", runs["captured"],
+                               runs["--no-scan"])
+        t_cap, l_cap = runs["captured"]
         logits16[arch] = (l_cap, t_cap)
     say(f"main-path launches: {launches}")
 
@@ -3400,6 +3715,12 @@ def main():
     hd160 = moe_mla_phase(serve, train, Transformer, get_config, moe_mod,
                           counters, launches, card, flash_ops, flash_ref)
     say(f"main-path launches after phase 3b: {launches}")
+
+    # 3c. the hybrid SSM block and the embeds inputs at full width -----------
+    slice14 = hybrid_embeds_phase(serve, train, Transformer, get_config,
+                                  ssm_mod, counters, launches, card,
+                                  flash_ops, flash_ref)
+    say(f"main-path launches after phase 3c: {launches}")
 
     # 4. card against CPU, reduced, float32 ------------------------------------
     say("card vs cpu, reduced float32 models (prefill "
@@ -3469,7 +3790,14 @@ def main():
                 (2, 8, 2, 1, 64, None, "S 1"),
                 (2, 8, 2, 130, 64, None, "S 130 (128 + ragged 2)"),
                 (1, 16, 2, 1024, 128, 256,
-                 "GQA group 8, head_dim 128, window 256")):
+                 "GQA group 8, head_dim 128, window 256"),
+                # phase 3c's main-path shapes: an odd group of 5 over 25
+                # heads, a ragged last query tile at head_dim 128 (3008 =
+                # 23 x 128 + 64), and group 1 over 32 heads, ragged
+                (1, 25, 5, 1024, 64, None, "GQA group 5, H 25 (hymba)"),
+                (1, 32, 8, 3008, 128, None,
+                 "S 3008, head_dim 128, group 4 (llava)"),
+                (1, 32, 32, 1500, 64, None, "MHA group 1, S 1500 (musicgen)")):
             qs, ks, vs = (randn(g, (B, S, n, hd), dt).transpose(1, 2)
                           for n in (H, Kv, Kv))
             check_flash(flash_ops, flash_ref, qs, ks, vs, window, what)
@@ -3518,7 +3846,9 @@ def main():
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
         # the head_dim-160 form at stablelm-12b's prefill (phase 3b)
-        "hd160": hd160})
+        "hd160": hd160,
+        # phase 3c's models' prefills (layer 0 each)
+        "slice14": slice14})
 
     ms = median_ms(lambda: scan_ops.rwkv6_scan(r, kk, vv, w, u))
     plain_ms = median_ms(lambda: scan_ref.rwkv6_scan_ref(r, kk, vv, w, u))

@@ -21,7 +21,10 @@ Every registered architecture serves (`--arch`), the MoE/MLA ones
 (deepseek-v3-671b, arctic-480b) at `--reduced` size: whole, they do not
 fit one card. A caller serves them at full width with fewer layers
 through `generate` on `Transformer(dataclasses.replace(cfg,
-num_layers=n))`, as chip_smoke.py does.
+num_layers=n))`, as chip_smoke.py does. The CLI serves token prompts
+for every architecture, musicgen-large and llava-next-mistral-7b
+included, as the reference's does; `generate(embeds=...)` prefills a
+patch prefix or audio frames before them.
 """
 from __future__ import annotations
 
@@ -46,19 +49,22 @@ def _sync(device):
 
 
 def generate(model: Transformer, prompts, gen: int, window=None,
-             scan: bool = True) -> dict:
-    """Prefill `prompts` (B, P) and decode `gen` tokens greedily (the
-    prefill's argmax first): with `scan`, the gen - 1 decode steps through
-    `scan_steps` (one captured step, replayed, on the card), else one
-    eager step a token. Returns {"tokens": (B, gen), "logits": (gen, B, V)
-    the logits each token was taken from, "prefill_s", "decode_s",
-    "capture_s"}, the times on the host clock around work that ends in a
-    device sync; `decode_s` excludes `capture_s` (0 without a capture)."""
-    B, P = prompts.shape
+             scan: bool = True, embeds=None) -> dict:
+    """Prefill `embeds` (B, E, d) (a patch prefix or audio frames, or
+    None) and then `prompts` (B, S) (or None), and decode `gen` tokens
+    greedily from position P = E + S (the prefill's argmax first): with
+    `scan`, the gen - 1 decode steps through `scan_steps` (one captured
+    step, replayed, on the card), else one eager step a token. Returns
+    {"tokens": (B, gen), "logits": (gen, B, V) the logits each token was
+    taken from, "prefill_s", "decode_s", "capture_s"}, the times on the
+    host clock around work that ends in a device sync; `decode_s`
+    excludes `capture_s` (0 without a capture)."""
+    P = sum(t.shape[1] for t in (embeds, prompts) if t is not None)
     dev = model.device
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, cache_len=P + gen, window=window)
+    logits, cache = model.prefill(prompts, embeds=embeds, cache_len=P + gen,
+                                  window=window)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tokens = logits.argmax(-1)[:, None]

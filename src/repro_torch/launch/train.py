@@ -9,12 +9,14 @@ transformers.
       --reduced --algo fedgia --clients 4 --rounds 20 --seq-len 64 \
       --batch 2
 
-`--arch X [--reduced]` trains a registered dense GQA, RWKV-6 or MoE/MLA
-architecture (`repro_torch.configs`; the MoE/MLA ones, deepseek-v3-671b
-and arctic-480b, with `--reduced`: their fp32 router makes the flat
-buffer float32) on the synthetic bigram token
-stream (`data/tokens.py`, `--batch` sequences of `--seq-len` tokens a
-client), from the weights the reference draws from `--seed`
+`--arch X [--reduced]` trains any registered architecture
+(`repro_torch.configs`: dense GQA, RWKV-6, MoE/MLA, the hybrid SSM and
+the embeds inputs; deepseek-v3-671b, arctic-480b and hymba-1.5b train
+on one card at `--reduced` size, and their float32 router or A_log
+makes the flat buffer float32) on the synthetic bigram token stream
+(`data/tokens.py`, `--batch` sequences of `--seq-len` tokens a client;
+musicgen-large's audio frames and llava-next-mistral-7b's patch prefix
+as seeded normals), from the weights the reference draws from `--seed`
 (`models.transformer.init_params`), with r_hat probed at the start
 (`hparams.estimate_lipschitz`, as the reference's `auto_lipschitz`).
 The gradients are taken in the config's dtype and the round state is

@@ -1,5 +1,7 @@
-"""Decoder-only transformer: dense GQA, RWKV-6 and the MoE/MLA families
-(DeepSeek-V3, Arctic), served and trained.
+"""Decoder-only transformer: dense GQA, RWKV-6, the MoE/MLA families
+(DeepSeek-V3, Arctic) and the hybrid attention + SSM block (Hymba),
+over token inputs, embeddings (MusicGen's audio frames) or both (LLaVA's
+patch prefix, then text), served and trained.
 
 Counterpart of `repro/models/transformer.py`. The parameters are a
 training tree (`init_params`): a flat dict with one tensor per leaf of
@@ -31,8 +33,13 @@ Modes:
 
 MLA layers attend with the plain blocked softmax in every mode (its
 q/k depth differs from its v depth, which no kernel takes), as the
-reference does. The hybrid SSM kind and embeds inputs are ROADMAP queue
-1 item 7b.
+reference does. A hybrid layer runs its attention and its SSM branch
+(`models/ssm.py`, plain PyTorch as the reference's `lax.scan`) on the
+same normed input and mixes them; its SSM starts from the zero state in
+train and prefill and carries on from the cache's in decode.
+
+Inputs: `tokens` (B, S), `embeds` (B, P, d) (cast to the model's dtype),
+or both, the embeddings first, at positions 0..P+S-1.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import AttnMode
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mlp import mlp_apply
@@ -60,17 +68,14 @@ MTP_WEIGHT = 0.3
 class LayerGroup:
     name: str
     count: int
-    kind: str  # dense | moe | rwkv
+    kind: str  # dense | moe | rwkv | hybrid
 
 
 def _layer_groups(cfg: ModelConfig):
     if cfg.attention_type == "rwkv":
         return [LayerGroup("rwkv", cfg.num_layers, "rwkv")]
-    if cfg.attention_type not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention_type} layers are not ported yet "
-            "(ROADMAP queue 1 item 7b); the port runs GQA, MLA, MoE and "
-            "RWKV-6")
+    if cfg.attention_type == "hybrid":
+        return [LayerGroup("hybrid", cfg.num_layers, "hybrid")]
     if cfg.moe:
         groups = []
         if cfg.first_dense_layers:
@@ -128,20 +133,23 @@ class Transformer:
         if self.cfg.attention_type == "mla":
             return attn_lib.init_mla_cache(self.cfg, batch, cache_len, dtype,
                                            self.device)
-        return attn_lib.init_gqa_cache(self.cfg, batch, cache_len, dtype,
-                                       self.device)
+        c = attn_lib.init_gqa_cache(self.cfg, batch, cache_len, dtype,
+                                    self.device)
+        if kind == "hybrid":
+            c = {"attn": c, "ssm_state": ssm_lib.init_ssm_state(
+                self.cfg, batch, self.device)}
+        return c
 
     def init_cache(self, batch: int, cache_len: int, dtype=None):
-        """{group: {name: tensor stacked over the group's layers}}. `dtype`
-        (default: the model's) is the K/V cache's, e.g.
-        `torch.float8_e4m3fn` for a quantized cache, as the reference's."""
+        """{group: {name: tensor stacked over the group's layers}}, a
+        hybrid group's {"attn": {...}, "ssm_state": (L, B, d, st) float32}
+        (the reference's layout). `dtype` (default: the model's) is the
+        K/V cache's, e.g. `torch.float8_e4m3fn` for a quantized cache, as
+        the reference's."""
         dtype = dtype or self.dtype
-        out = {}
-        for g in self.layer_groups:
-            single = self._block_cache(g.kind, batch, cache_len, dtype)
-            out[g.name] = {k: a[None].repeat((g.count,) + (1,) * a.dim())
-                           for k, a in single.items()}
-        return out
+        return {g.name: _stack_layers(
+            self._block_cache(g.kind, batch, cache_len, dtype), g.count)
+            for g in self.layer_groups}
 
     # ----------------------------------------------------------------- apply
     def _block_apply(self, kind: str, params, x, cache, positions,
@@ -177,7 +185,16 @@ class Transformer:
         xn = rmsnorm(params["norm1"], x, cfg.norm_eps)
         attend = (attn_lib.mla_apply if cfg.attention_type == "mla"
                   else attn_lib.gqa_apply)
-        h, _ = attend(params["attn"], cfg, xn, positions, cache, mode)
+        hybrid = kind == "hybrid"
+        h, _ = attend(params["attn"], cfg, xn, positions,
+                      cache["attn"] if cache and hybrid else cache, mode)
+        if hybrid:
+            state = (cache["ssm_state"] if cache and mode.kind == "decode"
+                     else ssm_lib.init_ssm_state(cfg, x.shape[0], x.device))
+            h_ssm, state = ssm_lib.ssm_apply(params["ssm"], cfg, xn, state)
+            if cache:  # in place, so a captured decode step replays it
+                cache["ssm_state"].copy_(state)
+            h = params["mix_attn"] * h + params["mix_ssm"] * h_ssm
         x = x + h
         xn = rmsnorm(params["norm2"], x, cfg.norm_eps)
         aux = None
@@ -189,12 +206,20 @@ class Transformer:
             h = mlp_apply(params["mlp"], xn)
         return x + h, aux
 
-    def _hidden(self, tree, tokens, cache, positions, mode):
+    def _hidden(self, tree, tokens, cache, positions, mode, embeds=None):
         """The layers over `tree` (`_nest` of a training tree), each
-        group's stacked leaves unbound into its layers once. Returns (the
-        hidden state before the final norm, the MoE layers' summed aux
-        loss, a 0-d float32)."""
-        x = tree["embed"][tokens]
+        group's stacked leaves unbound into its layers once, on the
+        embeddings (cast to the model's dtype) and then the tokens'. Returns
+        (the hidden state before the final norm, the MoE layers' summed
+        aux loss, a 0-d float32)."""
+        parts = []
+        if embeds is not None:
+            parts.append(embeds.to(self.dtype))
+        if tokens is not None:
+            parts.append(tree["embed"][tokens])
+        if not parts:
+            raise ValueError("the model takes tokens, embeds or both")
+        x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         elif mode.kind == "prefill" and not torch.equal(
@@ -206,8 +231,7 @@ class Transformer:
             layers = _unstack(tree["groups"][g.name], g.count)
             group_cache = cache[g.name] if cache else None
             for i in range(g.count):
-                c_i = ({k: a[i] for k, a in group_cache.items()}
-                       if group_cache else None)
+                c_i = _layer_views(group_cache, i) if group_cache else None
                 x, a = self._block_apply(g.kind, layers[i], x, c_i,
                                          positions, mode)
                 if a is not None:
@@ -220,39 +244,48 @@ class Transformer:
                 else tree["lm_head"])
         return x @ head
 
-    def forward(self, tokens, *, cache=None, positions=None,
-                mode: AttnMode = AttnMode("train"), params=None):
-        """tokens: (B,S) int. Returns the logits (B,S,V).
+    def forward(self, tokens=None, *, embeds=None, cache=None,
+                positions=None, mode: AttnMode = AttnMode("train"),
+                params=None):
+        """tokens: (B,S) int; embeds: (B,P,d), before the tokens. Returns
+        the logits (B,P+S,V).
 
         `params`: a training tree (`init_params`) to run instead of the
-        module's own. `positions`: the tokens' absolute positions, (S,)
-        (default 0..S-1; prefill takes only those). `cache`
+        module's own. `positions`: the inputs' absolute positions, (P+S,)
+        (default 0..P+S-1; prefill takes only those). `cache`
         (`init_cache`) is written in place in prefill and decode modes."""
         tree = _nest(self.params if params is None else params)
-        x, _ = self._hidden(tree, tokens, cache, positions, mode)
+        x, _ = self._hidden(tree, tokens, cache, positions, mode, embeds)
         return self._logits(tree, x)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, mode: AttnMode = AttnMode("train")):
-        """The reference's `Transformer.loss` on a training tree: batch
-        {"tokens": (B, S+1)} predicts tokens[:, 1:] from tokens[:, :-1].
-        Returns (loss, {"ce", "moe_aux", "acc", "loss"}, and "mtp" where
-        the config has the MTP head): ce + moe_aux (0 for the dense and
-        RWKV kinds) + MTP_WEIGHT · mtp. A pure function of its arguments
+        """The reference's `Transformer.loss` on a training tree. batch:
+        {"tokens": (B, S+1)}, which predicts tokens[:, 1:] from
+        tokens[:, :-1]; {"embeds": (B, S, d), "labels": (B, S)} (audio);
+        or {"embeds": (B, P, d), "tokens": (B, St+1)} (VLM: the patch
+        prefix, then the text, no loss on the prefix). Returns (loss,
+        {"ce", "moe_aux", "acc", "loss"}, and "mtp" where the config has
+        the MTP head and the batch tokens): ce + moe_aux (0 for the kinds
+        without MoE) + MTP_WEIGHT · mtp. A pure function of its arguments
         (no host read, no write to them), so `torch.func.vmap(
         grad_and_value)` takes it over clients."""
-        if "tokens" not in batch or "embeds" in batch:
-            raise NotImplementedError(
-                "the port trains on token inputs only; embeds and VLM "
-                "inputs are ROADMAP queue 1 item 7b")
-        tokens = batch["tokens"]
-        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        embeds, tokens = batch.get("embeds"), batch.get("tokens")
+        if tokens is not None:
+            inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        else:
+            inputs, labels = None, batch["labels"]
         tree = _nest(params)
-        hidden, aux = self._hidden(tree, inputs, None, None, mode)
+        hidden, aux = self._hidden(tree, inputs, None, None, mode, embeds)
+        if embeds is not None and tokens is not None:
+            # no loss on the embedding prefix
+            prefix = labels.new_full((labels.shape[0], embeds.shape[1]),
+                                     IGNORE_LABEL)
+            labels = torch.cat([prefix, labels], dim=1)
         ce, acc = _masked_ce(self._logits(tree, hidden), labels)
         total = ce + aux
         metrics = {"ce": ce, "moe_aux": aux, "acc": acc}
-        if self.cfg.mtp:
+        if self.cfg.mtp and tokens is not None:
             mtp = self._mtp_loss(tree, hidden, inputs, labels)
             total = total + MTP_WEIGHT * mtp
             metrics["mtp"] = mtp
@@ -276,16 +309,18 @@ class Transformer:
         return ce
 
     # ------------------------------------------------------------- serving
-    def prefill(self, tokens, *, cache_len: int,
+    def prefill(self, tokens=None, *, embeds=None, cache_len: int,
                 window: Optional[int] = None, cache_dtype=None):
-        """Returns (logits of the last position (B,V), cache). Only the
-        last position goes through the head: the reference takes
-        `logits[:, -1]` of the full product, the same values.
-        `cache_dtype`: see `init_cache`."""
-        cache = self.init_cache(tokens.shape[0], cache_len, cache_dtype)
+        """Prefill `embeds` (B,P,d) and then `tokens` (B,S) (either may be
+        None) at positions 0..P+S-1. Returns (logits of the last position
+        (B,V), cache). Only the last position goes through the head: the
+        reference takes `logits[:, -1]` of the full product, the same
+        values. `cache_dtype`: see `init_cache`."""
+        batch = (tokens if tokens is not None else embeds).shape[0]
+        cache = self.init_cache(batch, cache_len, cache_dtype)
         mode = AttnMode("prefill", window=window)
         tree = _nest(self.params)
-        x, _ = self._hidden(tree, tokens, cache, None, mode)
+        x, _ = self._hidden(tree, tokens, cache, None, mode, embeds)
         return self._logits(tree, x[:, -1]), cache
 
     def decode_step(self, cache, tokens, pos,
@@ -329,6 +364,21 @@ def _nest(params: dict) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = v
     return root
+
+
+def _stack_layers(tree, count):
+    """A layer's cache (nested dict of tensors) stacked `count` times on a
+    new leading axis."""
+    if isinstance(tree, dict):
+        return {k: _stack_layers(v, count) for k, v in tree.items()}
+    return tree[None].repeat((count,) + (1,) * tree.dim())
+
+
+def _layer_views(tree, i):
+    """Layer i's views of a stacked cache (nested dict of tensors)."""
+    if isinstance(tree, dict):
+        return {k: _layer_views(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def _unstack(tree, count):
@@ -391,8 +441,8 @@ class _Draws:
         scale = np.float32(1.0) / np.sqrt(np.float32(max(fan_in, 1)))
         return _Leaf(tuple(shape), dtype or self.dtype, key, float(scale))
 
-    def full(self, shape, value):
-        return _Leaf(tuple(shape), self.dtype, value=float(value))
+    def full(self, shape, value, dtype=None):
+        return _Leaf(tuple(shape), dtype or self.dtype, value=float(value))
 
     def empty(self, shape, dtype):
         return torch.empty(shape, dtype=dtype, device=self.device)
@@ -469,6 +519,22 @@ def _moe_init(dr: _Draws, key, cfg: ModelConfig):
     return p
 
 
+def _ssm_init(dr: _Draws, key, cfg: ModelConfig):
+    """The reference's `ssm.ssm_init`: A_log in float32 (zeros), the
+    rest in the model's dtype."""
+    d, st = cfg.d_model, cfg.ssm_state
+    ks = prng.split(key, 6)
+    return {"in_x": dr.he(ks[0], (d, d), d),
+            "in_z": dr.he(ks[1], (d, d), d),
+            "w_dt": dr.he(ks[2], (d, d), d),
+            "dt_bias": dr.full((d,), -2.0),
+            "w_B": dr.he(ks[3], (d, st), d),
+            "w_C": dr.he(ks[4], (d, st), d),
+            "A_log": dr.full((d, st), 0.0, torch.float32),
+            "D": dr.full((d,), 1.0),
+            "out": dr.he(ks[5], (d, d), d)}
+
+
 def _rwkv_init(dr: _Draws, ks, cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     H, hd = cfg.num_heads, cfg.rwkv_head_size
@@ -509,7 +575,12 @@ def _block_from_key(dr: _Draws, cfg: ModelConfig, kind: str, key):
                 "channel_mix": p["channel_mix"]}
     attn = (_mla_init if cfg.attention_type == "mla" else _gqa_init)
     p = {"norm1": norm(), "attn": attn(dr, ks[0], cfg), "norm2": norm()}
-    if kind == "moe":
+    if kind == "hybrid":  # the SSM from ks[1], so the MLP from ks[2]
+        p["ssm"] = _ssm_init(dr, ks[1], cfg)
+        p["mix_attn"] = dr.full((d,), 0.5)
+        p["mix_ssm"] = dr.full((d,), 0.5)
+        p["mlp"] = _mlp_init(dr, ks[2], d, cfg.d_ff)
+    elif kind == "moe":
         p["moe"] = _moe_init(dr, ks[1], cfg)
         if cfg.dense_residual:
             p["mlp"] = _mlp_init(dr, ks[2], d, cfg.d_ff)
@@ -525,8 +596,9 @@ def init_params(cfg: ModelConfig, key, device=None) -> dict:
     embedding's 0.02·normal, He-scaled normals for the matrices (the MoE
     router's in float32), and per layer the reference's `vmap` over
     split(k, count), one key a layer, each split again as `gqa_init`,
-    `mla_init`, `mlp_init`, `moe_init` and the RWKV inits split theirs;
-    zero biases and unit norms; the MTP head from key len(groups) + 2.
+    `mla_init`, `mlp_init`, `moe_init`, `ssm_init` and the RWKV inits
+    split theirs; zero biases, unit norms and the SSM's constants (A_log
+    0 in float32); the MTP head from key len(groups) + 2.
     Drawn with the numpy forms on the CPU and the torch forms on the
     card, layer by layer straight into each stacked leaf. The integer
     stream is the reference's bit for bit; a normal sits within 4

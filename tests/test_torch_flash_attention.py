@@ -112,6 +112,29 @@ def test_flash_attention_matches_reference(B, H, Kv, S, hd, window, bq, bk,
            "vs Pallas kernel (interpret, in a fresh process)")
 
 
+# the new slice's GQA groups: Hymba's group of 5 (25 heads over 5; here
+# 10 over 2) on a ragged length, and MusicGen's plain MHA (group 1)
+GROUPS = [(1, 10, 2, 75, 64), (2, 4, 4, 61, 64), (1, 5, 5, 40, 128)]
+
+
+@pytest.mark.parametrize("B,H,Kv,S,hd", GROUPS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_version_at_groups_5_and_1_matches_blocked_attention(
+        B, H, Kv, S, hd, dtype):
+    """The wrapper's plain version (what the kernel is held to on the card)
+    against the reference's `blocked_attention`, the model's own
+    attention, in its (B,S,H,hd) layout, at the tolerances above."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrs = _inputs(S + H, B, H, Kv, S, hd, jdt)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrs)
+    out = ops.flash_attention(q, k, v)
+    assert out.dtype == tdt and ops.launches["flash_attention"] == 0
+    pos = jnp.arange(S, dtype=jnp.int32)
+    want = jax_blocked(*(jnp.asarray(a, jdt).swapaxes(1, 2) for a in arrs),
+                       pos, pos, block_k=32).swapaxes(1, 2)
+    _close(out, want, tol, "vs the reference's blocked_attention")
+
+
 def test_blocked_attention_matches_reference_over_a_ring_cache():
     """The decode form: one query against a cache whose slots are out of
     order and partly empty (slot_pos -1), with a window."""

@@ -1,9 +1,10 @@
 """The port's token data and optimizers against the JAX package's
 (mirrors of tests/test_data_optim_ckpt.py's `test_synthetic_batch_modes`,
-token mode only, `test_paper_lr_schedule` and
-`test_sgd_adam_reduce_quadratic`).
+in every registered architecture's input mode, `test_paper_lr_schedule`
+and `test_sgd_adam_reduce_quadratic`).
 
-* tokens: bit for bit (both are numpy with the same generator);
+* tokens, labels and embeddings: bit for bit (both are numpy with the
+  same generators);
 * SGD (with momentum) and Adam on the same gradients: every step's
   parameters at rtol 1e-6 (float32, the same operations; JAX's Adam
   rounds `b ** count` and the bias corrections through XLA:CPU's pow);
@@ -34,10 +35,15 @@ def test_tokens_are_the_references_bit_for_bit(arch):
                               seed=5)
     want = jax_batch_for(JAX_ARCHS[arch].reduced(), m=3, batch_per_client=2,
                          seq_len=8, seed=5)
-    assert set(got) == set(want) == {"tokens"}
-    assert got["tokens"].dtype == want["tokens"].dtype == np.int32
-    np.testing.assert_array_equal(got["tokens"], want["tokens"])
-    assert got["tokens"].shape[:2] == (3, 2)  # test_synthetic_batch_modes
+    assert set(got) == set(want) == {
+        "tokens": {"tokens"}, "embeds": {"embeds", "labels"},
+        "tokens+embeds": {"embeds", "tokens"}}[cfg.input_mode]
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    toks = got["tokens"] if "tokens" in got else got["labels"]
+    assert toks.dtype == np.int32
+    assert toks.shape[:2] == (3, 2)  # test_synthetic_batch_modes
 
 
 def test_lm_stream_has_the_planted_bigram():

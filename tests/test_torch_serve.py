@@ -110,7 +110,7 @@ def test_serving_path_imports_neither_jax_nor_repro():
         "import sys, repro_torch.launch.serve, repro_torch.configs\n"
         "import repro_torch.kernels.flash_attention, "
         "repro_torch.kernels.rwkv6_scan, repro_torch.utils.convert\n"
-        "import repro_torch.models.moe\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
         "import repro_torch.core.prng, repro_torch.core.graphs, "
         "repro_torch.examples.serve_requests\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
@@ -126,18 +126,19 @@ def test_registry_holds_the_ported_architectures():
     from repro.configs import ARCHITECTURES as JAX_ARCHS
     from repro_torch.configs import ARCHITECTURES, list_architectures
 
-    assert list_architectures() == ["arctic-480b", "deepseek-67b",
-                                    "deepseek-v3-671b", "qwen1.5-0.5b",
-                                    "rwkv6-3b", "stablelm-12b",
-                                    "tinyllama-1.1b"]
+    assert list_architectures() == sorted(JAX_ARCHS) == [
+        "arctic-480b", "deepseek-67b", "deepseek-v3-671b", "hymba-1.5b",
+        "llava-next-mistral-7b", "musicgen-large", "qwen1.5-0.5b",
+        "rwkv6-3b", "stablelm-12b", "tinyllama-1.1b"]
     for name, cfg in ARCHITECTURES.items():
         want = JAX_ARCHS[name]
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
         assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
             want.reduced())
         assert cfg.param_count() == want.param_count()
-    with pytest.raises(KeyError):
-        get_config("hymba-1.5b")
+        assert get_config(name) is cfg
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba-2.8b")
 
 
 def test_every_kernel_source_is_built():

@@ -368,11 +368,3 @@ def test_smoke_train_step(arch):
     new = {k: p - 1e-3 * grads[k].to(p.dtype) for k, p in params.items()}
     assert torch.isfinite(model.loss(new, batch)[0])
 
-
-def test_embeds_inputs_point_at_item_7b():
-    _, cfg = _configs("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="7b"):
-        Transformer(cfg, "cpu").loss({}, {"embeds": torch.zeros(1, 2, 3)})
-    with pytest.raises(NotImplementedError, match="7b"):
-        synthetic_batch_for(dataclasses.replace(cfg, input_mode="embeds"),
-                            2, 2, 8)

@@ -211,14 +211,3 @@ def test_prefill_wrap_ring_buffer():
     assert sorted(slot.tolist()) == list(range(n - W, n))
     assert cache["dense"]["pos"].tolist() == [n] * cfg.num_layers
 
-
-def test_unported_layer_kinds_raise():
-    """The hybrid SSM kind and embeds inputs are ROADMAP queue 1 item 7b
-    (MoE and MLA are ported: tests/test_torch_moe_mla.py)."""
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
-                              attention_type="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7b"):
-        Transformer(cfg, "cpu")
-    cfg = get_config("tinyllama-1.1b").reduced()
-    with pytest.raises(NotImplementedError, match="7b"):
-        Transformer(cfg, "cpu").loss({}, {"embeds": torch.zeros(1, 2, 3)})
