@@ -37,7 +37,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      runners' ALGO_HPARAMS, tol 1e-7), replayed against eager
      `--no-scan` over BASELINE_PAIR's 100 rounds (the same rounds, a
      final state bitwise equal) and on the card against the CPU over up
-     to 500 rounds (the same rounds under the rule above, f at rel
+     to 500 rounds (FedProx and FedPD over BASELINE_PAIR's 100:
+     CPU_PAIR_ONLY) (the same rounds under the rule above, f at rel
      1e-5); no hand-written kernel is launched;
    * each at the population size (20 rounds, tol 0, on the population
      run's own data, through `engine.run_rounds`), replayed against
@@ -146,7 +147,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      equal between the chunked driver and `--no-scan`;
    * the int8 + EF run checkpointed every 8 rounds and resumed from 16:
      history and state bitwise the uninterrupted run's;
-   * `wallclock_bench.run_compression` and `run_faults` on the card and
+   * `wallclock_bench.run_compression`, `run_overlap` (barrier against
+     overlapped rounds) and `run_faults` on the card and
      on the CPU, held row by row as phase 2e's rows (the int8 row,
      stochastic, to both reaching the target; a row that reaches it on
      neither side, top-k, by its rounds, times and bytes).
@@ -203,6 +205,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    `speedup_flat_vs_pytree >= 0.98`, and `check_bench` gates it against
    the committed port baseline; the wallclock rows of phases 2e and 2f
    are written out and gated the same way (`check_bench --wallclock`).
+   (The section's `sharded` and `scan_overlap` rows are CPU rows: a card
+   run of the section leaves them out.)
+2i. (Run last: once a child process has run these rounds on the card,
+   this process's torch.profiler sessions record no device time.) The
+   client-sharded round (`run_rounds(mesh=...)`,
+   `launch/mesh.py`) in a child process started by the port's launcher
+   at world size 1
+   over NCCL on cuda:0 (no process group outlives the phase), on the
+   population run's data passed to it (m=16384, n=1024, d=262144, 20
+   rounds, tol 0): FedGiA_D, FedGiA with scalar H and the four baselines
+   (at SHARDED_LR, their population lr), each barrier and overlapped
+   (`overlap="scatter"`), in the chunked driver (the NCCL collectives
+   captured with the rounds) and `--no-scan`, every run held to the
+   unsharded chunked run at STATE_RTOL / STATE_ATOL (history and every
+   model-shaped state entry) and its ms a round printed beside the
+   unsharded one; the FedGiA runs launch `fedgia_update_batched` (or
+   its donated form) once a round, which joins the main path's count;
+   one eager round of each profiled: one model-size all-reduce, at most
+   one reduce-scatter and no all-gather barrier, zero model-size
+   all-reduces, one reduce-scatter and one all-gather overlapped (c10d
+   events, `launch/mesh.py::profile_collectives`); FedGiA_D chunked with
+   tol SHARDED_TOL, each round and its collectives inside a conditional
+   graph node; eq. (11)'s all-reduce alone timed with CUDA events. Then
+   `--shard-clients 2` on this one-card machine must raise with the
+   device count. NCCL across several cards is not exercised: one card.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each), each
@@ -295,11 +322,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    attention, of PyTorch's `scaled_dot_product_attention` on the same
    inputs, beside the bound, with each kernel's rate and share of its
    bound.
-6. A `torch.profiler` split of one eager paper round and one eager
-   population round (gradient, eq. (11), update kernel, H refresh,
-   metrics, copies, other; idle against the unprofiled round time), and
-   the device's busy share in the replayed runs; a session that lost the
-   round's kernels is run again, at most three times, each printed.
+6. (Run right after phase 2, before any other torch.profiler session:
+   later in the script the profiler has lost the eager round's kernels,
+   all of them in one run.) A `torch.profiler` split of one eager paper
+   round and one eager population round (gradient, eq. (11), update
+   kernel, H refresh, metrics, copies, other; idle against the
+   unprofiled round time), and the device's busy share in the replayed
+   runs; a session that lost the round's kernels is run again, at most
+   three times, each printed. Where no session recorded device time, the
+   round's steps are timed by CUDA events instead (spans, host launch
+   time included), and said so.
 7. Print one `{"kernels": [...]}` line, the card line again, and last
    `{"ok": true, "device": {...}}`.
 
@@ -348,6 +380,12 @@ PAPER_TOL = 1e-7  # the CLI's default --tol
 # rounds of the paper run, and card against CPU over PAPER's 500 (their
 # eager runs took 60-100 s of a slow host's 212 s phase)
 BASELINE_PAIR = ["--rounds", "100"]
+# a cut of depth for the script's time (PERF.md §4): the baselines that
+# take k0·inner_steps = 25 gradients a round hold card against CPU over
+# BASELINE_PAIR's rounds (their CPU runs over PAPER's 500 took 20.5 s
+# each); FedAvg and SCAFFOLD still over 500 (SCAFFOLD's f parts by 1.8e-5
+# at 250 rounds)
+CPU_PAIR_ONLY = ("fedprox", "fedpd")
 # a cut of depth for the script's time (PERF.md §4): phase 2e's
 # wallclock_bench rows run to 200 rounds on the card and on the CPU (the
 # reference's 400: its rows that converge do so by round 56, and the
@@ -1140,6 +1178,112 @@ def replayed_busy_us(res, argv, engine, prng):
     busy, rr = replay_busy(lambda: engine.run_rounds(algo, state, batch,
                                                      rounds, tol=tol))
     return busy / rr.rounds_run, rr.rounds_run
+
+
+def event_split(res, modules, engine, pt):
+    """The split of one eager round after the run's last by CUDA events,
+    for a round whose torch.profiler sessions recorded no device time: the
+    span on the stream of each outermost labelled step (an event before
+    and after its call, the stream drained before each), host launch time
+    within the step included, and the rest of the round under "other".
+    Returns (split, wall_us), wall_us the whole round's span."""
+    fedgia_mod, hparams_mod, api_mod = modules
+    algo, batch, state = res["algorithm"], res["batch"], res["state"]
+    spec = pt.ravel_spec(state["x"])
+    flat = engine.flatten_state(algo, state, spec)
+    flat["rng"] = state["rng"].copy()
+    spans, depth, undo = [], [0], []
+
+    def timed(obj, name, label):
+        real = getattr(obj, name)
+
+        def wrapped(*args, **kwargs):
+            if depth[0]:
+                return real(*args, **kwargs)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            depth[0] += 1
+            ev[0].record()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                ev[1].record()
+                depth[0] -= 1
+                spans.append((label, ev))
+
+        setattr(obj, name, wrapped)
+        undo.append(lambda: setattr(obj, name, real))
+
+    timed(algo, "_vg", "gradient")
+    timed(api_mod, "client_mean", "eq. (11)")
+    timed(fedgia_mod, "fedgia_update_flat", "update kernel")
+    timed(hparams_mod, "update_diag_h", "H refresh")
+    for name in ("client_scalar_mean", "flat_grad_sq_norm",
+                 "client_scalar_sum"):
+        timed(api_mod, name, "metrics")
+    whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        algo.round_flat(dict(flat), batch, spec)
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        for fn in reversed(undo):
+            fn()
+    split = dict.fromkeys(LABELS + ("copies", "other"), 0.0)
+    for label, (a, b) in spans:
+        split[label] += a.elapsed_time(b) * 1e3
+    wall_us = whole[0].elapsed_time(whole[1]) * 1e3
+    split["other"] = max(wall_us - sum(split.values()), 0.0)
+    return split, wall_us
+
+
+def round_split_phase(profiled, modules, engine, selection, pt, prng, card):
+    """Phase 6: the split of one eager round after each run's last and
+    the device's busy share in the replayed run, under torch.profiler. A
+    split without the round's gradient or update kernel, or a replayed
+    busy time under half the eager round's device work, is profiled
+    again, at most ATTEMPTS times, every attempt printed. Where no session
+    recorded device time the round is split by CUDA events instead
+    (`event_split`), and said so; it raises if that records none."""
+    say(f"split of one eager round after each run's last (torch.profiler, "
+        f"device us per step) and the device's busy share in a replayed "
+        f"run, on {card}:")
+    for what, (res, argv, replayed_us) in profiled.items():
+        for attempt in range(1, ATTEMPTS + 1):
+            split, wall_us = profile_round(res, modules, engine, selection,
+                                           pt)
+            busy = sum(split.values())
+            whole = split["gradient"] > 0 and split["update kernel"] > 0
+            say(f"  {what} round, eager (session {attempt}): " + " ".join(
+                f"{k}={v:.1f}" for k, v in split.items()) +
+                f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, median "
+                f"of 5) idle_share={1 - busy / wall_us:.4f}"
+                + ("" if whole else " [kernels lost by the profiler]"))
+            if whole:
+                break
+        if busy <= 0:
+            split, span_us = event_split(res, modules, engine, pt)
+            busy = sum(v for k, v in split.items() if k != "other")
+            say(f"  {what} round, eager: the profiler recorded no device "
+                f"time; spans by CUDA events (us, each step's launches "
+                f"included, not busy time): " + " ".join(
+                    f"{k}={v:.1f}" for k, v in split.items())
+                + f" round={span_us:.1f}")
+            if busy <= 0:
+                raise SystemExit(f"{what}: neither the profiler nor CUDA "
+                                 f"events timed the round's steps")
+        for attempt in range(1, ATTEMPTS + 1):
+            per_round, rr = replayed_busy_us(res, argv, engine, prng)
+            whole = per_round >= 0.5 * busy
+            say(f"  {what} run, replayed (session {attempt}): {rr} rounds, "
+                f"device busy {per_round:.1f} us a round (profiled), against "
+                f"{replayed_us:.1f} us a round unprofiled (phase 2): "
+                f"busy_share={per_round / replayed_us:.4f}"
+                + ("" if whole else " [kernels lost by the profiler]"))
+            if whole:
+                break
 
 
 def visible_pairs(S, causal=True, window=None):
@@ -2026,7 +2170,7 @@ def client_store_phase(pop, train, counters, launches, card):
 
 def fp64_witness(row, rounds):
     """The stop metric a round of a runner's row (`async_bench` or
-    `wallclock_bench`, its compression and fault rows included) re-run on
+    `wallclock_bench`, its compression, overlap and fault rows) re-run on
     the CPU in float64, tol 0, for `rounds` rounds: how far float32
     arithmetic moves it near the stop."""
     from repro_torch.benchmarks import async_bench, wallclock_bench
@@ -2040,10 +2184,12 @@ def fp64_witness(row, rounds):
         from repro_torch.core import faults
 
         bench, algo_key, metric = wallclock_bench, "fedgia_d", "f_xbar"
-        if row["algo"] == "fedgia_d_bw":
+        if row["algo"] in ("fedgia_d_bw", "fedgia_d_ovl_off",
+                           "fedgia_d_ovl_on"):
             kw = dict(clock=clock.ComputeClock(
                 m, compute_s=bench.COMPRESS_COMPUTE_S,
                 bandwidth_bps=bench.BANDWIDTH_BPS),
+                overlap=row.get("overlap", "off"),
                 **dict(bench.CODECS)[row["codec"]])
         else:
             kw = dict(clock=clock.ComputeClock(
@@ -2656,13 +2802,15 @@ def uplink_phase(pop, counters, launches, card, kept):
     del ref_run, cut, res
 
     # wallclock_bench's compression and fault rows ---------------------------
-    say(f"wallclock_bench's compression and fault rows (m="
+    say(f"wallclock_bench's compression, overlap and fault rows (m="
         f"{wallclock_bench.M_CLIENTS}) on {card} and on the CPU:")
     reset_counts(counters)
     gpu = (wallclock_bench.run_compression("cuda", collect_history=True)
+           + wallclock_bench.run_overlap("cuda", collect_history=True)
            + wallclock_bench.run_faults("cuda", collect_history=True))
     got = read_counts(counters)
     cpu = (wallclock_bench.run_compression("cpu", collect_history=True)
+           + wallclock_bench.run_overlap("cpu", collect_history=True)
            + wallclock_bench.run_faults("cpu", collect_history=True))
     keys = ("algo", "codec", "cr", "sim_time_s", "staleness_seen", "time_s",
             "obj", "converged")
@@ -3279,6 +3427,237 @@ def pytree_phase(train, counters, launches, card, engine, paper, pop,
     say(f"phase 2h took {time.perf_counter() - t_phase!r} s")
 
 
+# phase 2i: the client-sharded round at world size 1 over NCCL. FedGiA
+# with both diagonal H policies and the four baselines at one population
+# lr (ROADMAP queue 3 k: lr·L_max < 2 with the clients' L up to about
+# 1250, as phase 2d's FedPD)
+SHARDED_LR = 0.001
+SHARDED_ALGOS = (
+    ("fedgia_d", "fedgia", dict(sigma_t=0.15, h_policy="diag_ema",
+                                alpha=0.5)),
+    ("fedgia", "fedgia", dict(sigma_t=0.15, h_policy="scalar", alpha=0.5)),
+    ("fedavg", "fedavg", dict(lr=SHARDED_LR)),
+    ("fedprox", "fedprox", dict(lr=SHARDED_LR, prox_mu=1e-4, inner_steps=5)),
+    ("fedpd", "fedpd", dict(lr=SHARDED_LR, fedpd_eta=1.0, inner_steps=5)),
+    ("scaffold", "scaffold", dict(lr=SHARDED_LR)))
+SHARDED_ROUNDS = 20
+# tol > 0 puts each round (and its collectives) in a conditional graph
+# node; a tolerance no round meets keeps all of them live
+SHARDED_TOL = 1e-30
+
+
+def _max_rel(a, b):
+    """max |a - b| / max(|b|, 1e-6) over two arrays (numpy or tensors)."""
+    a = torch.as_tensor(a).double().cpu()
+    b = torch.as_tensor(b).double().cpu()
+    return float(((a - b).abs() / b.abs().clamp_min(1e-6)).max())
+
+
+def _sharded_rank(batch):
+    """Phase 2i on one rank (world size 1, NCCL on cuda:0): the population
+    rounds of each SHARDED_ALGOS entry through `run_rounds(mesh=...)`,
+    barrier and overlapped, chunked (NCCL captured with the rounds) and
+    --no-scan, each held to the unsharded chunked run at the sync
+    tolerance; one eager round of each profiled for its collectives; the
+    eq. (11) all-reduce timed alone. Returns the rows the parent prints
+    and checks."""
+    from repro_torch.config import FedConfig
+    from repro_torch.core import api
+    from repro_torch.core.api import make_algorithm
+    from repro_torch.core.engine import (
+        flatten_state, make_round_fn, run_rounds, shard_inputs)
+    from repro_torch.core.prng import prng_key
+    from repro_torch.data import linreg_noniid, to_torch
+    from repro_torch.kernels.fedgia_update import ops
+    from repro_torch.launch.mesh import make_host_mesh, profile_collectives
+    from repro_torch.models import LeastSquares
+    from repro_torch.utils import pytree as pt
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(data=1)
+    axis = mesh.client_axis("data")
+    with api.client_sharding(axis):  # the communicator, before any capture
+        api.client_scalar_sum(torch.ones(1, device=dev))
+    torch.cuda.synchronize(dev)
+    if batch is None:
+        argv = dict(zip(POPULATION[::2], POPULATION[1::2]))
+        batch = to_torch(linreg_noniid(0, int(argv["--samples"]),
+                                       int(argv["--dim"]),
+                                       int(argv["--clients"])), dev)
+    m, n = batch["A"].shape[0], batch["A"].shape[-1]
+    model = LeastSquares(n)
+    rows, budgets, seconds = [], {}, {}
+    for label, name, hp in SHARDED_ALGOS:
+        t_algo = time.perf_counter()
+        fed = FedConfig(algorithm=name, num_clients=m, k0=5, **hp)
+        algo = make_algorithm(fed, model.loss, model=model)
+        s0 = algo.init(model.init(dev), prng_key(1), init_batch=batch)
+        ref = run_rounds(algo, s0, batch, SHARDED_ROUNDS)
+        ref_ms = ref.wall_s / ref.rounds_run * 1e3
+        for overlap in ("off", "scatter"):
+            for scan in (True, False):
+                ops.reset_launches()
+                res = run_rounds(algo, s0, batch, SHARDED_ROUNDS, scan=scan,
+                                 mesh=mesh, overlap=overlap)
+                rows.append(_sharded_row(label, overlap, scan, res, ref,
+                                         ref_ms, dict(ops.launches)))
+        spec = pt.ravel_spec(s0["x"])
+        s0f = flatten_state(algo, s0, spec)
+        mask = torch.ones(m, dtype=torch.bool, device=dev)
+        for overlap in ("off", "scatter"):
+            st = dict(s0f)
+            if overlap == "scatter":
+                slot = torch.zeros(
+                    (int(getattr(algo, "overlap_slot_rows", 1)),
+                     spec.padded_size), device=dev)
+                slot[0] = st["x"]
+                st["ovl_shard"] = slot
+            st, b = shard_inputs(algo, st, batch, mesh)
+            rf = make_round_fn(algo, mesh, masked=True, flat_spec=spec,
+                               overlap=overlap)
+            rf(dict(st), b, mask)  # warm-up, outside the profile
+            torch.cuda.synchronize(dev)
+            budgets[f"{label}/{overlap}"] = profile_collectives(
+                lambda: (rf(dict(st), b, mask),
+                         torch.cuda.synchronize(dev)),
+                spec.padded_size)[1]
+        seconds[label] = time.perf_counter() - t_algo
+    # the chunked driver with tol > 0: each round in a conditional node
+    fed = FedConfig(algorithm="fedgia", num_clients=m, k0=5,
+                    **SHARDED_ALGOS[0][2])
+    algo = make_algorithm(fed, model.loss, model=model)
+    s0 = algo.init(model.init(dev), prng_key(1), init_batch=batch)
+    ref = run_rounds(algo, s0, batch, SHARDED_ROUNDS, tol=SHARDED_TOL)
+    cond = {}
+    try:
+        ops.reset_launches()
+        res = run_rounds(algo, s0, batch, SHARDED_ROUNDS, tol=SHARDED_TOL,
+                         mesh=mesh)
+        cond = _sharded_row("fedgia_d tol>0", "off", True, res, ref,
+                            ref.wall_s / ref.rounds_run * 1e3,
+                            dict(ops.launches))
+    except Exception as e:  # reported and failed by the parent
+        cond = {"error": f"{type(e).__name__}: {e}"}
+    # eq. (11)'s all-reduce alone: the FedGiA_D numerator and its riders
+    buf = torch.ones(n + 3, device=dev)
+    ar_ms = median_ms(lambda: torch.distributed.all_reduce(
+        buf, group=axis.group))
+    return {"rows": rows, "budgets": budgets, "cond": cond,
+            "allreduce_ms": ar_ms, "allreduce_numel": n + 3,
+            "seconds": time.perf_counter() - t0, "algo_seconds": seconds}
+
+
+def _sharded_row(label, overlap, scan, res, ref, ref_ms, launches):
+    """One sharded run against the unsharded one: rounds, the worst
+    relative gap of the history and of each model-shaped state entry,
+    whether they are within the sync tolerance, its replayed (or eager)
+    ms a round beside the unsharded replayed one, and its launches."""
+    import numpy as np
+
+    ok = res.rounds_run == ref.rounds_run
+    gaps = {}
+    for k in ("f_xbar", "grad_sq_norm", "selected", "cr"):
+        a, b = np.asarray(res.history[k]), np.asarray(ref.history[k])
+        ok = ok and bool(np.allclose(a, b, rtol=STATE_RTOL,
+                                     atol=STATE_ATOL))
+        gaps[k] = _max_rel(a, b)
+    for k, tree in ref.state.items():
+        if not isinstance(tree, dict):
+            continue
+        for leaf, want in tree.items():
+            got = res.state[k][leaf]
+            ok = ok and bool(torch.allclose(got, want, rtol=STATE_RTOL,
+                                            atol=STATE_ATOL))
+            gaps[f"{k}.{leaf}"] = _max_rel(got, want)
+    return {"label": label, "overlap": overlap,
+            "driver": "chunked" if scan else "--no-scan",
+            "rounds": res.rounds_run, "ok": ok, "max_rel": gaps,
+            "ms": res.wall_s / res.rounds_run * 1e3, "unsharded_ms": ref_ms,
+            "launches": launches}
+
+
+def sharded_phase(train, launch, card, batch):
+    """Phase 2i in a child process (`launch` at world size 1 over NCCL,
+    so no process group outlives the phase): the rows of `_sharded_rank`
+    checked and printed. Then `--shard-clients 2` on this one-card
+    machine must raise with the device count. Returns the FedGiA runs'
+    launches by kernel form, which join the main path's."""
+    launches = {"fedgia_update_batched": 0,
+                "fedgia_update_batched_donated": 0}
+    t_phase = time.perf_counter()
+    say(f"client-sharded rounds at world size 1 over NCCL (population "
+        f"data, {SHARDED_ROUNDS} rounds, tol 0; baselines at lr "
+        f"{SHARDED_LR}), each against the unsharded chunked run at rtol "
+        f"{STATE_RTOL}, atol {STATE_ATOL}, on {card}:")
+    out = launch(_sharded_rank, 1, batch, device="cuda")
+    bad = []
+    for r in out["rows"]:
+        worst = max(r["max_rel"].values())
+        say(f"  {r['label']} overlap={r['overlap']} {r['driver']}: "
+            f"{r['rounds']} rounds, {r['ms']!r} ms a round against "
+            f"{r['unsharded_ms']!r} unsharded (replayed), worst relative "
+            f"gap {worst!r} ({'within' if r['ok'] else 'OUTSIDE'} the "
+            f"tolerance); launches {r['launches']}")
+        if not r["ok"] or r["rounds"] != SHARDED_ROUNDS:
+            bad.append(f"{r['label']}/{r['overlap']}/{r['driver']}")
+        if r["label"].startswith("fedgia"):
+            # diag_ema's H refresh reads ḡ after the update: the undonated
+            # form; scalar H the donated one
+            kern = ("fedgia_update_batched" if r["label"] == "fedgia_d"
+                    else "fedgia_update_batched_donated")
+            if r["launches"][kern] != SHARDED_ROUNDS:
+                bad.append(f"{r['label']}/{r['overlap']}/{r['driver']}: "
+                           f"launches {r['launches']}")
+            launches[kern] += r["launches"][kern]
+        elif sum(r["launches"].values()):
+            bad.append(f"{r['label']}: launched {r['launches']}")
+    for key, c in out["budgets"].items():
+        barrier = key.endswith("/off")
+        ok = (c["all_reduce_model"] == 1 and c["reduce_scatter"] <= 1
+              and c["all_gather"] == 0) if barrier else (
+            c["all_reduce_model"] == 0 and c["reduce_scatter"] == 1
+            and c["all_gather"] == 1)
+        say(f"  one eager {key} round's collectives (c10d events): {c}"
+            f"{'' if ok else ' OUTSIDE the budget'}")
+        if not ok:
+            bad.append(f"budget {key}: {c}")
+    cond = out["cond"]
+    if "error" in cond:
+        bad.append(f"tol > 0 under a mesh: {cond['error']}")
+        say(f"  chunked driver with tol > 0 (NCCL inside conditional graph "
+            f"nodes): {cond['error']}")
+    else:
+        say(f"  chunked driver with tol {SHARDED_TOL} (each round and its "
+            f"NCCL collectives in a conditional graph node): "
+            f"{cond['rounds']} rounds, {cond['ms']!r} ms a round against "
+            f"{cond['unsharded_ms']!r} unsharded, worst relative gap "
+            f"{max(cond['max_rel'].values())!r}; launches "
+            f"{cond['launches']}")
+        if not cond["ok"]:
+            bad.append("tol > 0 under a mesh: outside the tolerance")
+    say(f"  eq. (11)'s all-reduce alone ({out['allreduce_numel']} float32, "
+        f"world size 1, NCCL): {out['allreduce_ms'] * 1e3!r} us (median of "
+        f"{REPS}, CUDA events) on {card}; the child process took "
+        f"{out['seconds']!r} s, of which each algorithm's runs "
+        f"{out['algo_seconds']}")
+    try:
+        train.main(["--shard-clients", "2", "--rounds", "1"])
+    except RuntimeError as e:
+        count = torch.cuda.device_count()
+        if f"this machine has {count}" not in str(e):
+            bad.append(f"--shard-clients 2 raised another error: {e}")
+        say(f"  --shard-clients 2 on this machine: RuntimeError: {e}")
+    else:
+        bad.append("--shard-clients 2 ran on a machine with "
+                   f"{torch.cuda.device_count()} card(s)")
+    if bad:
+        raise SystemExit("phase 2i: " + "; ".join(bad))
+    say(f"  the FedGiA runs' launches: {launches}")
+    say(f"phase 2i took {time.perf_counter() - t_phase!r} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -3304,6 +3683,7 @@ def main():
     from repro_torch.core import graphs
     from repro_torch.examples import serve_requests
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import launch
     from repro_torch.models import Transformer
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
@@ -3381,6 +3761,10 @@ def main():
     for res in (one, cpu):
         del res["batch"], res["state"]
 
+    # 6. where a round's time goes, while the process's profiler is fresh
+    round_split_phase(profiled, (fedgia_mod, hparams_mod, api_mod), engine,
+                      selection, pt, prng, card)
+
     # 2b. the paper's comparison baselines -------------------------------
     t_phase = time.perf_counter()
     say(f"baselines at the paper size, replayed, eager and on the CPU, on "
@@ -3397,9 +3781,16 @@ def main():
         if sum(n.values()) or sum(n_full.values()):
             raise SystemExit(f"{name} paper run launched kernels: {n}, "
                              f"{n_full}")
-        cpu = train.main(argv + PAPER + ["--device", "cpu"])
-        say(done_line(f"{name} paper run (cpu)", cpu))
-        card_vs_cpu_run(got, cpu, f"{name} paper run")
+        if name in CPU_PAIR_ONLY:  # the CPU over the pair's rounds
+            cpu = train.main(argv + BASELINE_PAIR + ["--device", "cpu"])
+            say(done_line(f"{name} paper run, {BASELINE_PAIR[1]} rounds "
+                          f"(cpu)", cpu))
+            card_vs_cpu_run(short, cpu, f"{name} paper run, "
+                                        f"{BASELINE_PAIR[1]} rounds")
+        else:
+            cpu = train.main(argv + PAPER + ["--device", "cpu"])
+            say(done_line(f"{name} paper run (cpu)", cpu))
+            card_vs_cpu_run(got, cpu, f"{name} paper run")
         per_round[name] = [per_round_ms(got), per_round_ms(eager)]
         for res in (short, got, eager, cpu):
             del res["batch"], res["state"]
@@ -3659,6 +4050,8 @@ def main():
     pytree_phase(train, counters, launches, card, engine, paper, pop, million,
                  kept)
     del million, kept
+    # phase 2i's data, kept past the drop of phase 6's runs
+    pop_batch = pop["batch"]
 
     # 3. serving path, full width -------------------------------------------
     # the default decode is one captured CUDA-graph step replayed a token;
@@ -3869,42 +4262,16 @@ def main():
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None})
 
-    # 6. where a round's time goes ---------------------------------------
-    say(f"split of one eager round after each run's last (torch.profiler, "
-        f"device us per step) and the device's busy share in a replayed "
-        f"run, on {card}:")
-    modules = (fedgia_mod, hparams_mod, api_mod)
-    # a torch.profiler session after others in one process can lose
-    # kernels (PERF.md, open questions): a split without the round's
-    # gradient or update kernel, or a replayed busy time under half the
-    # eager round's device work, is profiled again, at most ATTEMPTS
-    # times, every attempt printed
-    for what, (res, argv, replayed_us) in profiled.items():
-        for attempt in range(1, ATTEMPTS + 1):
-            split, wall_us = profile_round(res, modules, engine, selection,
-                                           pt)
-            busy = sum(split.values())
-            whole = split["gradient"] > 0 and split["update kernel"] > 0
-            say(f"  {what} round, eager (session {attempt}): " + " ".join(
-                f"{k}={v:.1f}" for k, v in split.items()) +
-                f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, median "
-                f"of 5) idle_share={1 - busy / wall_us:.4f}"
-                + ("" if whole else " [kernels lost by the profiler]"))
-            if whole:
-                break
-        if busy <= 0:
-            raise SystemExit(f"{what}: the profiler recorded no device time")
-        for attempt in range(1, ATTEMPTS + 1):
-            per_round, rr = replayed_busy_us(res, argv, engine, prng)
-            whole = per_round >= 0.5 * busy
-            say(f"  {what} run, replayed (session {attempt}): {rr} rounds, "
-                f"device busy {per_round:.1f} us a round (profiled), against "
-                f"{replayed_us:.1f} us a round unprofiled (phase 2): "
-                f"busy_share={per_round / replayed_us:.4f}"
-                + ("" if whole else " [kernels lost by the profiler]"))
-            if whole:
-                break
+    for res, _, _ in profiled.values():  # phase 6's runs, kept for 2h
         del res["batch"], res["state"]
+
+    # 2i. the client-sharded round over NCCL, world size 1 ------------------
+    # last: once a child process has run these rounds on the card, this
+    # process's torch.profiler sessions record no device time
+    sharded = sharded_phase(train, launch, card, pop_batch)
+    del pop_batch
+    for k in kernels:
+        k["launches"] += sharded.get(k["name"], 0)
 
     # 7. result ------------------------------------------------------------
     say(json.dumps({"kernels": kernels}))

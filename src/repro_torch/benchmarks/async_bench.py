@@ -9,20 +9,35 @@ process (client i communicates every p_i rounds, p cycling 1..4) and
 reports, per algorithm, the communication rounds to the paper's stopping
 rule, the final objective and the staleness actually used: how much CR a
 bounded-staleness x̄ costs against the synchronous masked run
-(max_staleness = 0, which is that run bit for bit). The reference's part
-2, the sharded round's all-reduce count, waits for the port's
-multi-device client axis.
+(max_staleness = 0, which is that run bit for bit).
+
+`run_sharded` is the reference's part 2 on 8 gloo ranks of the host's
+CPU (its 8 fake CPU devices): the sharded async round issues as many
+model-size all-reduces as the synchronous masked one (counted from
+`torch.profiler`'s c10d events): the stale anchors are per-client rows
+beside z, so eq. (11) stays the round's one all-reduce.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.benchmarks.common import M_CLIENTS, make_problem
 from repro_torch.config import FedConfig
 from repro_torch.core.api import make_algorithm
-from repro_torch.core.engine import run_rounds
+from repro_torch.core import api
+from repro_torch.core.engine import (
+    flatten_state,
+    make_round_fn,
+    run_rounds,
+    shard_inputs,
+)
+from repro_torch.data import linreg_noniid, to_torch
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import LeastSquares
+from repro_torch.utils import pytree as pt
 from repro_torch.core.prng import prng_key
 from repro_torch.core.selection import AvailabilityParticipation
 from repro_torch.device import resolve_device
@@ -85,6 +100,44 @@ def check(rows):
     if len(crs) >= 2:
         assert max(crs) <= 5 * min(crs), (
             f"staleness blew up FedGiA CR beyond the expected band: {crs}")
+
+
+def _sharded_rank(ranks):
+    """The reference's sharded script on one gloo rank: FedGiA_D with
+    m = 8 clients on a data mesh of `ranks`, sync and async rounds'
+    model-size all-reduces."""
+    m, n, d = 8, 24, 320
+    batch = to_torch(linreg_noniid(0, d, n, m), "cpu")
+    model = LeastSquares(n)
+    mesh = mesh_mod.make_host_mesh(data=ranks)
+    fed = FedConfig(algorithm="fedgia", num_clients=m, k0=5, alpha=1.0,
+                    sigma_t=0.3, h_policy="diag_ema")
+    algo = make_algorithm(fed, model.loss, model=model)
+    s0 = algo.init(model.init("cpu"), prng_key(1), init_batch=batch)
+    spec = pt.ravel_spec(s0["x"])
+    s0f = flatten_state(algo, s0, spec)
+
+    def model_size_all_reduces(stale):
+        rf = make_round_fn(algo, mesh, masked=True, stale=stale,
+                           flat_spec=spec)
+        st, b = shard_inputs(algo, s0f, batch, mesh)
+        args = (st, b, torch.ones(m, dtype=torch.bool))
+        if stale:
+            args = args + (api.init_stale_xbar(s0f["x"], m // ranks, 2),)
+        return mesh_mod.profile_collectives(
+            lambda: rf(*args), spec.padded_size)[1]["all_reduce_model"]
+
+    sync, asyn = model_size_all_reduces(False), model_size_all_reduces(True)
+    assert asyn == sync, (
+        f"async round changed the model-size all-reduce count: "
+        f"{sync} -> {asyn}")
+    return f"ASYNC_SHARDED_OK model_size_all_reduces={asyn}"
+
+
+def run_sharded(ranks: int = 8) -> str:
+    """The sharded async round's all-reduce count on `ranks` gloo ranks of
+    the host's CPU; returns its report (raises where the check fails)."""
+    return mesh_mod.launch(_sharded_rank, ranks, ranks)
 
 
 def main(argv=None):

@@ -12,7 +12,10 @@ active_1m, offload_1m), on rounds per second:
   * WARN beyond --warn-slowdown (1.5x);
   * FAIL on a path of the baseline that the fresh run lacks (a dropped
     benchmark is a regression too); paths only in the fresh run are
-    reported as new.
+    reported as new;
+  * a path whose row says ``"device": "cpu"`` (the `sharded` and
+    `scan_overlap` rows, gloo ranks on the host) is neither gated nor
+    written into the card's baseline.
 
 Wall-clock gate (--wallclock): compares a fresh BENCH_wallclock.json
 (`wallclock_bench.write_json`) against `baselines/wallclock.h100.json`,
@@ -59,6 +62,11 @@ def load_engine_section(path: Path) -> dict:
     return section
 
 
+def _cpu_row(row) -> bool:
+    """A row timed on the host's CPU (gloo ranks), not on the card."""
+    return isinstance(row, dict) and row.get("device") == "cpu"
+
+
 def check(current: dict, baseline: dict, max_slowdown: float,
           warn_slowdown: float) -> int:
     failures = warnings = 0
@@ -86,9 +94,11 @@ def check(current: dict, baseline: dict, max_slowdown: float,
         print(f"{name:<12} {base_rps:>14.2f} {cur_rps:>14.2f} "
               f"{slowdown:>9.2f}x  {verdict}")
     for name in sorted(set(cur_paths) - set(base_paths)):
+        what = ("the host's CPU, not gated" if _cpu_row(cur_paths[name])
+                else "new (not in baseline)")
         print(f"{name:<12} {'-':>14} "
               f"{float(cur_paths[name]['rounds_per_s']):>14.2f} "
-              f"{'-':>10}  new (not in baseline)")
+              f"{'-':>10}  {what}")
     if failures:
         print(f"\n{failures} path(s) regressed beyond {max_slowdown:g}x — "
               f"if intentional, refresh the baseline "
@@ -178,6 +188,9 @@ def update_baseline(current: Path, baseline: Path) -> None:
     is carried over, `_meta` first so the file still reads top-down."""
     with open(current) as f:
         fresh = json.load(f)
+    paths = fresh.get("engine", fresh).get("paths", {})
+    for name in [k for k, v in paths.items() if _cpu_row(v)]:
+        del paths[name]  # a CPU time is not a card number
     carried = []
     if baseline.exists():
         with open(baseline) as f:

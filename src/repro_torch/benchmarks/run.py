@@ -6,11 +6,15 @@ one section a paper table or figure, the round engine and the kernels.
   fig2           paper Fig. 2 (k0 against CR and time)
   fig3           paper Fig. 3 (the selection fraction alpha)
   engine         the round engine's paths (`engine_bench.run`: legacy,
-                 scan, scan_pytree, async, active_1m, offload_1m)
-  participation  the engine's alpha sweep under each policy
-  async          CR and f against max_staleness (stale-x̄ rounds)
+                 scan, scan_pytree, async, active_1m, offload_1m, and
+                 sharded and scan_overlap on 8 gloo CPU ranks)
+  participation  the engine's alpha sweep under each policy, then its
+                 sharded sweep on 8 gloo CPU ranks
+  async          CR and f against max_staleness (stale-x̄ rounds), then
+                 the sharded round's all-reduce count on 8 gloo CPU ranks
   wallclock      simulated time to target against straggler severity,
-                 the codecs and the faults (also writes --wallclock-json)
+                 the codecs, the overlap and the faults (also writes
+                 --wallclock-json)
   kernels        the round micro-benchmarks, parts 1-3 of kernels_bench
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run
@@ -57,6 +61,15 @@ def _engine(device, ctx):
     return r
 
 
+def _with_sharded(bench, device):
+    """A runner's rows (`main`), then its sharded part on 8 gloo CPU
+    ranks (`run_sharded`), as the reference's `main` runs both."""
+    rows = bench.main(["--device", device])
+    print("\n-- sharded (8 gloo CPU ranks) --")
+    print(bench.run_sharded())
+    return rows
+
+
 def _wallclock(device, ctx):
     rows = wallclock_bench.main(["--device", device])
     if ctx.get("wallclock_json"):
@@ -70,8 +83,8 @@ SECTIONS = {
     "fig2": lambda d, ctx: fig2_k0.main(["--device", d]),
     "fig3": lambda d, ctx: fig3_alpha.main(["--device", d]),
     "engine": _engine,
-    "participation": lambda d, ctx: participation_bench.main(["--device", d]),
-    "async": lambda d, ctx: async_bench.main(["--device", d]),
+    "participation": lambda d, ctx: _with_sharded(participation_bench, d),
+    "async": lambda d, ctx: _with_sharded(async_bench, d),
     "wallclock": _wallclock,
     "kernels": lambda d, ctx: kernels_bench.main(["--device", d, "--parts",
                                                   "1,2,3"]),

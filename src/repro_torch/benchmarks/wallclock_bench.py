@@ -1,7 +1,7 @@
 """Wall-clock rounds: simulated time to the paper's stopping rule against
 straggler severity (counterpart of `benchmarks/wallclock_bench.py`'s
-`run`, `run_compression` and `run_faults`, same rows, and its asserts on
-them).
+`run`, `run_compression`, `run_overlap` and `run_faults`, same rows,
+and its asserts on them).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.wallclock_bench \
         [--device cpu] [--max-rounds 400]
@@ -26,11 +26,18 @@ screened, with a quorum floor, against the same clock without faults
 (`fedgia_d_faulty` against `fedgia_d_faultref`): the simulated time the
 campaign costs to the loss target.
 
+`run_overlap`: the compression rows' wire-bound fleet with the raw
+uplink, barrier rounds (`fedgia_d_ovl_off`: compute and wire in series)
+against overlapped ones (`fedgia_d_ovl_on`, `run_rounds(overlap=
+"scatter")`: the engine prices each round at max(compute, comm),
+`ComputeClock.with_overlap`), unsharded on the asked device. The two
+runs' rounds are the same bit for bit (tests/test_torch_overlap.py), so
+their gap in simulated time is the latency the overlap hides.
+
 `write_json` writes the rows in the layout of the reference's
 BENCH_wallclock.json (`main --json PATH`, and `benchmarks/run.py`'s
 wallclock section), which `benchmarks/check_bench.py --wallclock` gates
-on simulated time to target. The reference's overlap rows
-(`run_overlap`) wait for the port's multi-device client axis.
+on simulated time to target.
 """
 from __future__ import annotations
 
@@ -177,6 +184,30 @@ def run_compression(device="cuda", max_rounds: int = MAX_ROUNDS,
     return rows
 
 
+def run_overlap(device="cuda", max_rounds: int = MAX_ROUNDS,
+                collect_history=False):
+    """Time to f(x̄) <= COMPRESS_TARGET_F on the wire-bound fleet (raw fp32
+    uplink, byte-accurate clock), barrier against overlapped rounds:
+    rows `fedgia_d_ovl_off` and `fedgia_d_ovl_on` (with `overlap`)."""
+    device = resolve_device(device)
+    algo, state, batch = _fedgia_d(device)
+    rows = []
+    for algo_key, overlap in (("fedgia_d_ovl_off", "off"),
+                              ("fedgia_d_ovl_on", "scatter")):
+        clk = ComputeClock(M_CLIENTS, compute_s=COMPRESS_COMPUTE_S,
+                           bandwidth_bps=BANDWIDTH_BPS)
+        res = run_rounds(algo, state, batch, max_rounds,
+                         tol=COMPRESS_TARGET_F, tol_metric="f_xbar",
+                         clock=clk, max_staleness=MAX_STALENESS,
+                         stale_weighting="uniform", overlap=overlap)
+        rows.append(_row(
+            res, collect_history, algo=algo_key, spread=1.0,
+            weighting="uniform", codec="none", overlap=overlap,
+            bytes_up_total=float(np.sum(res.history["bytes_up"])),
+            bytes_down_total=float(np.sum(res.history["bytes_down"]))))
+    return rows
+
+
 def run_faults(device="cuda", max_rounds: int = MAX_ROUNDS,
                collect_history=False):
     """Time to f(x̄) <= COMPRESS_TARGET_F in the spread-FAULT_SPREAD fleet
@@ -227,15 +258,23 @@ def check(rows, max_rounds: int = MAX_ROUNDS):
 
 
 def check_uplink(rows, max_rounds: int = MAX_ROUNDS):
-    """The reference's asserts on the compression and fault rows: at the
-    full round budget a lossy codec reaches the target in less simulated
-    time than the raw uplink, and the screened campaign converges with
-    its quorum always met, later than the clean row."""
+    """The reference's asserts on the compression, overlap and fault
+    rows: at the full round budget a lossy codec reaches the target in
+    less simulated time than the raw uplink, the overlapped rounds reach
+    it sooner than the barrier ones, and the screened campaign converges
+    with its quorum always met, later than the clean row."""
     by_key = {(r["algo"], r["codec"]): r for r in rows}
     for r in rows:
         assert r["staleness_seen"] <= MAX_STALENESS, r
     if max_rounds < 400:
         return
+    ovl_off = by_key.get(("fedgia_d_ovl_off", "none"))
+    ovl_on = by_key.get(("fedgia_d_ovl_on", "none"))
+    if ovl_off is not None and ovl_on is not None:
+        assert ovl_off["converged"] and ovl_on["converged"], (ovl_off,
+                                                              ovl_on)
+        assert ovl_on["sim_time_s"] < ovl_off["sim_time_s"], (ovl_off,
+                                                              ovl_on)
     raw = by_key[("fedgia_d_bw", "none")]
     assert raw["converged"], raw
     lossy = [by_key[("fedgia_d_bw", c)] for c, _ in CODECS if c != "none"]
@@ -274,6 +313,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     rows = run(args.device, args.max_rounds)
     uplink = (run_compression(args.device, args.max_rounds)
+              + run_overlap(args.device, args.max_rounds)
               + run_faults(args.device, args.max_rounds))
     print("algo,spread,weighting,codec,CR,sim_time_s,staleness_seen,obj,"
           "converged")

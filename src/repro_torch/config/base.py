@@ -5,7 +5,7 @@ same fields and defaults)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 H_POLICIES = ("scalar", "diag_ema", "gram")
 ALGORITHMS = ("fedgia", "fedavg", "fedprox", "fedpd", "scaffold")
@@ -191,6 +191,9 @@ class FedConfig:
     inner_steps: int = 5  # FedProx/FedPD inner GD steps
     fedpd_eta: float = 1.0
     state_dtype: str = "float32"
+    # the mesh axes that enumerate clients (`launch/mesh.py`): the engine
+    # splits the client rows over their product
+    client_axes: Tuple[str, ...] = ("data",)
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:

@@ -1,8 +1,20 @@
-"""Round primitives on the unsharded client axis (counterpart of the
-single-device subset of `repro/core/api.py`).
+"""Round primitives over the client axis (counterpart of
+`repro/core/api.py`).
 
-Client-stacked tensors carry the client index on axis 0. The reference's
-sharded reductions (psum over a mesh axis) have no counterpart here yet.
+Client-stacked tensors carry the client index on axis 0. Unsharded (the
+default) every reduction is a plain torch op. Inside `client_sharding`
+(the engine's sharded rounds, `run_rounds(mesh=...)`) the client rows are
+split over a `torch.distributed` group (`ClientAxis`, made by
+`launch/mesh.py`) and each cross-client reduction becomes a collective
+over it: eq. (11) is the round's ONE model-size `all_reduce`, its
+scalar riders packed into the same buffer (`torch.distributed` has no
+tuple psum); the `grad_sq_norm` diagnostic a reduce-scatter and a
+scalar all-reduce; the overlapped round (`run_rounds(overlap=
+"scatter")`) a reduce-scatter at the round's end and an all-gather at
+the next round's top, and no model-size all-reduce. Every rank issues
+the same collectives in the same order: no rank-local branch comes
+before one.
+
 `client_mean`, `masked_update`, `broadcast_clients` and the stale-x̄
 views take the flat buffers or trees of leaves (the per-leaf rounds of
 `run_rounds(flat=False)`).
@@ -10,16 +22,19 @@ The `_active` twins reduce a round's packed participant tile
 (`store="active"` / `"offload"`, `utils.pytree.ActiveSet`). The uplink
 stages (the codec of `core/compress.py`, the faults and screening of
 `core/faults.py`) run between a round's local work and its eq. (11).
-The stale-x̄ state of the async rounds (`StaleXbar`) and its views close
-the module.
+Both stay unsharded: under a client mesh they raise (ROADMAP queue 1,
+item 9b). The stale-x̄ state of the async rounds (`StaleXbar`) and its
+views close the module.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import compress, prng
 from repro_torch.core import faults as faults_mod
@@ -34,6 +49,145 @@ def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
+# --------------------------------------------------------------------------
+# The client axis. Unsharded (`_CLIENT_AXIS` None) every helper below is a
+# plain torch op on the whole (m, ...) axis. Inside `client_sharding` the
+# rows are this rank's (m_local, ...) block and the cross-client
+# reductions are collectives over the axis's process group.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ClientAxis:
+    """A sharded client axis: the `torch.distributed` group of the ranks
+    that split the client rows, their count `shards`, and this rank's
+    shard `index` (its rows are ``[index·m_local, (index+1)·m_local)``).
+    `launch/mesh.py::Mesh.client_axis` makes it."""
+
+    group: Any
+    shards: int
+    index: int
+
+
+_CLIENT_AXIS: Optional[ClientAxis] = None
+
+
+@contextlib.contextmanager
+def client_sharding(axis: ClientAxis):
+    """Run rounds with their cross-client reductions as collectives over
+    `axis` (the reference's `client_sharding(axis_name, num_shards)`)."""
+    global _CLIENT_AXIS
+    prev = _CLIENT_AXIS
+    _CLIENT_AXIS = axis
+    try:
+        yield axis
+    finally:
+        _CLIENT_AXIS = prev
+
+
+def client_axis() -> Optional[ClientAxis]:
+    """The sharded client axis of the rounds running now (None:
+    unsharded)."""
+    return _CLIENT_AXIS
+
+
+def local_client_count(m: int) -> int:
+    """Clients held by THIS shard (m unsharded)."""
+    if _CLIENT_AXIS is None:
+        return m
+    if m % _CLIENT_AXIS.shards:
+        raise ValueError(f"num_clients={m} not divisible by "
+                         f"{_CLIENT_AXIS.shards} shards")
+    return m // _CLIENT_AXIS.shards
+
+
+def local_client_slice(arr):
+    """This shard's rows of a globally computed (m, ...) array (the
+    round's mask: every rank draws the whole mask from the same key and
+    keeps its own block)."""
+    if _CLIENT_AXIS is None:
+        return arr
+    m_local = arr.shape[0] // _CLIENT_AXIS.shards
+    lo = _CLIENT_AXIS.index * m_local
+    return arr[lo:lo + m_local]
+
+
+def gather_clients(t: torch.Tensor) -> torch.Tensor:
+    """The whole (m, ...) client axis from this shard's (m_local, ...)
+    rows, on every rank of the axis (one all-gather; the engine calls it
+    once after the last round, outside any round). Unsharded: `t`."""
+    if _CLIENT_AXIS is None:
+        return t
+    src = t.contiguous()
+    if src.dtype == torch.bool:
+        return gather_clients(src.to(torch.uint8)).to(torch.bool)
+    out = src.new_empty((_CLIENT_AXIS.shards * src.shape[0],)
+                        + tuple(src.shape[1:]))
+    _all_gather(out, src)
+    return out
+
+
+def _all_gather(out: torch.Tensor, src: torch.Tensor) -> None:
+    """Concatenate the shards' `src` along dim 0 into `out` (the
+    `all_gather_single` of newer torch, `all_gather_into_tensor` of
+    older)."""
+    fn = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    fn(out, src, group=_CLIENT_AXIS.group)
+
+
+def _reduce_scatter(out: torch.Tensor, src: torch.Tensor) -> None:
+    """Sum `src` over the shards and keep this shard's dim-0 block of it
+    in `out` (`reduce_scatter_single`, or `reduce_scatter_tensor`)."""
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    fn(out, src, group=_CLIENT_AXIS.group)
+
+
+def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(t, op=op, group=_CLIENT_AXIS.group)
+    return t
+
+
+def _psum_packed(vec: torch.Tensor, scalars):
+    """All-reduce a (n,) vector and 0-d scalars over the client axis: ONE
+    collective, the scalars riding at the buffer's end, where the vector
+    is float32 (the reference's tuple psum), else the vector and the
+    stacked float32 scalars apart. Returns (vector, float32 scalars)."""
+    scal = torch.stack([torch.as_tensor(v).to(torch.float32)
+                        for v in scalars])
+    if vec.dtype != torch.float32:
+        return _all_reduce(vec.contiguous()), _all_reduce(scal)
+    buf = _all_reduce(torch.cat([vec, scal]))
+    return buf[:vec.shape[0]], buf[vec.shape[0]:]
+
+
+def _local_sums(x: torch.Tensor, mask, weights):
+    """This shard's eq. (11) numerator over its rows (weighted, masked or
+    plain) and its denominator (None for the plain mean, whose count is
+    the static m)."""
+    if weights is not None:
+        w = weights.to(torch.float32)
+        if mask is not None:
+            w = torch.where(mask, w, 0.0)
+        return torch.sum(_rows(w, x).to(x.dtype) * x, dim=0), torch.sum(w)
+    if mask is not None:
+        return (torch.sum(torch.where(_rows(mask, x), x, 0.0), dim=0),
+                torch.sum(mask.to(torch.float32)))
+    return torch.sum(x, dim=0), None
+
+
+def _sharded_mean(x: torch.Tensor, mask, weights) -> torch.Tensor:
+    """`client_mean` of a client-stacked tensor over a sharded axis: the
+    sum of the shards' local sums (not a mean of means), over the global
+    count or the summed weights, in one all-reduce."""
+    num, den = _local_sums(x, mask, weights)
+    shape = num.shape
+    if den is None:
+        m = x.shape[0] * _CLIENT_AXIS.shards
+        return _all_reduce(num.reshape(-1)).reshape(shape) / m
+    vec, red = _psum_packed(num.reshape(-1), [den])
+    return vec.reshape(shape) / red[0].to(vec.dtype)
+
+
 def client_mean(x, mask: Optional[torch.Tensor] = None,
                 weights: Optional[torch.Tensor] = None):
     """Eq. (11): the mean over the leading client axis. With `mask` ((m,)
@@ -46,9 +200,13 @@ def client_mean(x, mask: Optional[torch.Tensor] = None,
     `x` is one (m, ...) tensor (the flat (m, N) buffer) or a tree of them
     (a dict, the per-leaf rounds). A leaf is reduced as the flat buffer
     reduces its lanes (`_as_lanes`), so a tree's mean is the flat
-    buffer's, element for element."""
+    buffer's, element for element. Under `client_sharding` `x` holds this
+    shard's rows and the mean is one all-reduce of the local sums (a
+    leaf's, for a tree), the count or weight sum riding in it."""
     if isinstance(x, dict):
         return pt.tree_map(lambda v: _leaf_mean(v, mask, weights), x)
+    if _CLIENT_AXIS is not None:
+        return _sharded_mean(x, mask, weights)
     if weights is None:
         if mask is None:
             return torch.mean(x, dim=0)
@@ -82,19 +240,33 @@ def _leaf_mean(leaf, mask, weights):
 
 def client_scalar_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean of a per-client (m,) scalar array over all clients."""
-    return torch.mean(x)
+    if _CLIENT_AXIS is None:
+        return torch.mean(x)
+    m = x.shape[0] * _CLIENT_AXIS.shards
+    return _all_reduce(torch.sum(x)) / m
 
 
 def client_scalar_sum(x: torch.Tensor,
                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum of a per-client scalar array over all clients (with `mask`,
     over the masked-in clients only)."""
-    return torch.sum(x if mask is None else torch.where(mask, x, 0))
+    local = torch.sum(x if mask is None else torch.where(mask, x, 0))
+    return local if _CLIENT_AXIS is None else _all_reduce(local)
 
 
 def client_scalar_max(x: torch.Tensor) -> torch.Tensor:
     """Max of a scalar over all client shards (no-op unsharded)."""
-    return x
+    if _CLIENT_AXIS is None:
+        return x
+    return _all_reduce(x.clone(), dist.ReduceOp.MAX)
+
+
+def _refuse_sharded(what: str) -> None:
+    """The stages that stay unsharded in this slice raise under a mesh."""
+    if _CLIENT_AXIS is not None:
+        raise NotImplementedError(
+            f"{what} is not sharded in the port: the sharded active store, "
+            "codecs, faults and screening are ROADMAP queue 1, item 9b")
 
 
 def broadcast_clients(tree, m: int):
@@ -125,31 +297,146 @@ def _flat_sq_norm(vec: torch.Tensor, spec) -> torch.Tensor:
     return total
 
 
+def _sharded_sum_sq(g_sum: torch.Tensor) -> torch.Tensor:
+    """||Σ over all shards of g_sum||² without the replicated sum: one
+    reduce-scatter hands each shard a column chunk of the sum, and a
+    scalar all-reduce adds the chunks' squared norms (a whole-buffer
+    all-reduce where the columns do not divide over the shards)."""
+    ax = _CLIENT_AXIS
+    n = g_sum.shape[0]
+    if n % ax.shards:
+        total = _all_reduce(g_sum.contiguous())
+        return torch.dot(total, total)
+    chunk = g_sum.new_empty((n // ax.shards,))
+    _reduce_scatter(chunk, g_sum.contiguous())
+    return _all_reduce(torch.dot(chunk, chunk))
+
+
 def flat_grad_sq_norm(grads_flat: torch.Tensor, spec) -> torch.Tensor:
     """The `grad_sq_norm` diagnostic ||(1/m) Σ_i ∇f_i||² over the flat
-    (m, N) gradient buffer."""
-    return _flat_sq_norm(client_mean(grads_flat), spec)
+    (m, N) gradient buffer. Under `client_sharding` the metric needs only
+    the scalar norm: a reduce-scatter of the local gradient sums and a
+    scalar all-reduce, no second model-size all-reduce."""
+    if _CLIENT_AXIS is None:
+        return _flat_sq_norm(client_mean(grads_flat), spec)
+    m = grads_flat.shape[0] * _CLIENT_AXIS.shards
+    return _sharded_sum_sq(torch.sum(grads_flat, dim=0)) / float(m) ** 2
 
 
 def flat_round_aggregate(contrib: torch.Tensor, grads: torch.Tensor,
                          losses: torch.Tensor, sel_vec: torch.Tensor, spec,
                          mask: Optional[torch.Tensor] = None,
                          weights: Optional[torch.Tensor] = None,
-                         extra_mean: Optional[torch.Tensor] = None):
+                         extra_mean: Optional[torch.Tensor] = None,
+                         gsq: Optional[torch.Tensor] = None):
     """Eq. (11) and the round's diagnostics over the flat client buffers
-    (the baselines' rounds; unsharded, so no collective): the (masked,
-    `weights`-weighted) mean of the (m, N) `contrib`, `flat_grad_sq_norm`
-    of the (m, N) raw gradients, the mean of the (m,) losses and the sum
-    of the (m,) participation indicator `sel_vec`. `extra_mean` is one
-    more (m, N) buffer whose plain all-client column mean is returned too
+    (the baselines' rounds): the (masked, `weights`-weighted) mean of the
+    (m, N) `contrib`, `flat_grad_sq_norm` of the (m, N) raw gradients
+    (or the given `gsq`), the mean of the (m,) losses and the sum of the
+    (m,) participation indicator `sel_vec`. `extra_mean` is one more
+    (m, N) buffer whose plain all-client column mean is returned too
     (SCAFFOLD's control-variate delta). Returns
-    ``(agg, grad_sq_norm, f_mean, n_sel[, extra])``."""
-    out = (client_mean(contrib, mask=mask, weights=weights),
-           flat_grad_sq_norm(grads, spec),
-           torch.mean(losses), torch.sum(sel_vec))
+    ``(agg, grad_sq_norm, f_mean, n_sel[, extra])``.
+
+    Under `client_sharding` the numerator, the `extra_mean` rider, the
+    loss and participant sums and the weight sum ride ONE all-reduce
+    (one buffer: eq. (11) as one contiguous communication), and the
+    gradient norm goes through `flat_grad_sq_norm`'s reduce-scatter. The
+    sum of local sums matches the unsharded mean to fp tolerance."""
+    if gsq is None:
+        gsq = flat_grad_sq_norm(grads, spec)
+    if _CLIENT_AXIS is None:
+        out = (client_mean(contrib, mask=mask, weights=weights), gsq,
+               torch.mean(losses), torch.sum(sel_vec))
+        if extra_mean is not None:
+            out = out + (torch.mean(extra_mean, dim=0),)
+        return out
+    m = contrib.shape[0] * _CLIENT_AXIS.shards
+    num, den = _local_sums(contrib, mask, weights)
+    n_buf = num.shape[0]
     if extra_mean is not None:
-        out = out + (torch.mean(extra_mean, dim=0),)
+        num = torch.cat([num, torch.sum(extra_mean, dim=0).to(num.dtype)])
+    scalars = [torch.sum(losses), torch.sum(sel_vec)]
+    if den is not None:
+        scalars.append(den)
+    num, red = _psum_packed(num, scalars)  # the round's ONE all-reduce
+    agg = num[:n_buf] / (red[2].to(num.dtype) if den is not None else m)
+    out = (agg, gsq, red[0] / m, red[1])
+    if extra_mean is not None:
+        out = out + (num[n_buf:] / m,)
     return out
+
+
+def flat_overlap_consensus(slot: torch.Tensor) -> torch.Tensor:
+    """The consensus from the overlapped round's carry slot
+    (``state["ovl_shard"]``, `run_rounds(overlap="scatter")`): the
+    deferred half of eq. (11). The slot holds the previous round's
+    normalised (rows, N) means (row 0 x̄, further rows an algorithm's
+    riders). Unsharded it is the whole buffer, returned as it is. Under
+    `client_sharding` each shard holds its (rows, N/shards) column chunk
+    and this is the round's one model-size all-gather, at its top."""
+    if _CLIENT_AXIS is None:
+        return slot
+    shards = _CLIENT_AXIS.shards
+    rows, cols = slot.shape
+    out = slot.new_empty((shards * rows, cols))
+    _all_gather(out, slot.contiguous())
+    return out.view(shards, rows, cols).transpose(0, 1).reshape(
+        rows, shards * cols)
+
+
+def flat_overlap_aggregate(contrib: torch.Tensor, grads, losses, sel_vec,
+                           spec, mask=None, weights=None, extra_mean=None,
+                           gsq=None, grad_sum=None):
+    """Eq. (11) as the early half of the split collective: this round's
+    contributions reduced into the next round's carry slot
+    (`run_rounds(overlap="scatter")`). The arguments are
+    `flat_round_aggregate`'s; returns ``(slot', grad_sq_norm, f_mean,
+    n_sel)`` where ``slot'`` stacks the normalised contribution mean and
+    the `extra_mean` rows.
+
+    Unsharded this is `flat_round_aggregate` with its outputs stacked, so
+    the overlapped run is the barrier run bit for bit. Under
+    `client_sharding` the local numerator, riders and gradient sum
+    (`grad_sum`, else the sum of `grads`) are stacked into one (rows, N)
+    buffer and reduce-scattered by columns (the round's ONE model-size
+    collective, at its end); the chunk's gradient norm, the loss and
+    participant sums and the weight sum ride one scalar all-reduce. The
+    slot is then each shard's (rows, N/shards) column chunk."""
+    if _CLIENT_AXIS is None:
+        out = flat_round_aggregate(contrib, grads, losses, sel_vec, spec,
+                                   mask=mask, weights=weights,
+                                   extra_mean=extra_mean, gsq=gsq)
+        rows = [out[0]] if extra_mean is None else [out[0], out[4]]
+        return torch.stack(rows), out[1], out[2], out[3]
+    shards = _CLIENT_AXIS.shards
+    m = contrib.shape[0] * shards
+    n = contrib.shape[-1]
+    if n % shards:
+        raise ValueError(f"overlap reduce-scatter needs padded_size {n} "
+                         f"divisible by {shards} shards")
+    num, den = _local_sums(contrib, mask, weights)
+    rows = [num]
+    if extra_mean is not None:
+        rows.append(torch.sum(extra_mean, dim=0).to(num.dtype))
+    if grad_sum is None:
+        grad_sum = torch.sum(grads, dim=0)
+    rows.append(grad_sum.to(num.dtype))
+    r, cols = len(rows), n // shards
+    stacked = torch.stack(rows).view(r, shards, cols).transpose(0, 1)
+    chunks = num.new_empty((r, cols))
+    _reduce_scatter(chunks, stacked.reshape(shards * r, cols))
+    g = chunks[-1]
+    scalars = [torch.dot(g, g), torch.sum(losses), torch.sum(sel_vec)]
+    if den is not None:
+        scalars.append(den)
+    red = _all_reduce(torch.stack([torch.as_tensor(v).to(torch.float32)
+                                   for v in scalars]))
+    slot = [chunks[0] / (red[3].to(chunks.dtype) if den is not None
+                         else m)]
+    if extra_mean is not None:
+        slot.append(chunks[1] / m)
+    return torch.stack(slot), red[0] / float(m) ** 2, red[1] / m, red[2]
 
 
 def flat_grad_sq_norm_active(grads_tile: torch.Tensor, active,
@@ -159,6 +446,7 @@ def flat_grad_sq_norm_active(grads_tile: torch.Tensor, active,
     This is the active store's `grad_sq_norm`: the server never contacted
     the frozen clients this round, so the eq. (35) stop gates on the
     participants' mean gradient. Padding rows are zeroed."""
+    _refuse_sharded("the active store's aggregate")
     g = active.zero_invalid(grads_tile)
     return _flat_sq_norm(torch.sum(g, dim=0) / active.count.to(g.dtype),
                          spec)
@@ -259,6 +547,7 @@ def compress_upload(compressor, contrib: torch.Tensor,
     of the lane-padded tail is forced back to zero. ``key`` (stochastic
     codecs): the round's base key (`codec_key`); client keys fold in the
     GLOBAL row ids (``row_ids``: the active store's resident ids)."""
+    _refuse_sharded("the uplink codec")
     u = contrib if ef is None else contrib + ef
     keys = None
     if compressor.stochastic:
@@ -310,6 +599,7 @@ def harden_upload(contrib: torch.Tensor, mask: Optional[torch.Tensor], spec,
     prev', n_screened)``: every row finite and non-arriving rows zero,
     the screened mask (within ``mask``), the advanced replay buffer
     (None without one) and the count of rows that survived (float32)."""
+    _refuse_sharded("fault injection and screening")
     row_ids = _compress_row_ids(contrib.shape[0], contrib.device)
     prev_new = None
     if faults is not None:
@@ -335,6 +625,7 @@ def harden_upload_active(contrib_tile: torch.Tensor, active, spec, *,
     SCAFFOLD's rider with it). The replay buffer goes through
     ``gather_state``/``scatter_state`` like the EF residual. Returns
     ``(tile', active', prev', n_screened)``."""
+    _refuse_sharded("fault injection and screening")
     ok = active.valid
     prev_new = None
     if faults is not None:
@@ -471,7 +762,10 @@ def init_stale_xbar(anchor, m: int, max_staleness: int,
     buf = broadcast_clients(anchor, m)
     view = None
     if max_staleness > 0 and resident:
-        buf = pt.tree_map(torch.Tensor.contiguous, buf)
+        # a copy of its own, also where one row of a stride-0 view
+        # counts as contiguous (m = 1 on a shard)
+        buf = pt.tree_map(
+            lambda t: t.clone(memory_format=torch.contiguous_format), buf)
         view = pt.tree_map(torch.empty_like, buf)
     dev = pt.tree_leaves(anchor)[0].device
     return StaleXbar(
@@ -561,6 +855,7 @@ def stale_xbar_view_active(stale: StaleXbar, xbar: torch.Tensor, active):
     in host memory: the refresh write is the engine's, so ``stale.anchor``
     comes back as the fresh (N,) x̄, whose exact bits the engine writes
     into the refreshed host rows. Returns ``(anchor_tile, stale)``."""
+    _refuse_sharded("the active store's stale-x̄ view")
     if stale.always_fresh:
         _fresh(stale)
         return broadcast_clients(xbar, active.capacity), stale

@@ -20,6 +20,14 @@ between a round's local work and eq. (11): `FlatBaseline.upload` and
 the fault injection and screening, whose mask replaces the round's for
 the aggregation only.
 
+Client sharding and overlap (`run_rounds(mesh=..., overlap=...)`): a
+round's per-client rows are the shard's (`api.local_client_count`),
+eq. (11) and the metrics go through the sharded `api`, and in an
+overlapped round (the engine's ``state["ovl_shard"]`` slot) the anchor
+is the slot's consensus (`start`) and eq. (11) reduces into the next
+slot (`aggregate`): x lags one round, and the engine's finalize takes
+the last slot.
+
 Each baseline's `round` is the per-leaf twin of its `round_flat`
 (`run_rounds(flat=False)`): the k0 local steps on the state's dicts,
 leaf by leaf as the reference writes them, and eq. (11) and the metrics
@@ -45,6 +53,9 @@ class FlatBaseline:
     # them: (m, N) flat client buffers like the algorithms' own
     flat_client_keys = ("ef", "fault_prev")
     flat_global_keys = ("x",)
+    # the state's entries with a leading client axis (split over a
+    # sharded client axis with the batch)
+    client_state_keys = ("ef", "fault_prev")
     # store="active": frozen clients are never read or written, so a
     # round runs on the participants' packed tile (`round_flat_active`)
     active_tile = "participants"
@@ -63,17 +74,51 @@ class FlatBaseline:
                 "round": 0, "step": 0, "rng": np.array(rng, np.uint32)}
 
     def _anchors(self, state, rows: int, mask=None, stale=None,
-                 active=None):
+                 active=None, x=None):
         """The (rows, N) starting points of the round's local work: the
-        stride-0 broadcast of x̄, or, in an async round (`stale`), each
-        client's last-downloaded x̄ (`api.stale_xbar_view`, or its
-        `_active` twin on the packed tile when `active` is given). Returns
-        anchors; the stale state advances in place."""
+        stride-0 broadcast of x̄ (`x`, else the state's), or, in an async
+        round (`stale`), each client's last-downloaded x̄
+        (`api.stale_xbar_view`, or its `_active` twin on the packed tile
+        when `active` is given). Returns anchors; the stale state
+        advances in place."""
+        x = state["x"] if x is None else x
         if stale is None:
-            return api.broadcast_clients(state["x"], rows)
+            return api.broadcast_clients(x, rows)
         if active is None:
-            return api.stale_xbar_view(stale, state["x"], mask)[0]
-        return api.stale_xbar_view_active(stale, state["x"], active)[0]
+            return api.stale_xbar_view(stale, x, mask)[0]
+        return api.stale_xbar_view_active(stale, x, active)[0]
+
+    def start(self, state):
+        """The round's x̄ and this shard's client count: the state's x, or
+        in an overlapped round the consensus rows of the slot
+        (`api.flat_overlap_consensus`'s all-gather, at the round's top),
+        whose row 0 is x̄. Returns (x̄, consensus rows or None,
+        m_local)."""
+        m_local = api.local_client_count(self.fed.num_clients)
+        ovl = state.get("ovl_shard")
+        if ovl is None:
+            return state["x"], None, m_local
+        cons = api.flat_overlap_consensus(ovl)
+        return cons[0], cons, m_local
+
+    def aggregate(self, state, x_used, contrib, grads0, losses0, spec, mask,
+                  stale, extra_mean=None):
+        """Eq. (11) and the diagnostics of a dense round
+        (`api.flat_round_aggregate`), or in an overlapped round the reduce
+        of this round's contributions into the next slot
+        (`api.flat_overlap_aggregate`): x' is then `x_used`, the consensus
+        this round consumed, and the slot joins the updates. Returns
+        ((x', gsq, f, n_sel), the `extra_mean` rider's mean or None (an
+        overlapped round defers it into the slot), the updates)."""
+        args = (contrib, grads0, losses0, participation_vec(losses0, mask),
+                spec)
+        kw = dict(mask=mask, weights=api.stale_weights(stale),
+                  extra_mean=extra_mean)
+        if "ovl_shard" not in state:
+            out = api.flat_round_aggregate(*args, **kw)
+            return out[:4], (out[4] if extra_mean is not None else None), {}
+        slot, gsq, f_mean, n_sel = api.flat_overlap_aggregate(*args, **kw)
+        return (x_used, gsq, f_mean, n_sel), None, {"ovl_shard": slot}
 
     def upload(self, state, contrib, spec, mask, compressor=None,
                faults=None, screening=None):
@@ -125,8 +170,8 @@ class FlatBaseline:
         agg = (api.client_mean(contrib, mask=mask,
                                weights=api.stale_weights(stale)),
                pt.tree_sq_norm(api.client_mean(pt.tree_cast(grads0, sdt))),
-               torch.mean(losses0),
-               torch.sum(participation_vec(losses0, mask)))
+               api.client_scalar_mean(losses0),
+               api.client_scalar_sum(participation_vec(losses0, mask)))
         return self._result(state, agg, grad_evals, **updates)
 
     def _device(self, state):

@@ -44,16 +44,19 @@ class FedAvg(FlatBaseline):
         With `stale` (async rounds) the steps start from each client's
         stale anchor and eq. (11) takes the staleness weights; `stale`
         advances in place. The trajectories go up through `upload` (codec,
-        faults, screening). `donate_kernel` is accepted for uniformity and
-        ignored."""
-        xc = self._anchors(state, self.fed.num_clients, mask, stale)
+        faults, screening). In an overlapped round the steps start from
+        the slot's consensus and eq. (11) reduces into the next slot
+        (`start`, `aggregate`). `donate_kernel` is accepted for uniformity
+        and ignored."""
+        x_used, _, m_local = self.start(state)
+        xc = self._anchors(state, m_local, mask, stale, x=x_used)
         x, losses0, grads0 = self._local(state, batch, spec, xc)
         x, mask, updates, n_scr = self.upload(state, x, spec, mask,
                                               compressor, faults, screening)
-        agg = api.flat_round_aggregate(
-            x, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask, weights=api.stale_weights(stale))
-        return self._result(state, agg, self.fed.k0, n_scr, **updates)
+        agg, _, ovl = self.aggregate(state, x_used, x, grads0, losses0, spec,
+                                     mask, stale)
+        return self._result(state, agg, self.fed.k0, n_scr, **updates,
+                            **ovl)
 
     def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
                           donate_kernel=False, faults=None,
@@ -79,7 +82,8 @@ class FedAvg(FlatBaseline):
         the k0 GD steps leaf by leaf, then eq. (11) and the metrics
         (`tree_result`)."""
         fed = self.fed
-        x = self._anchors(state, fed.num_clients, mask, stale)
+        x = self._anchors(state, api.local_client_count(fed.num_clients),
+                          mask, stale)
         for j in range(fed.k0):
             losses, grads = self._vg_stacked(x, batch)
             if j == 0:

@@ -26,6 +26,7 @@ from repro_torch.core.baselines.common import (
 class FedPD(FlatBaseline):
     name = "fedpd"
     flat_client_keys = ("lam", "ef", "fault_prev")
+    client_state_keys = ("lam", "ef", "fault_prev")
 
     def init(self, params0, rng, init_batch=None):
         state = super().init(params0, rng)
@@ -59,10 +60,12 @@ class FedPD(FlatBaseline):
         over the clients' anchors. Under `mask`, a masked-out client keeps
         its duals and is not aggregated. In an async round (`stale`) each
         client's primal-dual anchor resets to its last-downloaded x̄, not
-        the fresh one. The metrics read the first inner iteration of the
-        first step (see `FedAvg.round_flat`)."""
+        the fresh one; in an overlapped round every anchor resets to the
+        slot's consensus. The metrics read the first inner iteration of
+        the first step (see `FedAvg.round_flat`)."""
         fed = self.fed
-        xc = self._anchors(state, fed.num_clients, mask, stale)
+        x_used, _, m_local = self.start(state)
+        xc = self._anchors(state, m_local, mask, stale, x=x_used)
         anchor, lam, losses0, grads0 = self._local(state, batch, spec, xc,
                                                    state["lam"])
         if mask is not None:
@@ -71,11 +74,10 @@ class FedPD(FlatBaseline):
         # client whose upload was lost still advanced its duals
         anchor, mask, updates, n_scr = self.upload(
             state, anchor, spec, mask, compressor, faults, screening)
-        agg = api.flat_round_aggregate(
-            anchor, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask, weights=api.stale_weights(stale))
+        agg, _, ovl = self.aggregate(state, x_used, anchor, grads0, losses0,
+                                     spec, mask, stale)
         return self._result(state, agg, fed.k0 * fed.inner_steps, n_scr,
-                            lam=lam, **updates)
+                            lam=lam, **updates, **ovl)
 
     def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
                           donate_kernel=False, faults=None,
@@ -108,7 +110,8 @@ class FedPD(FlatBaseline):
         (`tree_result`)."""
         fed = self.fed
         eta = fed.fedpd_eta
-        anchor = self._anchors(state, fed.num_clients, mask, stale)
+        anchor = self._anchors(state, api.local_client_count(fed.num_clients),
+                               mask, stale)
         lam = state["lam"]
         for j in range(fed.k0):
             lr = lr_schedule(fed.lr, state["step"] + j, self._device(state))

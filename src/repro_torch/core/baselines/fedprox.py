@@ -43,17 +43,18 @@ class FedProx(FlatBaseline):
         GD iterations toward the broadcast x̄, then eq. (11) and the
         diagnostics (see `FedAvg.round_flat`). The metrics read the first
         iteration's losses and gradients. In an async round (`stale`) a
-        straggler starts from, and proxes toward, its stale anchor."""
-        xc = self._anchors(state, self.fed.num_clients, mask, stale)
+        straggler starts from, and proxes toward, its stale anchor; in an
+        overlapped round every client toward the slot's consensus."""
+        x_used, _, m_local = self.start(state)
+        xc = self._anchors(state, m_local, mask, stale, x=x_used)
         x, losses0, grads0 = self._local(state, batch, spec, xc)
         x, mask, updates, n_scr = self.upload(state, x, spec, mask,
                                               compressor, faults, screening)
-        agg = api.flat_round_aggregate(
-            x, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask, weights=api.stale_weights(stale))
+        agg, _, ovl = self.aggregate(state, x_used, x, grads0, losses0, spec,
+                                     mask, stale)
         return self._result(state, agg,
                             self.fed.k0 * self.fed.inner_steps, n_scr,
-                            **updates)
+                            **updates, **ovl)
 
     def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
                           donate_kernel=False, faults=None,
@@ -79,7 +80,8 @@ class FedProx(FlatBaseline):
         the proximal GD iterations leaf by leaf, then eq. (11) and the
         metrics (`tree_result`)."""
         fed = self.fed
-        xc = self._anchors(state, fed.num_clients, mask, stale)
+        xc = self._anchors(state, api.local_client_count(fed.num_clients),
+                           mask, stale)
         x = xc
         for j in range(fed.k0):
             lr = lr_schedule(fed.lr, state["step"] + j, self._device(state))

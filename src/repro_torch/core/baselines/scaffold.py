@@ -28,6 +28,10 @@ class Scaffold(FlatBaseline):
     name = "scaffold"
     flat_client_keys = ("ci", "ef", "fault_prev")
     flat_global_keys = ("x", "c")
+    client_state_keys = ("ci", "ef", "fault_prev")
+    # an overlapped round defers two means across the round boundary, the
+    # server model's and the variates' delta: two rows of the slot
+    overlap_slot_rows = 2
 
     def init(self, params0, rng, init_batch=None):
         state = super().init(params0, rng)
@@ -35,13 +39,14 @@ class Scaffold(FlatBaseline):
         state["ci"] = zeros_stacked(state["x"], self.fed.num_clients)
         return state
 
-    def _local(self, state, batch, spec, xc, ci):
+    def _local(self, state, batch, spec, xc, ci, c=None):
         """k0 corrected GD steps of the clients' rows from `xc` with their
-        variates `ci`, then the option-II control update with
-        denom = k0 · lr_schedule(step). Returns the final rows, the new
-        variates and the first step's losses and gradients."""
+        variates `ci` and the server's `c` (default the state's), then the
+        option-II control update with denom = k0 · lr_schedule(step).
+        Returns the final rows, the new variates and the first step's
+        losses and gradients."""
         fed = self.fed
-        c = state["c"]
+        c = state["c"] if c is None else c
         fvg = flat_value_and_grad(self._vg_stacked, spec)
         lr = lr_schedule(fed.lr, state["step"], xc.device)
         y = xc
@@ -63,10 +68,19 @@ class Scaffold(FlatBaseline):
         its variate (a zero delta: c moves by |S|/m of the participants'
         mean) and is not aggregated. In an async round (`stale`) the
         steps start from, and the option-II control reads, each client's
-        stale anchor. Metrics as `FedAvg.round_flat`."""
+        stale anchor. Metrics as `FedAvg.round_flat`.
+
+        In an overlapped round the slot's two consensus rows are x̄ and
+        the last round's variate delta mean, so the round's server variate
+        is c + that delta (the barrier round's c); the state keeps it and
+        x̄ (both lag a round) and eq. (11) reduces both means into the
+        next slot (`overlap_finalize` folds the last one in)."""
         ci = state["ci"]
-        xc = self._anchors(state, self.fed.num_clients, mask, stale)
-        y, ci_new, losses0, grads0 = self._local(state, batch, spec, xc, ci)
+        x_used, cons, m_local = self.start(state)
+        c_used = state["c"] if cons is None else state["c"] + cons[1]
+        xc = self._anchors(state, m_local, mask, stale, x=x_used)
+        y, ci_new, losses0, grads0 = self._local(state, batch, spec, xc, ci,
+                                                 c_used)
         if mask is not None:
             ci_new = api.masked_update(mask, ci_new, ci)
         dmean = ci_new - ci
@@ -76,11 +90,19 @@ class Scaffold(FlatBaseline):
             # a lost or rejected upload takes the client's variate delta
             # with it (the client still advanced its ci)
             dmean = torch.where(mask[:, None], dmean, 0.0)
-        *agg, dci = api.flat_round_aggregate(
-            y, grads0, losses0, participation_vec(losses0, mask), spec,
-            mask=mask, weights=api.stale_weights(stale), extra_mean=dmean)
-        return self._result(state, agg, self.fed.k0, n_scr,
-                            c=state["c"] + dci, ci=ci_new, **updates)
+        agg, dci, ovl = self.aggregate(state, x_used, y, grads0, losses0,
+                                       spec, mask, stale, extra_mean=dmean)
+        c_new = c_used if dci is None else state["c"] + dci
+        return self._result(state, agg, self.fed.k0, n_scr, c=c_new,
+                            ci=ci_new, **updates, **ovl)
+
+    def overlap_finalize(self, state, slot):
+        """The engine's hook closing an overlapped run: the last slot's
+        row 0 is the final server model and row 1 the last round's
+        variate delta mean, folded into c."""
+        state["x"] = slot[0]
+        state["c"] = state["c"] + slot[1]
+        return state
 
     def round_flat_active(self, state, batch, spec, active, stale=None, compressor=None,
                           donate_kernel=False, faults=None,
@@ -116,7 +138,8 @@ class Scaffold(FlatBaseline):
         delta mean into c, and the metrics (`tree_result`)."""
         fed = self.fed
         c, ci = state["c"], state["ci"]
-        xc = self._anchors(state, fed.num_clients, mask, stale)
+        xc = self._anchors(state, api.local_client_count(fed.num_clients),
+                           mask, stale)
         lr = lr_schedule(fed.lr, state["step"], self._device(state))
         y = xc
         for j in range(fed.k0):

@@ -31,8 +31,10 @@ deadline clock (`deadline_s`) cuts each round `deadline_s` simulated
 seconds after the last, whoever has finished: a round may see no
 arrival, which the engine's quorum turns into a recorded no-op.
 
-The overlapped round's pricing (`with_overlap`) waits for the
-multi-device client axis and raises `NotImplementedError`.
+The overlapped rounds' pricing (`with_overlap`, which the engine
+installs under `run_rounds(overlap="scatter")`): a work item pays
+``max(compute, comm)`` instead of ``compute + comm``, the wire hidden
+behind the local compute between the split collective's two halves.
 """
 from __future__ import annotations
 
@@ -47,16 +49,6 @@ from repro_torch.core import prng
 
 # (mask, sim_time_now, advanced clock state), what `tick` returns
 TickResult = Tuple[torch.Tensor, torch.Tensor, Any]
-
-_NOT_PORTED = {
-    "with_overlap": "the overlapped round's pricing waits for the "
-                    "multi-device client axis (ROADMAP queue 1, item 9)",
-}
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported: {_NOT_PORTED[what]}")
-
 
 def _per_client(x, m: int, name: str) -> torch.Tensor:
     """Broadcast a scalar or validate an (m,) array of per-client seconds,
@@ -101,11 +93,19 @@ class ComputeClock:
                     f"bandwidth_bps must be > 0, got {bandwidth_bps}")
         self.bytes_up = 0
         self.bytes_down = 0
+        self.overlap = False
         self._recompute_durations()
 
     def _combine(self, compute: torch.Tensor) -> torch.Tensor:
         """A work item's duration from its compute time: compute, then
-        communication, in series, as ``(compute + comm_s) + wire_s``."""
+        communication, in series, as ``(compute + comm_s) + wire_s``
+        (the barrier rounds' association, so their times stay bit for
+        bit), or, for overlapped rounds, ``max(compute, comm_s +
+        wire_s)``."""
+        if self.overlap:
+            comm = (self.comm_s if self.wire_s is None
+                    else self.comm_s + self.wire_s)
+            return torch.maximum(compute, comm)
         d = compute + self.comm_s
         if self.wire_s is not None:
             d = d + self.wire_s
@@ -134,8 +134,17 @@ class ComputeClock:
         clone._recompute_durations()
         return clone
 
-    def with_overlap(self):
-        _not_ported("with_overlap")
+    def with_overlap(self) -> "ComputeClock":
+        """A copy of this clock pricing overlapped rounds: each work item
+        pays ``max(compute, comm)`` instead of ``compute + comm``, the
+        communication hidden behind the local compute between the split
+        collective's two halves. Composes with `with_wire` (the byte time
+        folds into the comm term before the max); the caller's clock is
+        left as it was."""
+        clone = copy.copy(self)
+        clone.overlap = True
+        clone._recompute_durations()
+        return clone
 
     def init(self) -> Dict[str, Any]:
         """``busy_until = now = 0``: round 0 syncs every client."""

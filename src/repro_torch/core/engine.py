@@ -1,5 +1,5 @@
-"""Round driver (counterpart of the single-device, flat, dense path of
-`repro/core/engine.py::run_rounds`).
+"""Round driver (counterpart of `repro/core/engine.py::run_rounds`,
+`make_round_fn` and `shard_inputs`).
 
 The state is raveled ONCE at entry into lane-padded flat buffers
 (`flatten_state`) and the dict layout is rebuilt at return
@@ -82,6 +82,37 @@ the stale-x̄ buffers, the watchdog slot, the stop flag and the history
 so far) with a fingerprint of the run's configuration; the offload loop
 saves its own. A resumed run's history and state are the uninterrupted
 run's bit for bit.
+
+Client sharding (`mesh=`, a `launch/mesh.py::Mesh`, with `client_axis`
+"data" or ("pod", "data")): every rank of the mesh runs this function
+with the same arguments; the state's client rows
+(`algo.client_state_keys`) and the batch are split over the client axis
+(`shard_inputs`: shard s keeps rows ``[s·m_local, (s+1)·m_local)``), the
+rest is replicated, and the rounds run inside `api.client_sharding`, so
+eq. (11) is one all-reduce a round over the axis's process group. Each
+rank draws the whole (m,) mask from the replicated key or policy on the
+host and keeps its rows. The stop and the guard read only all-reduced
+metrics, so every rank runs the same rounds. The history is the same on
+every rank; the final state's client rows (and the `staleness` history)
+are gathered once after the last round, outside any round. On the card
+the chunks capture the NCCL collectives with the rounds. The sharded
+active store, codecs, faults and screening are not ported (ROADMAP queue
+1, item 9b) and raise under a mesh, as do the reference's refusals:
+`chunk_size="auto"`, `store="offload"`, checkpoints.
+
+Overlapped rounds (`overlap="scatter"`, flat rounds): eq. (11) is split
+across the round boundary. The state carries a slot
+(``state["ovl_shard"]``, seeded with x̄⁰ and the algorithm's
+`overlap_slot_rows` − 1 zero rows): a round takes its consensus from the
+slot at its top (an all-gather under a mesh) and ends by reducing its
+contributions into the next slot (a reduce-scatter by columns, each
+shard keeping its chunk), and no model-size all-reduce. Unsharded it is
+the barrier run bit for bit; under a mesh the padded buffer must divide
+over the shards. After the last round the slot folds back into the state
+(`algo.overlap_finalize`, else x = the slot's row 0), and a clock prices
+rounds as ``max(compute, comm)`` (`ComputeClock.with_overlap`). The
+uplink stages and the client stores other than "dense" are not
+overlapped in the port (ROADMAP queue 1, item 9b).
 
 `flat=False` (`--no-flat`) runs the per-leaf rounds (`algo.round`) on a
 copy of the state's dicts in both drivers, with the policies, async
@@ -205,7 +236,8 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                watchdog: bool = False, watchdog_patience: int = 3,
                watchdog_factor: float = 2.0, checkpoint_every: int = 0,
                checkpoint_dir=None, resume: bool = False,
-               flat: bool = True) -> RoundResult:
+               flat: bool = True, mesh=None, client_axis="data",
+               overlap: str = "off") -> RoundResult:
     """Run up to `num_rounds` communication rounds of `algo`.
 
     tol > 0 enables the paper's stopping rule (eq. 35). `scan=True` runs
@@ -270,6 +302,10 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     screening refuse, as does `use_kernel=True`. A checkpoint records
     which: a run resumes only a checkpoint of its own kind.
 
+    `mesh`, `client_axis`: the client-sharded run (module docstring),
+    called on every rank of `mesh`. `overlap`: "off" (the barrier round)
+    or "scatter" (the overlapped round; module docstring).
+
     The caller's `state` is left as it was: its tensors are copied into
     fresh flat buffers at entry and its key is copied, so every
     round can run the in-place (donated) kernel, as the reference donates
@@ -297,10 +333,17 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
         checkpoint_dir, resume)
     _check_flat(algo, flat, compressor, faults, screening)
     spec = ravel_spec(state["x"])
+    axis = _check_mesh(algo, mesh, client_axis, overlap, store, auto, flat,
+                       checkpoint_every > 0 or resume, spec,
+                       compressor is not None or faults is not None
+                       or screening is not None)
     if clock is not None and clock.bandwidth_bps is not None:
         # the logical model size: the wire never carries the padding
         clock = clock.with_wire(compress.uplink_bytes(wire_comp, spec.size),
                                 compress.downlink_bytes(spec.size))
+    if clock is not None and overlap == "scatter":
+        # overlapped rounds pay max(compute, comm) instead of their sum
+        clock = clock.with_overlap()
     arrivals = participation if clock is None else ClockArrivals(clock)
     ckpt = None
     if checkpoint_every > 0 or resume:
@@ -308,7 +351,7 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
                             _config_fingerprint(
             algo=getattr(algo, "name", type(algo).__name__),
             num_clients=m, tol=tol, tol_metric=tol_metric, flat=bool(flat),
-            store=store, aggregate=aggregate, overlap="off",
+            store=store, aggregate=aggregate, overlap=overlap,
             async_rounds=bool(async_rounds), max_staleness=max_staleness,
             stale_weighting=stale_weighting, stale_decay=stale_decay,
             participation=participation, clock=clock, compression=wire_comp,
@@ -332,24 +375,54 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     uplink = Uplink(compressor, faults, screening,
                     _Guard.make(quorum, watchdog, watchdog_patience,
                                 watchdog_factor), ckpt)
-    stale = None
-    if async_rounds:
-        stale = api.init_stale_xbar(flat["x"], m, max_staleness,
-                                    stale_weighting, stale_decay,
-                                    resident=store != "offload")
     if num_rounds <= 0:
+        stale = None
+        if async_rounds:
+            stale = api.init_stale_xbar(flat["x"], m, max_staleness,
+                                        stale_weighting, stale_decay,
+                                        resident=store != "offload")
         astate = arrivals.init() if arrivals is not None else None
         return _with_clock(RoundResult(
             unflatten_state(algo, flat, spec), {}, 0, False, 0.0,
             policy_state=astate, stale=stale), clock)
+    if overlap == "scatter":
+        # the slot: row 0 the initial anchor (mean(z⁰) for FedGiA, the
+        # barrier's round-0 x̄ for the baselines), riders' rows zero
+        rows = int(getattr(algo, "overlap_slot_rows", 1))
+        slot = flat["x"].new_zeros((rows, spec.padded_size))
+        slot[0] = flat["x"]
+        flat["ovl_shard"] = slot
+    if axis is not None:
+        flat, batch = shard_inputs(algo, flat, batch, mesh, client_axis)
+    with (api.client_sharding(axis) if axis is not None
+          else contextlib.nullcontext()):
+        res = _drive(algo, flat, batch, spec, num_rounds, tol, tol_metric,
+                     scan, auto, chunk_size, arrivals, store, cap, packed,
+                     async_rounds, max_staleness, stale_weighting,
+                     stale_decay, uplink)
+        return _with_clock(_finish(algo, res, spec, axis), clock)
+
+
+def _drive(algo, flat, batch, spec, num_rounds, tol, tol_metric, scan,
+           auto, chunk_size, arrivals, store, cap, packed, async_rounds,
+           max_staleness, stale_weighting, stale_decay, uplink):
+    """Run the rounds in the driver `scan`, `chunk_size` and `store` pick,
+    on the flat (or, with `spec` None, per-leaf) state of this shard.
+    Returns the driver's RoundResult, its state still flat."""
+    stale = None
+    if async_rounds:
+        stale = api.init_stale_xbar(
+            flat["x"], api.local_client_count(algo.fed.num_clients),
+            max_staleness, stale_weighting, stale_decay,
+            resident=store != "offload")
     if store == "offload":
-        return _with_clock(_run_offload_loop(
-            algo, flat, batch, spec, num_rounds, tol, tol_metric, arrivals,
-            cap, packed, stale, uplink), clock)
+        return _run_offload_loop(algo, flat, batch, spec, num_rounds, tol,
+                                 tol_metric, arrivals, cap, packed, stale,
+                                 uplink)
     if not scan:
-        return _with_clock(_run_legacy_loop(
-            algo, flat, batch, spec, num_rounds, tol, tol_metric, arrivals,
-            cap, packed, stale, uplink), clock)
+        return _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol,
+                                tol_metric, arrivals, cap, packed, stale,
+                                uplink)
     plan = []
     if auto:
         rest = num_rounds
@@ -376,10 +449,177 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
             # with tol > 0 a converging run may never reach the remainder:
             # it is captured on use
             lengths.add(num_rounds % chunk)
-    return _with_clock(_Chunked(
-        algo, flat, batch, spec, tol, tol_metric, max(lengths), arrivals,
-        cap, packed, stale, uplink).run(num_rounds, chunk, plan, lengths),
-        clock)
+    return _Chunked(algo, flat, batch, spec, tol, tol_metric, max(lengths),
+                    arrivals, cap, packed, stale, uplink).run(
+        num_rounds, chunk, plan, lengths)
+
+
+def make_round_fn(algo, mesh=None, client_axis="data", masked=False,
+                  stale=False, flat_spec=None, overlap="off"):
+    """One round of `algo` as a callable, optionally on `mesh`'s client
+    axis: ``(state, batch) -> (state, metrics)``, with `masked` ``(state,
+    batch, mask)``, with `stale` (async rounds, implies masked) ``(state,
+    batch, mask, stale) -> (state, metrics)`` (the stale state advances
+    in place). `flat_spec` (a `pt.RavelSpec`) runs `algo.round_flat` on
+    the flat state (`flatten_state`), else `algo.round` on the dicts.
+
+    Under a mesh the state and batch are this rank's (`shard_inputs`),
+    the mask is the whole (m,) mask (each rank keeps its rows), the
+    stale state holds the rank's rows, and the round runs inside
+    `api.client_sharding`: its cross-client reductions are collectives.
+    `overlap="scatter"` checks that the flat state's padded buffer
+    divides over the shards (the caller seeds ``state["ovl_shard"]``);
+    "off" is the barrier round."""
+    if overlap not in ("off", "scatter"):
+        raise ValueError(f"unknown overlap {overlap!r}: ('off', 'scatter')")
+    if overlap == "scatter" and flat_spec is None:
+        raise ValueError(
+            "overlap='scatter' splits the flat comm buffer's collective — "
+            "it requires the flat round path (flat=True on an algorithm "
+            "providing round_flat; drop --no-flat)")
+    axis = None
+    if mesh is not None:
+        axis = _check_mesh(algo, mesh, client_axis, overlap, "dense", False,
+                           flat_spec is not None, False, flat_spec, False)
+
+    def round_fn(state, batch, mask=None, sl=None):
+        with (api.client_sharding(axis) if axis is not None
+              else contextlib.nullcontext()):
+            if mask is not None:
+                mask = api.local_client_slice(mask)
+            if flat_spec is None:
+                return algo.round(state, batch, mask=mask, stale=sl)
+            return algo.round_flat(state, batch, flat_spec, mask=mask,
+                                   stale=sl)
+
+    if stale:
+        return lambda state, batch, mask, sl: round_fn(state, batch, mask,
+                                                       sl)
+    if masked:
+        return lambda state, batch, mask: round_fn(state, batch, mask)
+    return lambda state, batch: round_fn(state, batch)
+
+
+def _finish(algo, res, spec, axis):
+    """The driver's result as the caller sees it: the overlap slot folded
+    back (`_finalize_overlap`), and under a mesh the client rows of the
+    state, of the stale-x̄ state and of the `staleness` history gathered
+    from every shard (all-gathers after the last round, outside any
+    round); then the dict layout."""
+    st = res.state
+    if "ovl_shard" in st:
+        st = _finalize_overlap(algo, st)
+    if axis is not None:
+        st = dict(st)
+        for k in getattr(algo, "client_state_keys", ()):
+            if k in st:
+                st[k] = pt.tree_map(api.gather_clients, st[k])
+        if res.stale is not None:
+            sl = res.stale
+            sl.age = api.gather_clients(sl.age)
+            sl.last_used = api.gather_clients(sl.last_used)
+            sl.anchor = pt.tree_map(api.gather_clients, sl.anchor)
+            sl.view = None
+        if "staleness" in res.history:
+            h = torch.from_numpy(res.history["staleness"]).to(
+                _device_of(st))
+            res.history["staleness"] = api.gather_clients(
+                h.T.contiguous()).T.cpu().numpy()
+    res.state = unflatten_state(algo, st, spec)
+    return res
+
+
+def _finalize_overlap(algo, state):
+    """Fold the overlap slot back into the state after the last round:
+    the whole slot (an all-gather under a mesh) goes to
+    ``algo.overlap_finalize(state, slot)`` where the algorithm has one
+    (FedGiA's x never lags; SCAFFOLD also folds its variate delta), else
+    x becomes its row 0, the last round's consensus."""
+    state = dict(state)
+    slot = api.flat_overlap_consensus(state.pop("ovl_shard"))
+    fin = getattr(algo, "overlap_finalize", None)
+    if fin is not None:
+        return fin(state, slot)
+    state["x"] = slot[0]
+    return state
+
+
+def _check_mesh(algo, mesh, client_axis, overlap, store, auto, flat,
+                ckpt_on, spec, uplink_on):
+    """The reference's checks of `mesh`, `client_axis` and `overlap`, with
+    its messages, and the port's refusals of what it does not shard or
+    overlap (ROADMAP queue 1, item 9b). Returns the mesh's
+    `api.ClientAxis` (None without a mesh)."""
+    if overlap not in ("off", "scatter"):
+        raise ValueError(f"unknown overlap {overlap!r}: ('off', 'scatter')")
+    if overlap == "scatter":
+        if not flat:
+            raise ValueError(
+                "overlap='scatter' splits the flat comm buffer's collective "
+                "— it requires the flat round path (flat=True on an "
+                "algorithm providing round_flat; drop --no-flat)")
+        if store == "offload":
+            raise ValueError(
+                "store='offload' runs the host-driven tile loop — the "
+                "overlapped-collective carry slot (overlap='scatter') "
+                "does not ride it")
+        if store != "dense" or uplink_on:
+            raise NotImplementedError(
+                "overlap='scatter' with the active store, codecs, faults or "
+                "screening is not ported: ROADMAP queue 1, item 9b")
+    if mesh is None:
+        return None
+    if auto:
+        raise ValueError(
+            "chunk_size='auto' needs AOT-precompiled candidates to time "
+            "execution, which the sharded path does not have — pass a "
+            "fixed chunk_size under a mesh")
+    if store == "offload":
+        raise ValueError(
+            "store='offload' is the single-device host/device split — "
+            "under a mesh the resident buffers are already sharded over "
+            "devices; pass store='active' instead")
+    if ckpt_on:
+        raise ValueError(
+            "checkpointing round-trips the carry through host npz — not "
+            "supported under a mesh (GSPMD carry placements); checkpoint "
+            "unsharded runs")
+    if store != "dense" or uplink_on:
+        raise NotImplementedError(
+            "the sharded active store, codecs, faults and screening are not "
+            "ported: ROADMAP queue 1, item 9b")
+    axis = mesh.client_axis(client_axis)
+    m = algo.fed.num_clients
+    if m % axis.shards:
+        raise ValueError(
+            f"num_clients={m} not divisible by {axis.shards} shards")
+    if overlap == "scatter" and spec.padded_size % axis.shards:
+        raise ValueError(
+            f"overlap='scatter' reduce-scatters the lane-padded buffer "
+            f"column-wise: padded_size={spec.padded_size} must divide over "
+            f"{axis.shards} client shards")
+    return axis
+
+
+def shard_inputs(algo, state, batch, mesh, client_axis="data"):
+    """This rank's part of a run's inputs on `mesh`'s client axis: the
+    rows ``[index·m_local, (index+1)·m_local)`` of the state's
+    client-stacked entries (`algo.client_state_keys`, copied so that the
+    rest of the buffer is freed) and of the batch (views), the overlap
+    slot's column chunk, and the other entries whole (replicated)."""
+    axis = mesh.client_axis(client_axis)
+    keys = set(getattr(algo, "client_state_keys", ()))
+    with api.client_sharding(axis):
+        rows = lambda t: api.local_client_slice(t).clone()  # noqa: E731
+        out = {k: (pt.tree_map(rows, v) if k in keys else v)
+               for k, v in state.items()}
+        batch = pt.tree_map(api.local_client_slice, batch)
+    if "ovl_shard" in out:
+        slot = out["ovl_shard"]
+        cols = slot.shape[1] // axis.shards
+        out["ovl_shard"] = slot[:, axis.index * cols:
+                                (axis.index + 1) * cols].contiguous()
+    return out, batch
 
 
 def _check_async(m, participation, async_rounds, max_staleness, clock,
@@ -799,7 +1039,7 @@ def _with_staleness_metrics(met, stale):
     and its max."""
     met = dict(met)
     met["staleness"] = stale.last_used.clone()
-    met["staleness_max"] = torch.max(stale.last_used)
+    met["staleness_max"] = api.client_scalar_max(torch.max(stale.last_used))
     return met
 
 
@@ -853,7 +1093,7 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
                 slots = pt.pack_slots(mask, cap).to(device)
             draw += time.perf_counter() - td
             extras.append(_host_metrics(participation, pstate, mask))
-            mask = mask.to(device)
+            mask = api.local_client_slice(mask).to(device)
         new, met = _round(algo, flat, batch, spec, mask, slots, cap, packed,
                           stale, uplink, ws)
         # advance the state in the dict the caller holds too, so the last
@@ -870,9 +1110,8 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
     wall = time.perf_counter() - t0
     for k in counters:
         flat[k] = int(flat[k])
-    return RoundResult(unflatten_state(algo, flat, spec),
-                       _history(hist, extras), len(hist), stopped, wall,
-                       draw_s=draw, policy_state=pstate, stale=stale)
+    return RoundResult(flat, _history(hist, extras), len(hist), stopped,
+                       wall, draw_s=draw, policy_state=pstate, stale=stale)
 
 
 def _counts():
@@ -962,10 +1201,18 @@ class _Chunked:
         self.selects = (participation is not None
                         or getattr(algo, "selects_in_round", False))
         self.keyed = self.uplink.needs_key
+        # under a mesh the host draws every (m,) mask and the device keeps
+        # this shard's rows
+        self.rows = None
+        if api.client_axis() is not None:
+            m_local = api.local_client_count(algo.fed.num_clients)
+            lo = api.client_axis().index * m_local
+            self.rows = slice(lo, lo + m_local)
         if self.selects:
             m = algo.fed.num_clients
-            self.masks = torch.ones((longest, m), dtype=torch.bool,
-                                    device=dev)
+            self.masks = torch.ones(
+                (longest, api.local_client_count(m)), dtype=torch.bool,
+                device=dev)
             self.host_masks = torch.ones((longest, m), dtype=torch.bool,
                                          pin_memory=self.cuda)
             if cap is not None:
@@ -1142,8 +1389,10 @@ class _Chunked:
         states.append((self.key, self.pstate))
         draw = time.perf_counter() - t0
         if self.selects:
-            self.masks[:length].copy_(self.host_masks[:length],
-                                      non_blocking=self.cuda)
+            host = self.host_masks[:length]
+            if self.rows is not None:
+                host = host[:, self.rows].contiguous()
+            self.masks[:length].copy_(host, non_blocking=self.cuda)
         if self.cap is not None:
             self.slots[:length].copy_(self.host_slots[:length],
                                       non_blocking=self.cuda)
@@ -1265,8 +1514,7 @@ class _Chunked:
         flat = dict(self.st, rng=self.key)
         for k in self.counters:
             flat[k] = int(self.st[k])
-        return RoundResult(unflatten_state(self.algo, flat, self.spec),
-                           history, rounds_run, stopped, wall, capture,
+        return RoundResult(flat, history, rounds_run, stopped, wall, capture,
                            chunk_size=chunk, draw_s=draw,
                            policy_state=self.pstate, stale=self.stale)
 
@@ -1559,7 +1807,6 @@ def _run_offload_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
         stale.anchor, stale.view = anchor_h.to(device), None
     history = _concat(saved, _history(hist, host_mets) if hist else {})
     rounds = start + len(hist)
-    return RoundResult(unflatten_state(algo, state, spec), history, rounds,
-                       stopped, wall, draw_s=draw,
+    return RoundResult(state, history, rounds, stopped, wall, draw_s=draw,
                        policy_state=pstate_run if hist else pstate,
                        extras=extras, stale=stale)

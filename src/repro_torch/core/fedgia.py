@@ -1,8 +1,8 @@
 """FedGiA — the paper's Algorithm 1 on the flat client-state buffer.
 
-Counterpart of `repro/core/fedgia.py`, single-device flat path, barrier
-rounds (the overlapped round waits for the multi-device client axis);
-its active-set round is the dense round on the round's mask. One round:
+Counterpart of `repro/core/fedgia.py`: the flat round, barrier or
+overlapped, unsharded or on a sharded client axis; its active-set round
+is the dense round on the round's mask. One round:
 
   1. aggregate   x̄ = (1/m) Σ z_i              (eq. 11)
   2. grads       ḡ_i = (1/m) ∇f_i(x̄)          (computed ONCE per round)
@@ -26,6 +26,17 @@ Async rounds (`stale=`, an `api.StaleXbar`): eq. (11) takes the
 staleness weights, and each client's gradient and branch run against its
 own last-downloaded x̄, an (m, N) anchor that the kernel reads row by
 row. Under `max_staleness == 0` the round is the synchronous masked one.
+
+Client sharding (`run_rounds(mesh=...)`, `api.client_sharding`): the
+state's client rows are this rank's (m_local, N) block, eq. (11) and the
+metrics are collectives over the client axis (`core/api.py`), the
+split's (m,) mask is drawn whole from the replicated key and sliced
+(`api.local_client_slice`), and the fused update runs on the shard's
+rows with the global m in its 1/m. The overlapped round (the engine's
+``state["ovl_shard"]`` slot, `overlap="scatter"`) takes x̄ from the
+slot's all-gather at its top and reduce-scatters the fresh z into the
+slot at its end (`api.flat_overlap_consensus`, `flat_overlap_aggregate`);
+unsharded it is the barrier round bit for bit.
 
 `round` is the per-leaf twin of `round_flat` (`run_rounds(flat=False)`,
 `--no-flat`): the same steps on the state's dicts, leaf by leaf, with no
@@ -56,6 +67,9 @@ class FedGiA:
     name = "fedgia"
     # the ADMM/GD split is drawn every round (`round_flat(mask=...)`)
     selects_in_round = True
+    # the state's entries with a leading client axis: the engine splits
+    # exactly these (and the batch) over a sharded client axis
+    client_state_keys = ("z", "pi", "h", "gram_chol", "ef", "fault_prev")
     # model-shaped state the engine ravels into (m, N) / (N,) buffers
     # (gram_chol is client-stacked but not model-shaped); "ef" and
     # "fault_prev" are the engine's codec residual and replay buffer
@@ -185,7 +199,7 @@ class FedGiA:
         return xbar, ef_new, fprev_new, n_scr
 
     def round_inputs(self, state, batch, spec, mask=None, stale=None,
-                     xbar=None):
+                     xbar=None, grad_sum=False):
         """Steps (1)-(3) of a round on the flat `state`: x̄ (eq. 11; given
         as `xbar` where `upload` made it), the (m,) branch select, and the
         per-client losses, the `grad_sq_norm` metric and ḡ. `mask=None`
@@ -204,7 +218,13 @@ class FedGiA:
         place (`api.stale_xbar_view`). The gradients are taken at the
         round's anchor, `api.stale_anchor(stale, xbar)`: x̄ itself without
         `stale` or under `stale.always_fresh`, else the (m, N) per-client
-        view."""
+        view.
+
+        Under a sharded client axis the rows are the shard's and the drawn
+        select its block of the (m,) draw. `grad_sum=True` (a sharded
+        overlapped round, whose gradient norm rides its reduce-scatter)
+        returns the shard's gradient sum over its rows in place of
+        grad_sq_norm."""
         m = self.fed.num_clients
         if xbar is None:  # (1) eq. (11)
             xbar = api.client_mean(state["z"],
@@ -215,7 +235,7 @@ class FedGiA:
                                  "arrival mask")
             _, mask = selection.round_split(state["rng"], state["round"], m,
                                             self.fed.alpha)
-            mask = mask.to(xbar.device)
+            mask = api.local_client_slice(mask).to(xbar.device)
         # (2) per-client gradient: the one boundary that unravels
         if stale is not None:
             api.stale_xbar_view(stale, xbar, mask)
@@ -229,7 +249,8 @@ class FedGiA:
             losses, grads = self._vg_stacked(
                 cast(spec.unravel_stacked(anchor)), batch)
         buf = spec.ravel_stacked(grads)
-        gsq = api.flat_grad_sq_norm(buf, spec)
+        gsq = (torch.sum(buf, dim=0) if grad_sum
+               else api.flat_grad_sq_norm(buf, spec))
         sdt = _DTYPES[self.fed.state_dtype]
         gbar = spec.ravel_stacked(grads, out=buf,
                                   leaf_fn=lambda g: (g * (1.0 / m)).to(sdt))
@@ -270,6 +291,13 @@ class FedGiA:
         arrived finite) where faults or screening are on. The codec's key
         is the round's key before its split (`api.codec_key`).
 
+        Overlapped rounds (``state["ovl_shard"]``, the engine's slot): x̄
+        is the slot's consensus (`api.flat_overlap_consensus`) and the
+        round ends by reducing the fresh z into the new slot
+        (`api.flat_overlap_aggregate`), whose scalars give the metrics.
+        The uplink stages are not overlapped in the port (ROADMAP queue 1,
+        item 9b).
+
         `donate_kernel=True` runs the in-place kernel: π' is written into
         the buffer of `state["pi"]` and z' into this round's own ḡ, so
         the caller must treat the input state's `pi` as consumed. Under
@@ -288,16 +316,28 @@ class FedGiA:
         sigma = state["sigma"]
         if stale is not None and mask is None:
             raise ValueError("stale-x̄ rounds need the engine's arrival mask")
-        xbar, ef_new, fprev_new, n_scr = self.upload(
-            state, spec, stale, compressor, faults, screening)
+        ovl = state.get("ovl_shard")
+        sharded_ovl = ovl is not None and api.client_axis() is not None
+        if ovl is None:
+            xbar, ef_new, fprev_new, n_scr = self.upload(
+                state, spec, stale, compressor, faults, screening)
+        elif compressor is not None or faults is not None \
+                or screening is not None:
+            raise NotImplementedError(
+                "the overlapped round's uplink stages (codecs, faults, "
+                "screening) are not ported: ROADMAP queue 1, item 9b")
+        else:  # the deferred half of the last round's eq. (11)
+            xbar = api.flat_overlap_consensus(ovl)[0]
+            ef_new = fprev_new = n_scr = None
         rng = state.get("rng")
         if rng is not None:  # (3) the round's key chain, on the host
             rng, drawn = selection.round_split(rng, state["round"], m,
                                                fed.alpha, draw=mask is None)
             if mask is None:
-                mask = drawn.to(state["z"].device)
+                mask = api.local_client_slice(drawn).to(state["z"].device)
         xbar, sel, losses, gsq, gbar = self.round_inputs(
-            state, batch, spec, mask, stale, xbar=xbar)
+            state, batch, spec, mask, stale, xbar=xbar,
+            grad_sum=sharded_ovl)
         anchor = api.stale_anchor(stale, xbar)
         diag = fed.h_policy == "diag_ema"
 
@@ -312,8 +352,9 @@ class FedGiA:
                 want_x=False, use_kernel=fed.use_kernel,
                 z_out=state["z"] if donate_kernel and diag else None)
         else:
-            xbar_c = (api.broadcast_clients(xbar, m) if anchor is xbar
-                      else anchor)  # stride-0 view, or the stale anchors
+            xbar_c = (api.broadcast_clients(xbar, gbar.shape[0])
+                      if anchor is xbar else anchor)  # stride-0 view, or
+            # the stale anchors
             pia, za = self._admm_branch_unrolled(state, xbar_c, gbar, spec)
             pig = gbar * -1.0  # eq. (16)
             zg = (-1.0 / sigma) * gbar + xbar_c  # eq. (17)
@@ -332,16 +373,35 @@ class FedGiA:
             new_state["h"] = hparams.update_diag_h(
                 state["h"], gbar, state["r"], m,
                 out=state["h"] if donate_kernel else None)
+        if ovl is not None:
+            # the upload half of the split collective: the fresh z (the
+            # next round's eq. (11) numerator) into the next slot, the
+            # metrics riding its scalars
+            slot, gsq, f_mean, n_sel = api.flat_overlap_aggregate(
+                z_new, None, losses, sel, spec,
+                weights=api.stale_weights(stale),
+                gsq=None if sharded_ovl else gsq,
+                grad_sum=gsq if sharded_ovl else None)
+            new_state["ovl_shard"] = slot
+        else:
+            f_mean = api.client_scalar_mean(losses)
+            n_sel = api.client_scalar_sum(sel)
         metrics = {
-            "f_xbar": api.client_scalar_mean(losses),
+            "f_xbar": f_mean,
             "grad_sq_norm": gsq,
-            "selected": api.client_scalar_sum(sel),
+            "selected": n_sel,
             "cr": 2.0 * (state["round"] + 1),
             "local_grad_evals": 1.0,  # per client per round (C2)
         }
         if n_scr is not None:
             metrics["screened"] = n_scr
         return new_state, metrics
+
+    def overlap_finalize(self, state, slot):
+        """The engine's hook closing an overlapped run: the state's x is
+        already the consensus of the last round (it does not lag; the slot
+        holds the next round's numerator), so the slot is dropped."""
+        return state
 
     def round_flat_active(self, state, batch, spec, active, stale=None,
                           compressor=None, donate_kernel: bool = False,
@@ -438,7 +498,7 @@ class FedGiA:
             rng, drawn = selection.round_split(rng, state["round"], m,
                                                fed.alpha, draw=mask is None)
             if mask is None:
-                mask = drawn.to(device)
+                mask = api.local_client_slice(drawn).to(device)
         elif mask is None:
             raise ValueError("a state without a key needs the round's mask")
         # (2) per-client gradient at the round's anchor
@@ -459,8 +519,9 @@ class FedGiA:
         gbar = pt.tree_map(lambda g: (g * (1.0 / m)).to(sdt), grads)
         del grads
         # (4) both branches, masked combine
-        xbar_c = (api.broadcast_clients(xbar, m) if anchor is xbar
-                  else anchor)  # stride-0 views, or the stale anchors
+        xbar_c = (api.broadcast_clients(xbar, api.local_client_count(m))
+                  if anchor is xbar else anchor)  # stride-0 views, or the
+        # stale anchors
         pi_new, z_new = self._admm_branch(state, xbar_c, gbar, mask)
 
         new_state = dict(state)

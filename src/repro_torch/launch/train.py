@@ -69,6 +69,21 @@ downweights stale contributions in eq. (11) (`--stale-decay`).
   PYTHONPATH=src python -m repro_torch.launch.train --clients 64 \
       --clock constant --max-staleness 4 --stale-weighting poly
 
+`--shard-clients N` splits the client axis over N ranks (`launch/mesh.py`:
+gloo processes with `--device cpu`, one CUDA device a rank over NCCL on
+the card, so N cards); `--pod P` lays them out as a (pod, data) mesh of
+P pods of N/P ranks with the compound client axis ("pod", "data");
+eq. (11) is then one all-reduce a round over the ranks. Rank 0 logs and
+prints the `done:` line, which matches the unsharded run's to fp
+tolerance. `--overlap scatter` splits eq. (11) into a reduce-scatter at
+a round's end and an all-gather at the next round's top (bit for bit the
+barrier run unsharded). The sharded active store, codecs, faults and
+screening, and the overlapped ones, are not ported (ROADMAP queue 1,
+item 9b) and are refused.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --shard-clients 4 --pod 2 --overlap scatter
+
 `--compression bf16|int8|topk` puts each round's upload through a codec
 (`core/compress.py`; `--topk-frac`, `--error-feedback`), and
 `--bandwidth-bps` prices its wire in the clock's simulated time.
@@ -89,6 +104,7 @@ checkpoint, bit for bit the run that was not cut.
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 
 import torch
@@ -109,6 +125,7 @@ from repro_torch.data import (
     to_torch,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import launch, make_host_mesh
 from repro_torch.models import (
     LeastSquares,
     LogisticRegression,
@@ -206,6 +223,11 @@ def validate_flags(args) -> dict:
     elif args.no_scan:
         raise SystemExit("--chunk auto tunes the scan chunk length and "
                          "cannot be combined with --no-scan")
+    elif args.shard_clients > 1:
+        raise SystemExit(
+            "--chunk auto times AOT-precompiled chunks, which the "
+            "sharded path does not have — pass a fixed --chunk with "
+            "--shard-clients")
     if args.kernel == "on" and args.no_flat:
         raise SystemExit(
             "--kernel on/interpret requires the flat round path "
@@ -223,6 +245,17 @@ def validate_flags(args) -> dict:
             f"--store {store} needs a per-round participant set to pack the "
             "tile from: pass --participation (uniform/weighted/cyclic give "
             "the fixed-size tile; others bound it by m) or --clock")
+    if store == "offload":
+        if args.shard_clients > 1:
+            raise SystemExit(
+                "--store offload is the single-device host/device split — "
+                "under --shard-clients the resident buffers are already "
+                "spread over devices; use --store active")
+        if args.overlap == "scatter":
+            raise SystemExit(
+                "--store offload runs the host-driven tile loop — the "
+                "overlapped-collective carry slot (--overlap scatter) "
+                "does not ride it")
     if store == "offload" and chunk == "auto":
         raise SystemExit(
             "--chunk auto tunes the scan chunk length — the host-driven "
@@ -273,7 +306,40 @@ def validate_flags(args) -> dict:
            "periods": periods, "speeds": speeds, "use_kernel": use_kernel,
            "flat": not args.no_flat}
     out.update(_validate_uplink(args, chunk, clock_kind, kind, store))
+    _validate_mesh(args, store, out)
     return out
+
+
+def _validate_mesh(args, store, parsed) -> None:
+    """`validate_flags`' checks of `--shard-clients`, `--pod` and
+    `--overlap`, with the reference's messages, and the port's refusals
+    of what it does not shard or overlap (ROADMAP queue 1, item 9b)."""
+    if args.overlap == "scatter" and args.no_flat:
+        raise SystemExit(
+            "--overlap scatter carries the reduce-scattered consensus "
+            "shard on the flat buffers and requires the flat round path "
+            "(drop --no-flat)")
+    shard, pod = args.shard_clients, args.pod
+    if pod:
+        if shard <= 1:
+            raise SystemExit(
+                "--pod spans the sharded client axis over a (pod, data) "
+                "mesh — it requires --shard-clients")
+        if shard % pod:
+            raise SystemExit(
+                f"--shard-clients ({shard}) must be divisible by "
+                f"--pod ({pod}): each pod holds shard_clients/pod devices")
+    if shard > 1 and args.clients % shard:
+        raise SystemExit(f"--clients ({args.clients}) must be divisible by "
+                         f"--shard-clients ({shard})")
+    uplink = (parsed["compression"] is not None or parsed["fault_kinds"]
+              or parsed["screening"])
+    for on, what in ((shard > 1, "--shard-clients"),
+                     (args.overlap == "scatter", "--overlap scatter")):
+        if on and (store == "active" or uplink):
+            raise SystemExit(
+                f"{what} with --store active, --compression, --faults or "
+                "--screening is not ported (ROADMAP queue 1, item 9b)")
 
 
 def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:
@@ -396,6 +462,10 @@ def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:
             raise SystemExit(
                 "--checkpoint-every/--resume need --checkpoint-dir to "
                 "write/read the round-carry snapshots")
+        if args.shard_clients > 1:
+            raise SystemExit(
+                "checkpointing round-trips the carry through host npz — "
+                "it runs unsharded (drop --shard-clients)")
         if chunk == "auto":
             raise SystemExit(
                 "--chunk auto re-times candidate chunk lengths — "
@@ -423,11 +493,36 @@ def train(args) -> dict:
     object, client batch and final state (`algorithm`, `batch`, `state`)
     for callers that go on from it. `args` may be a bare Namespace with
     only some of the flags (the reference's tests pass such ones): the
-    parser's defaults fill in the rest."""
+    parser's defaults fill in the rest.
+
+    With `--shard-clients N` (> 1) the job runs on N ranks (`launch/
+    mesh.py::launch`; on the card N CUDA devices, else it raises with the
+    count) and this returns rank 0's summary with the gathered final
+    `state`, without `algorithm` and `batch`."""
     args = argparse.Namespace(**{**vars(build_parser().parse_args([])),
                                  **vars(args)})
     parsed = validate_flags(args)
-    device = resolve_device(args.device)
+    if args.shard_clients > 1:
+        resolve_device(args.device)
+        return launch(_train_rank, args.shard_clients, args,
+                      device=args.device)
+    return _train(args, parsed, resolve_device(args.device))
+
+
+def _train_rank(args) -> dict:
+    """One rank of a sharded job: its mesh, its device, the run; only rank
+    0 logs below warnings."""
+    pod = args.pod
+    mesh = (make_host_mesh(pod=pod, data=args.shard_clients // pod) if pod
+            else make_host_mesh(data=args.shard_clients))
+    if mesh.rank:
+        log.setLevel(logging.WARNING)
+    res = _train(args, validate_flags(args), mesh.device, mesh)
+    return {k: v for k, v in res.items() if k not in ("algorithm", "batch")}
+
+
+def _train(args, parsed, device, mesh=None) -> dict:
+    """`train` on `device`, on `mesh`'s client axis where one is given."""
     t0 = time.perf_counter()
     model, loss_fn, params0, batch = build_problem(args, device)
     _sync(device)
@@ -503,6 +598,19 @@ def train(args) -> dict:
     if args.aggregate == "packed":
         log.info("packed aggregation: eq. (11) sums the participant tile "
                  "directly (fp tolerance vs the bitwise dense layout)")
+    client_axis = ("pod", "data") if args.pod else "data"
+    if mesh is not None:
+        if args.pod:
+            log.info("pod-spanning client axis: %d pods x %d ranks", args.pod,
+                     args.shard_clients // args.pod)
+        log.info("client-sharded rounds: %d ranks (%s), %d clients a rank",
+                 args.shard_clients,
+                 "NCCL" if device.type == "cuda" else "gloo",
+                 args.clients // args.shard_clients)
+    if args.overlap == "scatter":
+        log.info("overlapped collectives: eq. (11) split into a "
+                 "reduce-scatter at the round's end and an all-gather at "
+                 "the next round's top")
     res = run_rounds(algo, state, batch, args.rounds, tol=args.tol,
                      scan=not args.no_scan, chunk_size=parsed["chunk"],
                      participation=policy, store=args.store,
@@ -521,7 +629,9 @@ def train(args) -> dict:
                      checkpoint_dir=(args.checkpoint_dir or None)
                      if (parsed["checkpoint_every"] or parsed["resume"])
                      else None,
-                     resume=parsed["resume"], flat=parsed["flat"])
+                     resume=parsed["resume"], flat=parsed["flat"],
+                     mesh=mesh, client_axis=client_axis,
+                     overlap=args.overlap)
     history = [
         {"round": r, "f": float(res.history["f_xbar"][r]),
          "err": float(res.history["grad_sq_norm"][r])}
@@ -813,6 +923,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "on the card, its plain version on the CPU), on, "
                          "off (the plain version anywhere); interpret is "
                          "rejected")
+    ap.add_argument("--shard-clients", type=int, default=0,
+                    help="split the client axis over N ranks (gloo processes "
+                         "on the CPU, one CUDA device a rank on the card)")
+    ap.add_argument("--pod", type=int, default=0,
+                    help="lay the --shard-clients ranks out as a (pod, data) "
+                         "mesh of P pods, client axis (pod, data)")
+    ap.add_argument("--overlap", default="off", choices=["off", "scatter"],
+                    help="eq. (11) as one all-reduce a round (off), or split "
+                         "into a reduce-scatter at the round's end and an "
+                         "all-gather at the next round's top (scatter)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 

@@ -1,6 +1,6 @@
 """Async (stale-x̄) rounds on the port (mirrors tests/test_async.py, and
-the async tests of tests/test_store.py; the sharded test waits for the
-port's multi-device client axis).
+the async tests of tests/test_store.py; the sharded test is in
+tests/test_torch_sharded_async.py).
 
 Within the port:
   * `max_staleness=0` is BITWISE the synchronous masked run, for all five

@@ -2,10 +2,11 @@
 tests/test_check_bench.py and the engine/kernels rows of the reference's
 `benchmarks/run.py`).
 
-* `engine_bench.run`: every path the port has (legacy, scan,
-  scan_pytree, async, active_1m, offload_1m) with the reference's keys,
-  the multi-device rows listed as absent, flat and per-leaf histories
-  bit for bit, reused million rows not run again;
+* `engine_bench.run`: every path of the reference (legacy, scan,
+  scan_pytree, async, active_1m, offload_1m, and the sharded and
+  scan_overlap rows on 8 gloo CPU ranks, labelled `device: cpu`) with
+  its keys, flat and per-leaf histories bit for bit, reused million rows
+  not run again;
 * `kernels_bench` part 3 (the update alone: fused flat, per-leaf,
   unrolled) at a small n;
 * `run.py --json` writes the sections it ran, and the wallclock rows'
@@ -30,8 +31,11 @@ from repro_torch.benchmarks import engine_bench, kernels_bench
 from repro_torch.benchmarks import run as bench_run
 from repro_torch.benchmarks import wallclock_bench
 
-PATHS = {"legacy", "scan", "scan_pytree", "async", "active_1m",
-         "offload_1m"}
+# the card's paths, and the two on gloo CPU ranks that its baseline and
+# gate leave out
+CARD_PATHS = {"legacy", "scan", "scan_pytree", "async", "active_1m",
+              "offload_1m"}
+PATHS = CARD_PATHS | {"sharded", "scan_overlap"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -46,7 +50,10 @@ def test_engine_run_small():
     r = engine_bench.run("cpu", rounds=8, repeats=1, clients_1m=20000,
                          rounds_1m=2)
     assert set(r["paths"]) == PATHS
-    assert set(r["absent"]) == {"sharded", "scan_overlap"}
+    assert "absent" not in r
+    for name in ("sharded", "scan_overlap"):  # gloo ranks: a CPU time
+        assert r["paths"][name]["device"] == "cpu"
+        assert r["paths"][name]["ranks"] == 8
     for name, p in r["paths"].items():
         assert p["wall_s"] > 0 and p["rounds_per_s"] > 0, name
     assert r["rounds"] == 8 and r["clients"] == 64
@@ -224,7 +231,7 @@ def test_committed_baselines_carry_meta():
         assert meta["card"].startswith("NVIDIA H100"), path.name
         assert " W" in meta["card"], path.name  # the power limit
     engine = cb.load_engine_section(cb.BASELINE)
-    assert set(engine["paths"]) == PATHS
+    assert set(engine["paths"]) == CARD_PATHS
     assert cb.load_wallclock_rows(cb.WALLCLOCK_BASELINE)
 
 
@@ -264,3 +271,18 @@ def test_wallclock_gate_fails_a_row_that_stops_converging(capsys):
     assert cb.check_wallclock({key: {"converged": False,
                                      "sim_time_s": 99.0}}, never, 2.5,
                               1.5) == 0
+
+
+def test_update_baseline_keeps_cpu_rows_out(tmp_path):
+    """The sharded rows are gloo ranks on the host's CPU: a refresh of the
+    card's baseline leaves them out, and the gate reports them ungated."""
+    dump = {"engine": {"paths": {
+        "scan": {"wall_s": 1.0, "rounds_per_s": 200.0},
+        "sharded": {"wall_s": 4.0, "rounds_per_s": 50.0, "device": "cpu"}}}}
+    cur, base = tmp_path / "cur.json", tmp_path / "base.json"
+    cur.write_text(json.dumps(dump))
+    cb.update_baseline(cur, base)
+    written = json.loads(base.read_text())
+    assert set(written["engine"]["paths"]) == {"scan"}
+    assert cb.check(cb.load_engine_section(cur),
+                    cb.load_engine_section(base), 2.5, 1.5) == 0

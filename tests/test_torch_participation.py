@@ -1,6 +1,5 @@
 """In-engine participation on the port (mirrors tests/test_participation.py,
-without its client-sharded test, which waits for the port's multi-device
-client axis).
+with its client-sharded test in tests/test_torch_sharded_async.py).
 
   * alpha = 1: a policy's all-True mask is bitwise the run without one,
     for all five algorithms, in the chunked driver and the legacy loop;

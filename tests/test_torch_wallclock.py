@@ -1,6 +1,6 @@
 """Wall-clock rounds and staleness-weighted aggregation on the port
-(mirrors tests/test_wallclock.py; its sharded one-psum test waits for the
-port's multi-device client axis).
+(mirrors tests/test_wallclock.py; its sharded one-psum test is in
+tests/test_torch_sharded_async.py).
 
 Within the port:
   * `stale_weighting="uniform"` is BITWISE the unweighted async run, and a
@@ -11,8 +11,9 @@ Within the port:
     sequence;
   * weighted chunked and legacy runs agree bit for bit;
   * the engine's and the CLI's checks raise with the reference's
-    messages, and the clock option that is not ported (`with_overlap`)
-    raises `NotImplementedError`.
+    messages; the overlapped rounds' clock (`with_overlap`) prices
+    ``max(compute, comm)``, its durations and ticks bit for bit the
+    reference's.
 
 Against the reference: the constant and trace clocks tick on the host in
 float32, so their masks and times are the reference's device ticks BIT
@@ -330,18 +331,12 @@ def test_stale_decay_must_be_positive(raw):
                stale_weighting="uniform", stale_decay=-1.0)
 
 
-@pytest.mark.parametrize("what", ["bandwidth_bps", "deadline_s", "with_wire",
-                                  "with_overlap"])
+@pytest.mark.parametrize("what", ["bandwidth_bps", "deadline_s", "with_wire"])
 def test_unported_clock_options_raise(what):
-    """The overlap clock is not ported: it raises, never silently runs
-    the event-driven clock. The byte-accurate and deadline clocks are
+    """The byte-accurate and deadline clocks are ported
     (tests/test_torch_compress.py, tests/test_torch_faults.py): each
     raises where the reference's does, with its message."""
-    if what == "with_overlap":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, "
-                                                      "item 9"):
-            ComputeClock(M).with_overlap()
-    elif what == "with_wire":
+    if what == "with_wire":
         with pytest.raises(ValueError, match="with_wire needs bandwidth_bps"):
             ComputeClock(M).with_wire(100, 100)
     else:
@@ -569,3 +564,40 @@ def test_wallclock_bench_rows_match_reference(monkeypatch):
                   "staleness_seen", "converged"):
             assert g[k] == w[k], (k, g, w)
         np.testing.assert_allclose(g["obj"], w["obj"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("constant", dict(comm_s=0.75)),
+    ("constant", dict(comm_s=0.5, bandwidth_bps=4096.0)),
+    ("lognormal", dict(comm_s=1.5, sigma=0.5, seed=3)),
+])
+def test_with_overlap_matches_reference_clock(kind, kw):
+    """The overlapped rounds' clock (`with_overlap`, after `with_wire`
+    where the clock has a bandwidth, as the engine installs them): every
+    work item pays max(compute, comm). The constant clock's durations and
+    eight ticks (masks and sim_time) are the reference's bit for bit; the
+    lognormal one's within its usual 8 ulps (its jitter draws). The
+    caller's clock is left as it was."""
+    speeds = (1.0 + (np.arange(M) % 4)).astype(np.float32)
+    port = make_clock(kind, M, compute_s=speeds, **kw)
+    ref = jax_clock.make_clock(kind, M, compute_s=speeds, **kw)
+    if "bandwidth_bps" in kw:
+        port, ref = port.with_wire(400, 800), ref.with_wire(400, 800)
+    before = port.durations_s.clone()
+    port_o, ref_o = port.with_overlap(), ref.with_overlap()
+    np.testing.assert_array_equal(port.durations_s.numpy(), before.numpy())
+    exact = kind == "constant"
+    if exact:
+        np.testing.assert_array_equal(port_o.durations_s.numpy(),
+                                      np.asarray(ref_o.durations_s))
+        assert not np.array_equal(port_o.durations_s.numpy(),
+                                  before.numpy())
+    ps, rs = port_o.init(), ref_o.init()
+    for t in range(8):
+        pm, pnow, ps = port_o.tick(ps, t)
+        rm, rnow, rs = ref_o.tick(rs, jnp.int32(t))
+        np.testing.assert_array_equal(pm.numpy(), np.asarray(rm))
+        if exact:
+            assert float(pnow) == float(rnow)
+        else:
+            np.testing.assert_allclose(float(pnow), float(rnow), rtol=1e-6)
