@@ -160,7 +160,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      defaults (scalar H, bf16 gradients, fp32 state), in the chunked
      driver (one captured chunk) and with `--no-scan`: the donated
      kernel once a round, the same f every round and final states bit
-     for bit; then the round after the last one's `fedgia_update` at
+     for bit; the split of one eager round (torch.profiler, at most
+     ATTEMPTS sessions), whole only where every step the round runs
+     timed > 0 (`split_is_whole`), else timed by CUDA events and
+     printed as flagged spans; then the round after the last one's
+     `fedgia_update` at
      (2, N) in three forms (undonated with the 0-d h, donated with it,
      undonated with h (m, N)), each launched once and held to its plain
      version on every 16M-column tile (bitwise expected), the donated
@@ -214,10 +218,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    at world size 1
    over NCCL on cuda:0 (no process group outlives the phase), on the
    population run's data passed to it (m=16384, n=1024, d=262144, 20
-   rounds, tol 0): FedGiA_D, FedGiA with scalar H and the four baselines
+   rounds, FedProx and FedPD 10, tol 0): FedGiA_D, FedGiA with scalar H and the four baselines
    (at SHARDED_LR, their population lr), each barrier and overlapped
-   (`overlap="scatter"`), in the chunked driver (the NCCL collectives
-   captured with the rounds) and `--no-scan`, every run held to the
+   (`overlap="scatter"`), in the chunked driver (5-round chunks, the
+   NCCL collectives captured with the rounds) and `--no-scan`, every run held to the
    unsharded chunked run at STATE_RTOL / STATE_ATOL (history and every
    model-shaped state entry) and its ms a round printed beside the
    unsharded one; the FedGiA runs launch `fedgia_update_batched` (or
@@ -227,9 +231,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    all-reduces, one reduce-scatter and one all-gather overlapped (c10d
    events, `launch/mesh.py::profile_collectives`); FedGiA_D chunked with
    tol SHARDED_TOL, each round and its collectives inside a conditional
-   graph node; eq. (11)'s all-reduce alone timed with CUDA events. Then
-   `--shard-clients 2` on this one-card machine must raise with the
-   device count. NCCL across several cards is not exercised: one card.
+   graph node; eq. (11)'s all-reduce alone timed with CUDA events. The
+   sharded active store and uplink: FedGiA_D and SCAFFOLD under
+   uniform alpha 0.1 with store="active" (capacity 1638, each shard's
+   tile packed from its own rows), held to the unsharded
+   aggregate="packed" run, and under int8 + EF + crash,nan at 0.05 +
+   screening, held to the unsharded run of the same overlap, each
+   barrier and overlapped, chunked and --no-scan, with one eager round
+   of each profiled against the same budgets; their fedgia_update
+   launches join the count. Then `--shard-clients 2` on this one-card
+   machine must raise with the device count. NCCL across several cards
+   is not exercised: one card.
 3. Serving path, through `repro_torch.launch.serve` at full width with
    parameters drawn on the card from --seed, counts reset just before
    and read just after each run (after one short warm-up run each), each
@@ -387,10 +399,10 @@ BASELINE_PAIR = ["--rounds", "100"]
 # at 250 rounds)
 CPU_PAIR_ONLY = ("fedprox", "fedpd")
 # a cut of depth for the script's time (PERF.md §4): phase 2e's
-# wallclock_bench rows run to 200 rounds on the card and on the CPU (the
+# wallclock_bench rows run to 100 rounds on the card and on the CPU (the
 # reference's 400: its rows that converge do so by round 56, and the
-# others never converge)
-WALLCLOCK_ROUNDS = 200
+# others never converge; their CPU side took 80 s of the phase at 200)
+WALLCLOCK_ROUNDS = 100
 BASELINES = ("fedavg", "fedprox", "fedpd", "scaffold")
 POPULATION = ["--clients", "16384", "--dim", "1024", "--samples", "262144",
               "--rounds", "20", "--tol", "0", "--h-policy", "diag_ema"]
@@ -864,7 +876,10 @@ def hold_and_time(name, args, ops, ref, *, round_form):
         args = materialised(args)
     xbar, gbar, pi, h, sel, sigma, m, k0 = args
     want = plain(ref, *args)
-    donated = name == "fedgia_update_batched_donated"
+    # the round's one-client launch donates too (π' into π, z' into ḡ),
+    # as the one-client round calls it
+    donated = name == "fedgia_update_batched_donated" or (
+        name == "fedgia_update_single" and round_form)
     prep = None
     if donated:
         # writes π' into π and z' into ḡ (and x' into a materialised
@@ -1050,6 +1065,15 @@ def engine_pair(engine, counters, algo, state, batch, rounds, what, **kw):
 
 
 LABELS = ("gradient", "eq. (11)", "update kernel", "H refresh", "metrics")
+# the steps every FedGiA round runs (H refresh: diag_ema rounds only)
+ROUND_STEPS = ("gradient", "eq. (11)", "update kernel", "metrics")
+
+
+def split_is_whole(split, steps=ROUND_STEPS):
+    """Whether a round's split timed every step of `steps` that the round
+    runs: time > 0 for each. A torch.profiler session that lost a step's
+    kernels reads 0 there; such a split is not a device split."""
+    return all(split.get(k, 0.0) > 0 for k in steps)
 COPY_OPS = ("aten::copy_", "aten::cat", "aten::clone", "aten::constant_pad_nd")
 UPDATE_KERNEL = "fedgia_update_kernel"
 
@@ -1181,17 +1205,23 @@ def replayed_busy_us(res, argv, engine, prng):
 
 
 def event_split(res, modules, engine, pt):
-    """The split of one eager round after the run's last by CUDA events,
-    for a round whose torch.profiler sessions recorded no device time: the
-    span on the stream of each outermost labelled step (an event before
-    and after its call, the stream drained before each), host launch time
-    within the step included, and the rest of the round under "other".
-    Returns (split, wall_us), wall_us the whole round's span."""
-    fedgia_mod, hparams_mod, api_mod = modules
+    """`event_split_flat` of one eager round after the run's last."""
     algo, batch, state = res["algorithm"], res["batch"], res["state"]
     spec = pt.ravel_spec(state["x"])
     flat = engine.flatten_state(algo, state, spec)
     flat["rng"] = state["rng"].copy()
+    return event_split_flat(algo, batch, flat, spec, modules)
+
+
+def event_split_flat(algo, batch, flat, spec, modules):
+    """The split of one eager undonated round on the flat state (left as
+    it was) by CUDA events, for a round whose torch.profiler sessions
+    lost steps: the span on the stream of each outermost labelled step
+    (an event before and after its call, the stream drained before
+    each), host launch time within the step included, and the rest of the
+    round under "other". Returns (split, wall_us), wall_us the whole
+    round's span."""
+    fedgia_mod, hparams_mod, api_mod = modules
     spans, depth, undo = [], [0], []
 
     def timed(obj, name, label):
@@ -1242,11 +1272,11 @@ def event_split(res, modules, engine, pt):
 def round_split_phase(profiled, modules, engine, selection, pt, prng, card):
     """Phase 6: the split of one eager round after each run's last and
     the device's busy share in the replayed run, under torch.profiler. A
-    split without the round's gradient or update kernel, or a replayed
+    split that lost a step of the round (`split_is_whole`), or a replayed
     busy time under half the eager round's device work, is profiled
     again, at most ATTEMPTS times, every attempt printed. Where no session
-    recorded device time the round is split by CUDA events instead
-    (`event_split`), and said so; it raises if that records none."""
+    timed every step the round is split by CUDA events instead
+    (`event_split`), flagged as spans; it raises if those miss a step."""
     say(f"split of one eager round after each run's last (torch.profiler, "
         f"device us per step) and the device's busy share in a replayed "
         f"run, on {card}:")
@@ -1255,7 +1285,7 @@ def round_split_phase(profiled, modules, engine, selection, pt, prng, card):
             split, wall_us = profile_round(res, modules, engine, selection,
                                            pt)
             busy = sum(split.values())
-            whole = split["gradient"] > 0 and split["update kernel"] > 0
+            whole = split_is_whole(split)
             say(f"  {what} round, eager (session {attempt}): " + " ".join(
                 f"{k}={v:.1f}" for k, v in split.items()) +
                 f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, median "
@@ -1263,17 +1293,17 @@ def round_split_phase(profiled, modules, engine, selection, pt, prng, card):
                 + ("" if whole else " [kernels lost by the profiler]"))
             if whole:
                 break
-        if busy <= 0:
+        if not whole:
             split, span_us = event_split(res, modules, engine, pt)
             busy = sum(v for k, v in split.items() if k != "other")
-            say(f"  {what} round, eager: the profiler recorded no device "
-                f"time; spans by CUDA events (us, each step's launches "
-                f"included, not busy time): " + " ".join(
-                    f"{k}={v:.1f}" for k, v in split.items())
+            say(f"  {what} round, eager: no profiler session timed every "
+                f"step; [CUDA-event spans, not a device split] (us, each "
+                f"step's host launches included, not busy time): " +
+                " ".join(f"{k}={v:.1f}" for k, v in split.items())
                 + f" round={span_us:.1f}")
-            if busy <= 0:
+            if not split_is_whole(split):
                 raise SystemExit(f"{what}: neither the profiler nor CUDA "
-                                 f"events timed the round's steps")
+                                 f"events timed every step of the round")
         for attempt in range(1, ATTEMPTS + 1):
             per_round, rr = replayed_busy_us(res, argv, engine, prng)
             whole = per_round >= 0.5 * busy
@@ -3164,15 +3194,28 @@ def training_phase(train, fl_transformer, counters, launches, card, ops,
     for attempt in range(1, ATTEMPTS + 1):
         split, wall_us = full_width_split(algo, batch, flat, spec, modules)
         busy = sum(split.values())
-        whole = split["gradient"] > 0 and split["update kernel"] > 0
+        whole = split_is_whole(split)
         say(f"  split of one eager undonated round at full width "
             f"(torch.profiler, device us; session {attempt}): " + " ".join(
                 f"{k}={v:.1f}" for k, v in split.items())
             + f" busy={busy:.1f} wall={wall_us:.1f} (unprofiled, the "
             f"faster of 2) idle_share={1 - busy / wall_us:.4f}"
-            + ("" if whole else " [kernels lost by the profiler]"))
+            if whole else
+            f"  full-width profiler session {attempt} lost a step (" +
+            " ".join(f"{k}={v:.1f}" for k, v in split.items()) +
+            "): [kernels lost by the profiler, not a device split]")
         if whole:
             break
+    if not whole:
+        split, span_us = event_split_flat(algo, batch, flat, spec, modules)
+        say(f"  split of one eager undonated round at full width: "
+            f"[CUDA-event spans, not a device split] (us, each step's host "
+            f"launches included, not busy time): " + " ".join(
+                f"{k}={v:.1f}" for k, v in split.items())
+            + f" round={span_us:.1f}")
+        if not split_is_whole(split):
+            raise SystemExit("full-width split: neither the profiler nor "
+                             "CUDA events timed every step of the round")
     numbers = full_width_update(algo, batch, flat, spec, ops, ref, card)
     numbers["fedgia_update_batched_donated"]["launches"] = n[
         "fedgia_update_batched_donated"]
@@ -3441,9 +3484,43 @@ SHARDED_ALGOS = (
     ("fedpd", "fedpd", dict(lr=SHARDED_LR, fedpd_eta=1.0, inner_steps=5)),
     ("scaffold", "scaffold", dict(lr=SHARDED_LR)))
 SHARDED_ROUNDS = 20
+# a cut of depth for the phase's time (PERF.md §4): the two
+# baselines that take k0·inner_steps = 25 gradients a round run this
+# many rounds in phase 2i (their rows took 9.9 and 11.3 of its s at 20)
+SHARDED_SLOW = ("fedprox", "fedpd")
+SHARDED_SLOW_ROUNDS = 10
+# the chunked runs of phase 2i (sharded and their unsharded twins, tol 0)
+# replay one 5-round graph per chunk: a capture costs about its rounds'
+# kernel count, the 20-round captures of the int8 rounds ~1.5 s each on
+# an H100 (PERF.md §6); the rounds are the same bit for bit at any chunk
+# size
+SHARDED_CHUNK = 5
 # tol > 0 puts each round (and its collectives) in a conditional graph
 # node; a tolerance no round meets keeps all of them live
 SHARDED_TOL = 1e-30
+# the sharded active store and uplink: these two of SHARDED_ALGOS
+# under uniform STORE_ALPHA with store="active" (capacity 1638), and
+# under int8 + EF + crash,nan at SHARDED_FAULT_RATE + screening (phase
+# 2f's clip)
+SHARDED_STAGE_ALGOS = ("fedgia_d", "scaffold")
+SHARDED_FAULT_RATE = 0.05
+SHARDED_CLIP = 100.0
+
+
+def _stage_kw(stage, m, packed=False):
+    """run_rounds' arguments of a phase 2i stage ("active" or "uplink");
+    `packed`: the active store's packed eq. (11) (the unsharded twin)."""
+    from repro_torch.core.faults import Screening, make_faults
+    from repro_torch.core.selection import make_policy
+
+    if stage == "active":
+        return dict(participation=make_policy("uniform", m, STORE_ALPHA,
+                                              seed=0),
+                    store="active", aggregate="packed" if packed else "dense")
+    return dict(compression="int8", error_feedback=True,
+                faults=make_faults(["crash", "nan"], [SHARDED_FAULT_RATE],
+                                   num_clients=m, seed=0),
+                screening=Screening(clip_norm=SHARDED_CLIP))
 
 
 def _max_rel(a, b):
@@ -3462,7 +3539,7 @@ def _sharded_rank(batch):
     eq. (11) all-reduce timed alone. Returns the rows the parent prints
     and checks."""
     from repro_torch.config import FedConfig
-    from repro_torch.core import api
+    from repro_torch.core import api, compress
     from repro_torch.core.api import make_algorithm
     from repro_torch.core.engine import (
         flatten_state, make_round_fn, run_rounds, shard_inputs)
@@ -3493,36 +3570,84 @@ def _sharded_rank(batch):
         fed = FedConfig(algorithm=name, num_clients=m, k0=5, **hp)
         algo = make_algorithm(fed, model.loss, model=model)
         s0 = algo.init(model.init(dev), prng_key(1), init_batch=batch)
-        ref = run_rounds(algo, s0, batch, SHARDED_ROUNDS)
+        rounds = (SHARDED_SLOW_ROUNDS if label in SHARDED_SLOW
+                  else SHARDED_ROUNDS)
+        ref = run_rounds(algo, s0, batch, rounds, chunk_size=SHARDED_CHUNK)
         ref_ms = ref.wall_s / ref.rounds_run * 1e3
         for overlap in ("off", "scatter"):
             for scan in (True, False):
                 ops.reset_launches()
-                res = run_rounds(algo, s0, batch, SHARDED_ROUNDS, scan=scan,
-                                 mesh=mesh, overlap=overlap)
+                res = run_rounds(algo, s0, batch, rounds, scan=scan,
+                                 chunk_size=SHARDED_CHUNK, mesh=mesh,
+                                 overlap=overlap)
                 rows.append(_sharded_row(label, overlap, scan, res, ref,
                                          ref_ms, dict(ops.launches)))
         spec = pt.ravel_spec(s0["x"])
         s0f = flatten_state(algo, s0, spec)
         mask = torch.ones(m, dtype=torch.bool, device=dev)
         for overlap in ("off", "scatter"):
-            st = dict(s0f)
-            if overlap == "scatter":
-                slot = torch.zeros(
-                    (int(getattr(algo, "overlap_slot_rows", 1)),
-                     spec.padded_size), device=dev)
-                slot[0] = st["x"]
-                st["ovl_shard"] = slot
-            st, b = shard_inputs(algo, st, batch, mesh)
-            rf = make_round_fn(algo, mesh, masked=True, flat_spec=spec,
-                               overlap=overlap)
-            rf(dict(st), b, mask)  # warm-up, outside the profile
-            torch.cuda.synchronize(dev)
-            budgets[f"{label}/{overlap}"] = profile_collectives(
-                lambda: (rf(dict(st), b, mask),
-                         torch.cuda.synchronize(dev)),
-                spec.padded_size)[1]
+            budgets[f"{label}/{overlap}"] = _profiled_round(
+                algo, s0f, batch, spec, mesh, mask, overlap, dev,
+                make_round_fn, shard_inputs, profile_collectives)
         seconds[label] = time.perf_counter() - t_algo
+    # the sharded active store and uplink, each run held to its unsharded
+    # twin: the packed active run (the sharded branch's arithmetic; its
+    # overlapped form is the barrier run bit for bit), the uplink run of
+    # the same overlap (FedGiA's overlapped uplink runs at the round's
+    # end, under the next round's key and fault draws)
+    for label, name, hp in SHARDED_ALGOS:
+        if label not in SHARDED_STAGE_ALGOS:
+            continue
+        fed = FedConfig(algorithm=name, num_clients=m, k0=5, **hp)
+        algo = make_algorithm(fed, model.loss, model=model)
+        s0 = algo.init(model.init(dev), prng_key(1), init_batch=batch)
+        spec = pt.ravel_spec(s0["x"])
+        for stage in ("active", "uplink"):
+            t_algo = time.perf_counter()
+            tag = f"{label} {stage}"
+            twins = {}
+            for overlap in ("off", "scatter"):
+                if overlap == "scatter" and (stage == "active"
+                                             or name != "fedgia"):
+                    # the baselines' uplink runs where the barrier round
+                    # runs it: their unsharded overlapped run is the
+                    # barrier run bit for bit (tests/test_torch_sharded_
+                    # uplink.py), as the active store's is
+                    twins[overlap] = twins["off"]
+                    continue
+                twins[overlap] = run_rounds(
+                    algo, s0, batch, SHARDED_ROUNDS, overlap=overlap,
+                    chunk_size=SHARDED_CHUNK,
+                    **_stage_kw(stage, m, packed=True))
+            for overlap in ("off", "scatter"):
+                ref = twins[overlap]
+                for scan in (True, False):
+                    ops.reset_launches()
+                    res = run_rounds(algo, s0, batch, SHARDED_ROUNDS,
+                                     scan=scan, chunk_size=SHARDED_CHUNK,
+                                     mesh=mesh, overlap=overlap,
+                                     **_stage_kw(stage, m))
+                    rows.append(_sharded_row(
+                        tag, overlap, scan, res, ref,
+                        ref.wall_s / ref.rounds_run * 1e3,
+                        dict(ops.launches)))
+            kw = _stage_kw(stage, m)
+            s0f = flatten_state(algo, s0, spec)
+            if stage == "active":
+                pol = kw["participation"]
+                mask = pol.mask(pol.init(), 0)[0].to(dev)
+                rkw = dict(active_capacity=pol.active_capacity)
+            else:
+                mask = torch.ones(m, dtype=torch.bool, device=dev)
+                s0f["ef"] = torch.zeros((m, spec.padded_size), device=dev)
+                rkw = dict(compressor=compress.make_compressor(
+                    "int8", error_feedback=True), faults=kw["faults"],
+                    screening=kw["screening"])
+            for overlap in ("off", "scatter"):
+                budgets[f"{tag}/{overlap}"] = _profiled_round(
+                    algo, s0f, batch, spec, mesh, mask, overlap, dev,
+                    make_round_fn, shard_inputs, profile_collectives, **rkw)
+            seconds[tag] = time.perf_counter() - t_algo
     # the chunked driver with tol > 0: each round in a conditional node
     fed = FedConfig(algorithm="fedgia", num_clients=m, k0=5,
                     **SHARDED_ALGOS[0][2])
@@ -3548,20 +3673,45 @@ def _sharded_rank(batch):
             "seconds": time.perf_counter() - t0, "algo_seconds": seconds}
 
 
+def _profiled_round(algo, s0f, batch, spec, mesh, mask, overlap, dev,
+                    make_round_fn, shard_inputs, profile_collectives, **kw):
+    """The collectives of one eager sharded round on the flat state `s0f`
+    (the overlapped one with the slot seeded), after a warm-up round
+    outside the profile; `kw` go to `make_round_fn` (the active
+    capacity, the uplink)."""
+    st = dict(s0f)
+    if overlap == "scatter":
+        slot = torch.zeros((int(getattr(algo, "overlap_slot_rows", 1)),
+                            spec.padded_size), device=dev)
+        slot[0] = st["x"]
+        st["ovl_shard"] = slot
+    st, b = shard_inputs(algo, st, batch, mesh)
+    rf = make_round_fn(algo, mesh, masked=True, flat_spec=spec,
+                       overlap=overlap, **kw)
+    rf(dict(st), b, mask)  # warm-up, outside the profile
+    torch.cuda.synchronize(dev)
+    return profile_collectives(
+        lambda: (rf(dict(st), b, mask), torch.cuda.synchronize(dev)),
+        spec.padded_size)[1]
+
+
 def _sharded_row(label, overlap, scan, res, ref, ref_ms, launches):
     """One sharded run against the unsharded one: rounds, the worst
-    relative gap of the history and of each model-shaped state entry,
-    whether they are within the sync tolerance, its replayed (or eager)
-    ms a round beside the unsharded replayed one, and its launches."""
+    relative gap of each history entry and of each model-shaped state
+    entry, whether they are within the sync tolerance, which are not
+    bitwise, its replayed (or eager) ms a round beside the unsharded
+    replayed one, and its launches."""
     import numpy as np
 
     ok = res.rounds_run == ref.rounds_run
-    gaps = {}
-    for k in ("f_xbar", "grad_sq_norm", "selected", "cr"):
+    gaps, apart = {}, []
+    for k in ref.history:
         a, b = np.asarray(res.history[k]), np.asarray(ref.history[k])
-        ok = ok and bool(np.allclose(a, b, rtol=STATE_RTOL,
-                                     atol=STATE_ATOL))
-        gaps[k] = _max_rel(a, b)
+        ok = ok and a.shape == b.shape and bool(np.allclose(
+            a, b, rtol=STATE_RTOL, atol=STATE_ATOL))
+        gaps[k] = _max_rel(a, b) if a.shape == b.shape else float("inf")
+        if a.shape != b.shape or not np.array_equal(a, b):
+            apart.append(k)
     for k, tree in ref.state.items():
         if not isinstance(tree, dict):
             continue
@@ -3570,9 +3720,13 @@ def _sharded_row(label, overlap, scan, res, ref, ref_ms, launches):
             ok = ok and bool(torch.allclose(got, want, rtol=STATE_RTOL,
                                             atol=STATE_ATOL))
             gaps[f"{k}.{leaf}"] = _max_rel(got, want)
+            if not torch.equal(got, want):
+                apart.append(f"{k}.{leaf}")
     return {"label": label, "overlap": overlap,
             "driver": "chunked" if scan else "--no-scan",
-            "rounds": res.rounds_run, "ok": ok, "max_rel": gaps,
+            "rounds": res.rounds_run, "want_rounds": ref.rounds_run,
+            "ok": ok, "max_rel": gaps,
+            "not_bitwise": apart,
             "ms": res.wall_s / res.rounds_run * 1e3, "unsharded_ms": ref_ms,
             "launches": launches}
 
@@ -3587,9 +3741,17 @@ def sharded_phase(train, launch, card, batch):
                 "fedgia_update_batched_donated": 0}
     t_phase = time.perf_counter()
     say(f"client-sharded rounds at world size 1 over NCCL (population "
-        f"data, {SHARDED_ROUNDS} rounds, tol 0; baselines at lr "
+        f"data, {SHARDED_ROUNDS} rounds ({SHARDED_SLOW_ROUNDS} for "
+        f"{', '.join(SHARDED_SLOW)}), tol 0; baselines at lr "
         f"{SHARDED_LR}), each against the unsharded chunked run at rtol "
-        f"{STATE_RTOL}, atol {STATE_ATOL}, on {card}:")
+        f"{STATE_RTOL}, atol {STATE_ATOL} (a history entry whose sharded "
+        f"formula differs, the gradient norm's reduce-scattered sum of "
+        f"squares, is expected not bitwise; the states are), on {card}; "
+        f"the 'active' rows under uniform {STORE_ALPHA} with "
+        f"store='active' against the unsharded aggregate='packed' run, "
+        f"the 'uplink' rows under int8 + EF + crash,nan at "
+        f"{SHARDED_FAULT_RATE} + screening (clip {SHARDED_CLIP}) against "
+        f"the unsharded run of the same overlap:")
     out = launch(_sharded_rank, 1, batch, device="cuda")
     bad = []
     for r in out["rows"]:
@@ -3598,13 +3760,17 @@ def sharded_phase(train, launch, card, batch):
             f"{r['rounds']} rounds, {r['ms']!r} ms a round against "
             f"{r['unsharded_ms']!r} unsharded (replayed), worst relative "
             f"gap {worst!r} ({'within' if r['ok'] else 'OUTSIDE'} the "
-            f"tolerance); launches {r['launches']}")
-        if not r["ok"] or r["rounds"] != SHARDED_ROUNDS:
+            f"tolerance); not bitwise: {r['not_bitwise'] or 'none'}; "
+            f"launches {r['launches']}")
+        want = (SHARDED_SLOW_ROUNDS if r["label"] in SHARDED_SLOW
+                else SHARDED_ROUNDS)
+        if not r["ok"] or r["rounds"] != want or r["want_rounds"] != want:
             bad.append(f"{r['label']}/{r['overlap']}/{r['driver']}")
         if r["label"].startswith("fedgia"):
             # diag_ema's H refresh reads ḡ after the update: the undonated
             # form; scalar H the donated one
-            kern = ("fedgia_update_batched" if r["label"] == "fedgia_d"
+            kern = ("fedgia_update_batched"
+                    if r["label"].startswith("fedgia_d")
                     else "fedgia_update_batched_donated")
             if r["launches"][kern] != SHARDED_ROUNDS:
                 bad.append(f"{r['label']}/{r['overlap']}/{r['driver']}: "

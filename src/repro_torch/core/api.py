@@ -19,12 +19,14 @@ before one.
 views take the flat buffers or trees of leaves (the per-leaf rounds of
 `run_rounds(flat=False)`).
 The `_active` twins reduce a round's packed participant tile
-(`store="active"` / `"offload"`, `utils.pytree.ActiveSet`). The uplink
-stages (the codec of `core/compress.py`, the faults and screening of
-`core/faults.py`) run between a round's local work and its eq. (11).
-Both stay unsharded: under a client mesh they raise (ROADMAP queue 1,
-item 9b). The stale-x̄ state of the async rounds (`StaleXbar`) and its
-views close the module.
+(`store="active"` / `"offload"`, `utils.pytree.ActiveSet`); under a
+client mesh each shard packs its own rows and the tile's sums ride the
+same collectives as the dense round's. The uplink stages (the codec of
+`core/compress.py`, the faults and screening of `core/faults.py`) run
+between a round's local work and its eq. (11), shard-local and keyed on
+GLOBAL client row ids, so a client draws the same noise and faults
+sharded or not. The stale-x̄ state of the async rounds (`StaleXbar`)
+and its views close the module.
 """
 from __future__ import annotations
 
@@ -261,14 +263,6 @@ def client_scalar_max(x: torch.Tensor) -> torch.Tensor:
     return _all_reduce(x.clone(), dist.ReduceOp.MAX)
 
 
-def _refuse_sharded(what: str) -> None:
-    """The stages that stay unsharded in this slice raise under a mesh."""
-    if _CLIENT_AXIS is not None:
-        raise NotImplementedError(
-            f"{what} is not sharded in the port: the sharded active store, "
-            "codecs, faults and screening are ROADMAP queue 1, item 9b")
-
-
 def broadcast_clients(tree, m: int):
     """m copies of a tensor (or dict of tensors) along a new leading
     client axis, as a stride-0 view: a caller that needs its own buffer
@@ -297,19 +291,29 @@ def _flat_sq_norm(vec: torch.Tensor, spec) -> torch.Tensor:
     return total
 
 
-def _sharded_sum_sq(g_sum: torch.Tensor) -> torch.Tensor:
+def _sharded_sum_sq(g_sum: torch.Tensor, riders=()):
     """||Σ over all shards of g_sum||² without the replicated sum: one
     reduce-scatter hands each shard a column chunk of the sum, and a
-    scalar all-reduce adds the chunks' squared norms (a whole-buffer
-    all-reduce where the columns do not divide over the shards)."""
+    scalar all-reduce adds the chunks' squared norms and the 0-d
+    `riders` (a whole-buffer all-reduce, the riders at its end, where the
+    columns do not divide over the shards). Returns (||Σ||², the summed
+    riders as a float32 vector)."""
     ax = _CLIENT_AXIS
     n = g_sum.shape[0]
     if n % ax.shards:
-        total = _all_reduce(g_sum.contiguous())
-        return torch.dot(total, total)
+        if not riders:
+            total = _all_reduce(g_sum.contiguous())
+            return torch.dot(total, total), None
+        total, red = _psum_packed(g_sum, riders)
+        return torch.dot(total, total), red
     chunk = g_sum.new_empty((n // ax.shards,))
     _reduce_scatter(chunk, g_sum.contiguous())
-    return _all_reduce(torch.dot(chunk, chunk))
+    if not riders:
+        return _all_reduce(torch.dot(chunk, chunk)), None
+    red = _all_reduce(torch.stack(
+        [torch.dot(chunk, chunk).to(torch.float32)]
+        + [torch.as_tensor(v).to(torch.float32) for v in riders]))
+    return red[0], red[1:]
 
 
 def flat_grad_sq_norm(grads_flat: torch.Tensor, spec) -> torch.Tensor:
@@ -320,7 +324,7 @@ def flat_grad_sq_norm(grads_flat: torch.Tensor, spec) -> torch.Tensor:
     if _CLIENT_AXIS is None:
         return _flat_sq_norm(client_mean(grads_flat), spec)
     m = grads_flat.shape[0] * _CLIENT_AXIS.shards
-    return _sharded_sum_sq(torch.sum(grads_flat, dim=0)) / float(m) ** 2
+    return _sharded_sum_sq(torch.sum(grads_flat, dim=0))[0] / float(m) ** 2
 
 
 def flat_round_aggregate(contrib: torch.Tensor, grads: torch.Tensor,
@@ -422,10 +426,7 @@ def flat_overlap_aggregate(contrib: torch.Tensor, grads, losses, sel_vec,
     if grad_sum is None:
         grad_sum = torch.sum(grads, dim=0)
     rows.append(grad_sum.to(num.dtype))
-    r, cols = len(rows), n // shards
-    stacked = torch.stack(rows).view(r, shards, cols).transpose(0, 1)
-    chunks = num.new_empty((r, cols))
-    _reduce_scatter(chunks, stacked.reshape(shards * r, cols))
+    chunks = _scatter_columns(rows)
     g = chunks[-1]
     scalars = [torch.dot(g, g), torch.sum(losses), torch.sum(sel_vec)]
     if den is not None:
@@ -439,17 +440,50 @@ def flat_overlap_aggregate(contrib: torch.Tensor, grads, losses, sel_vec,
     return torch.stack(slot), red[0] / float(m) ** 2, red[1] / m, red[2]
 
 
+def _scatter_columns(rows):
+    """Sum the stacked (rows, N) buffer over the shards and keep this
+    shard's (rows, N/shards) column chunk: ONE reduce-scatter (dim 0
+    only, so each shard's columns go through a (shards, rows, N/shards)
+    transpose)."""
+    shards = _CLIENT_AXIS.shards
+    r, cols = len(rows), rows[0].shape[0] // shards
+    stacked = torch.stack(rows).view(r, shards, cols).transpose(0, 1)
+    chunks = rows[0].new_empty((r, cols))
+    _reduce_scatter(chunks, stacked.reshape(shards * r, cols))
+    return chunks
+
+
+def _active_sums(contrib_tile: torch.Tensor, active, weights):
+    """The packed O(capacity) eq. (11) numerator of a tile (padding and
+    screened rows zeroed; with the DENSE (m,) `weights`, each row's
+    weight gathered) and its denominator: the participant count, or the
+    weight sum."""
+    contrib_z = active.zero_invalid(contrib_tile)
+    if weights is None:
+        return torch.sum(contrib_z, dim=0), active.count
+    w_t = torch.where(active.valid, active.gather(
+        torch.where(active.mask, weights, 0.0)).to(torch.float32), 0.0)
+    return (torch.sum(_rows(w_t, contrib_z).to(contrib_z.dtype) * contrib_z,
+                      dim=0), torch.sum(w_t))
+
+
 def flat_grad_sq_norm_active(grads_tile: torch.Tensor, active,
                              spec) -> torch.Tensor:
     """The participant-gradient diagnostic ||(1/|C|) Σ_{i∈C} ∇f_i||² over
     the packed (capacity, N) gradient tile (`utils.pytree.ActiveSet`).
     This is the active store's `grad_sq_norm`: the server never contacted
     the frozen clients this round, so the eq. (35) stop gates on the
-    participants' mean gradient. Padding rows are zeroed."""
-    _refuse_sharded("the active store's aggregate")
+    participants' mean gradient. Padding rows are zeroed. Under
+    `client_sharding` the tile's gradient sum is reduce-scattered and
+    the chunk's squared norm and the participant count ride one scalar
+    all-reduce (both in one all-reduce where the columns do not divide
+    over the shards)."""
     g = active.zero_invalid(grads_tile)
-    return _flat_sq_norm(torch.sum(g, dim=0) / active.count.to(g.dtype),
-                         spec)
+    if _CLIENT_AXIS is None:
+        return _flat_sq_norm(torch.sum(g, dim=0) / active.count.to(g.dtype),
+                             spec)
+    sq, red = _sharded_sum_sq(torch.sum(g, dim=0), [active.count])
+    return sq / red[0] ** 2
 
 
 def flat_round_aggregate_active(contrib_tile: torch.Tensor,
@@ -477,22 +511,22 @@ def flat_round_aggregate_active(contrib_tile: torch.Tensor,
     staleness weights (:func:`stale_weights`). `extra_mean_tile` is a
     plain all-client mean (SCAFFOLD's control-variate delta, exact zeros
     on frozen clients): its sum over m. Returns
-    ``(agg, grad_sq_norm, f_mean, n_sel[, extra])``."""
+    ``(agg, grad_sq_norm, f_mean, n_sel[, extra])``.
+
+    Under `client_sharding` the tile is this shard's, packed from its own
+    rows: the packed sums (the `packed` arithmetic, whatever the flag),
+    SCAFFOLD's rider concatenated onto the numerator, and the loss sum,
+    the participant count and the weight sum ride ONE all-reduce; the
+    rider is divided by the global m."""
     gsq = flat_grad_sq_norm_active(grads_tile, active, spec)
+    if _CLIENT_AXIS is not None:
+        return _sharded_aggregate_active(contrib_tile, losses_tile, active,
+                                         weights, extra_mean_tile, gsq)
     n_sel = active.count
     f_mean = torch.sum(active.zero_invalid(losses_tile)) / n_sel
     m = active.num_clients
     if active.packed:
-        contrib_z = active.zero_invalid(contrib_tile)
-        if weights is None:
-            num, den = torch.sum(contrib_z, dim=0), n_sel
-        else:
-            w_t = torch.where(active.valid, active.gather(
-                torch.where(active.mask, weights, 0.0)).to(torch.float32),
-                0.0)
-            num = torch.sum(_rows(w_t, contrib_z).to(contrib_z.dtype)
-                            * contrib_z, dim=0)
-            den = torch.sum(w_t)
+        num, den = _active_sums(contrib_tile, active, weights)
         out = (num / den.to(num.dtype), gsq, f_mean, n_sel)
         if extra_mean_tile is not None:
             out = out + (torch.sum(active.zero_invalid(extra_mean_tile),
@@ -507,6 +541,74 @@ def flat_round_aggregate_active(contrib_tile: torch.Tensor,
         out = out + (torch.mean(active.scatter(extra, extra_mean_tile),
                                 dim=0),)
     return out
+
+
+def _sharded_aggregate_active(contrib_tile, losses_tile, active, weights,
+                              extra_mean_tile, gsq):
+    """`flat_round_aggregate_active` on a sharded axis: the round's ONE
+    model-size all-reduce."""
+    m = active.num_clients * _CLIENT_AXIS.shards
+    num, den = _active_sums(contrib_tile, active, weights)
+    n_buf = num.shape[0]
+    if extra_mean_tile is not None:
+        num = torch.cat([num, torch.sum(active.zero_invalid(extra_mean_tile),
+                                        dim=0).to(num.dtype)])
+    num, red = _psum_packed(num, [
+        torch.sum(active.zero_invalid(losses_tile)), active.count, den])
+    out = (num[:n_buf] / red[2].to(num.dtype), gsq, red[0] / red[1], red[1])
+    if extra_mean_tile is not None:
+        out = out + (num[n_buf:] / m,)
+    return out
+
+
+def flat_overlap_aggregate_active(contrib_tile: torch.Tensor,
+                                  grads_tile: torch.Tensor,
+                                  losses_tile: torch.Tensor, active, spec,
+                                  weights: Optional[torch.Tensor] = None,
+                                  extra_mean_tile: Optional[
+                                      torch.Tensor] = None):
+    """Active-store twin of :func:`flat_overlap_aggregate`: the packed
+    participant tile reduced into the next round's carry slot. The
+    arguments are :func:`flat_round_aggregate_active`'s; returns
+    ``(slot', grad_sq_norm, f_mean, n_sel)`` with the active store's
+    participant diagnostics.
+
+    Unsharded it is :func:`flat_round_aggregate_active` with its outputs
+    stacked, so the overlapped active run is the barrier one bit for bit.
+    Under `client_sharding` the zeroed tile's numerator, the rider and
+    the gradient sum are stacked into one column-wise reduce-scatter (the
+    round's ONE model-size collective, laid out as the dense overlap's),
+    and the chunk's squared norm, the loss sum, the participant count and
+    the weight sum ride one scalar all-reduce."""
+    if _CLIENT_AXIS is None:
+        out = flat_round_aggregate_active(contrib_tile, grads_tile,
+                                          losses_tile, active, spec,
+                                          weights=weights,
+                                          extra_mean_tile=extra_mean_tile)
+        rows = [out[0]] if extra_mean_tile is None else [out[0], out[4]]
+        return torch.stack(rows), out[1], out[2], out[3]
+    shards = _CLIENT_AXIS.shards
+    m = active.num_clients * shards
+    n = contrib_tile.shape[-1]
+    if n % shards:
+        raise ValueError(f"overlap reduce-scatter needs padded_size {n} "
+                         f"divisible by {shards} shards")
+    num, den = _active_sums(contrib_tile, active, weights)
+    rows = [num]
+    if extra_mean_tile is not None:
+        rows.append(torch.sum(active.zero_invalid(extra_mean_tile),
+                              dim=0).to(num.dtype))
+    rows.append(torch.sum(active.zero_invalid(grads_tile),
+                          dim=0).to(num.dtype))
+    chunks = _scatter_columns(rows)
+    g = chunks[-1]
+    scalars = (torch.dot(g, g), torch.sum(active.zero_invalid(losses_tile)),
+               active.count, den)
+    red = _all_reduce(torch.stack([v.to(torch.float32) for v in scalars]))
+    slot = [chunks[0] / red[3].to(chunks.dtype)]
+    if extra_mean_tile is not None:
+        slot.append(chunks[1] / m)
+    return torch.stack(slot), red[0] / red[2] ** 2, red[1] / red[2], red[2]
 
 
 # --------------------------------------------------------------------------
@@ -525,10 +627,31 @@ def codec_key(state, device) -> torch.Tensor:
                       device)
 
 
+def next_codec_key(state, rng, device) -> torch.Tensor:
+    """The codec base key of the round AFTER this one, as `codec_key`
+    makes it: the overlapped FedGiA round uploads at its end what the
+    next round aggregates, under the key that barrier round would draw.
+    The chunked driver's upload (``state["codec_key_next"]``), else the
+    fold of `rng` (the key after this round's split) with round + 1."""
+    if "codec_key_next" in state:
+        return state["codec_key_next"]
+    return prng.key_t(compress.round_key(rng, state["round"] + 1), device)
+
+
+def _global_ids(ids: torch.Tensor, m_local: int) -> torch.Tensor:
+    """This shard's row ids (in [0, m_local)) as GLOBAL client ids: the
+    shard's offset ``index · m_local`` added under `client_sharding`, so
+    client i's codec noise and fault draws are the same sharded or not
+    (without it every shard would draw shard 0's)."""
+    if _CLIENT_AXIS is None:
+        return ids
+    return ids + _CLIENT_AXIS.index * m_local
+
+
 def _compress_row_ids(m: int, device) -> torch.Tensor:
-    """GLOBAL client row ids of the (m,) client axis: client i's codec
+    """GLOBAL client row ids of this shard's (m,) rows: client i's codec
     and fault keys fold in i, in every store."""
-    return torch.arange(m, dtype=torch.int64, device=device)
+    return _global_ids(torch.arange(m, dtype=torch.int64, device=device), m)
 
 
 def compress_upload(compressor, contrib: torch.Tensor,
@@ -547,7 +670,6 @@ def compress_upload(compressor, contrib: torch.Tensor,
     of the lane-padded tail is forced back to zero. ``key`` (stochastic
     codecs): the round's base key (`codec_key`); client keys fold in the
     GLOBAL row ids (``row_ids``: the active store's resident ids)."""
-    _refuse_sharded("the uplink codec")
     u = contrib if ef is None else contrib + ef
     keys = None
     if compressor.stochastic:
@@ -582,8 +704,9 @@ def compress_upload_active(compressor, contrib_tile: torch.Tensor,
     (``active.tile_state``) the residual tile, which its engine writes
     back."""
     ef_t = None if ef is None else active.gather_state(ef)
-    dec_t, ef_new_t = compress_upload(compressor, contrib_tile, ef_t, spec,
-                                      key=key, row_ids=active.idx)
+    dec_t, ef_new_t = compress_upload(
+        compressor, contrib_tile, ef_t, spec, key=key,
+        row_ids=_global_ids(active.idx, active.num_clients))
     if ef is None:
         return dec_t, None
     return dec_t, active.scatter_state(ef, ef_new_t)
@@ -598,8 +721,8 @@ def harden_upload(contrib: torch.Tensor, mask: Optional[torch.Tensor], spec,
     `Screening` finite check and clip. Returns ``(contrib', mask',
     prev', n_screened)``: every row finite and non-arriving rows zero,
     the screened mask (within ``mask``), the advanced replay buffer
-    (None without one) and the count of rows that survived (float32)."""
-    _refuse_sharded("fault injection and screening")
+    (None without one) and the count of rows that survived (float32),
+    over every shard (a scalar all-reduce under `client_sharding`)."""
     row_ids = _compress_row_ids(contrib.shape[0], contrib.device)
     prev_new = None
     if faults is not None:
@@ -625,14 +748,14 @@ def harden_upload_active(contrib_tile: torch.Tensor, active, spec, *,
     SCAFFOLD's rider with it). The replay buffer goes through
     ``gather_state``/``scatter_state`` like the EF residual. Returns
     ``(tile', active', prev', n_screened)``."""
-    _refuse_sharded("fault injection and screening")
     ok = active.valid
     prev_new = None
     if faults is not None:
         prev_t = (active.gather_state(fault_prev)
                   if fault_prev is not None else None)
         contrib_tile, ok, prev_t_new = faults.apply(
-            contrib_tile, ok, prev_t, round_idx, active.idx,
+            contrib_tile, ok, prev_t, round_idx,
+            _global_ids(active.idx, active.num_clients),
             payload_cols=spec.size)
         if prev_t_new is not None:
             prev_new = active.scatter_state(fault_prev, prev_t_new)
@@ -854,8 +977,9 @@ def stale_xbar_view_active(stale: StaleXbar, xbar: torch.Tensor, active):
     arrives as the gathered (capacity, N) tile and the resident anchor is
     in host memory: the refresh write is the engine's, so ``stale.anchor``
     comes back as the fresh (N,) x̄, whose exact bits the engine writes
-    into the refreshed host rows. Returns ``(anchor_tile, stale)``."""
-    _refuse_sharded("the active store's stale-x̄ view")
+    into the refreshed host rows. Under `client_sharding` the tile, the
+    resident anchor, `age` and `last_used` are the shard's rows, and the
+    view issues no collective. Returns ``(anchor_tile, stale)``."""
     if stale.always_fresh:
         _fresh(stale)
         return broadcast_clients(xbar, active.capacity), stale

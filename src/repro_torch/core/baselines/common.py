@@ -21,12 +21,14 @@ the fault injection and screening, whose mask replaces the round's for
 the aggregation only.
 
 Client sharding and overlap (`run_rounds(mesh=..., overlap=...)`): a
-round's per-client rows are the shard's (`api.local_client_count`),
-eq. (11) and the metrics go through the sharded `api`, and in an
-overlapped round (the engine's ``state["ovl_shard"]`` slot) the anchor
-is the slot's consensus (`start`) and eq. (11) reduces into the next
-slot (`aggregate`): x lags one round, and the engine's finalize takes
-the last slot.
+round's per-client rows (or its packed tile) are the shard's
+(`api.local_client_count`), eq. (11) and the metrics go through the
+sharded `api`, and in an overlapped round (the engine's
+``state["ovl_shard"]`` slot) the anchor is the slot's consensus
+(`start`) and eq. (11) reduces into the next slot (`aggregate`,
+`aggregate_active`): x lags one round, and the engine's finalize takes
+the last slot. The uplink runs where the barrier round runs it, before
+the reduction, under the round's own key.
 
 Each baseline's `round` is the per-leaf twin of its `round_flat`
 (`run_rounds(flat=False)`): the k0 local steps on the state's dicts,
@@ -118,6 +120,23 @@ class FlatBaseline:
             out = api.flat_round_aggregate(*args, **kw)
             return out[:4], (out[4] if extra_mean is not None else None), {}
         slot, gsq, f_mean, n_sel = api.flat_overlap_aggregate(*args, **kw)
+        return (x_used, gsq, f_mean, n_sel), None, {"ovl_shard": slot}
+
+    def aggregate_active(self, state, x_used, contrib_tile, grads0, losses0,
+                         spec, active, stale, extra_mean_tile=None):
+        """`aggregate` on the packed participant tile:
+        `api.flat_round_aggregate_active`, or in an overlapped round
+        `api.flat_overlap_aggregate_active` into the next slot. Returns
+        `aggregate`'s triple."""
+        args = (contrib_tile, grads0, losses0, active, spec)
+        kw = dict(weights=api.stale_weights(stale),
+                  extra_mean_tile=extra_mean_tile)
+        if "ovl_shard" not in state:
+            out = api.flat_round_aggregate_active(*args, **kw)
+            return out[:4], (out[4] if extra_mean_tile is not None
+                             else None), {}
+        slot, gsq, f_mean, n_sel = api.flat_overlap_aggregate_active(*args,
+                                                                     **kw)
         return (x_used, gsq, f_mean, n_sel), None, {"ovl_shard": slot}
 
     def upload(self, state, contrib, spec, mask, compressor=None,

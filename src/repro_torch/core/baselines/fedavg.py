@@ -65,17 +65,20 @@ class FedAvg(FlatBaseline):
         the k0 trajectories exist only for the (capacity,) gathered
         clients. FedAvg has no per-client state, so nothing is scattered
         back. The state is bitwise the dense masked round's; the loss and
-        gradient diagnostics are participant means."""
+        gradient diagnostics are participant means. An overlapped round
+        starts from the slot's consensus and reduces into the next slot
+        (`aggregate_active`)."""
+        x_used, _, _ = self.start(state)
         xc = self._anchors(state, active.capacity, stale=stale,
-                           active=active)
+                           active=active, x=x_used)
         x, losses0, grads0 = self._local(state, active.gather_tree(batch),
                                          spec, xc)
         x, active, updates, n_scr = self.upload_active(
             state, x, spec, active, compressor, faults, screening)
-        agg = api.flat_round_aggregate_active(
-            x, grads0, losses0, active, spec,
-            weights=api.stale_weights(stale))
-        return self._result(state, agg, self.fed.k0, n_scr, **updates)
+        agg, _, ovl = self.aggregate_active(state, x_used, x, grads0,
+                                            losses0, spec, active, stale)
+        return self._result(state, agg, self.fed.k0, n_scr, **updates,
+                            **ovl)
 
     def round(self, state, batch, mask=None, stale=None):
         """`round_flat` on the state's dicts (`run_rounds(flat=False)`):

@@ -87,21 +87,22 @@ class FedPD(FlatBaseline):
         `lam`, advanced on the (capacity, N) tile and SCATTERED back in
         place; frozen clients' rows are never touched (the dense round's
         `masked_update`, row for row), and the padding rows' writes are
-        dropped."""
+        dropped. An overlapped round resets the anchors to the slot's
+        consensus and reduces into the next slot."""
         fed = self.fed
+        x_used, _, _ = self.start(state)
         xc = self._anchors(state, active.capacity, stale=stale,
-                           active=active)
+                           active=active, x=x_used)
         anchor, lam_t, losses0, grads0 = self._local(
             state, active.gather_tree(batch), spec, xc,
             active.gather_state(state["lam"]))
         lam = active.scatter_state(state["lam"], lam_t)
         anchor, active, updates, n_scr = self.upload_active(
             state, anchor, spec, active, compressor, faults, screening)
-        agg = api.flat_round_aggregate_active(
-            anchor, grads0, losses0, active, spec,
-            weights=api.stale_weights(stale))
+        agg, _, ovl = self.aggregate_active(state, x_used, anchor, grads0,
+                                            losses0, spec, active, stale)
         return self._result(state, agg, fed.k0 * fed.inner_steps, n_scr,
-                            lam=lam, **updates)
+                            lam=lam, **updates, **ovl)
 
     def round(self, state, batch, mask=None, stale=None):
         """`round_flat` on the state's dicts (`run_rounds(flat=False)`):

@@ -62,18 +62,18 @@ class FedProx(FlatBaseline):
         """`round_flat` on the packed participant tile (store="active"):
         the proximal trajectories exist only for the gathered clients.
         See `FedAvg.round_flat_active`."""
+        x_used, _, _ = self.start(state)
         xc = self._anchors(state, active.capacity, stale=stale,
-                           active=active)
+                           active=active, x=x_used)
         x, losses0, grads0 = self._local(state, active.gather_tree(batch),
                                          spec, xc)
         x, active, updates, n_scr = self.upload_active(
             state, x, spec, active, compressor, faults, screening)
-        agg = api.flat_round_aggregate_active(
-            x, grads0, losses0, active, spec,
-            weights=api.stale_weights(stale))
+        agg, _, ovl = self.aggregate_active(state, x_used, x, grads0,
+                                            losses0, spec, active, stale)
         return self._result(state, agg,
                             self.fed.k0 * self.fed.inner_steps, n_scr,
-                            **updates)
+                            **updates, **ovl)
 
     def round(self, state, batch, mask=None, stale=None):
         """`round_flat` on the state's dicts (`run_rounds(flat=False)`):

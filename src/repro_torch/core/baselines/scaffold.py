@@ -113,23 +113,26 @@ class Scaffold(FlatBaseline):
         place (frozen rows untouched). The server variate keeps the
         all-client 1/m: frozen clients' deltas are exact zeros, so the
         tile's delta summed over m (`extra_mean_tile`) is the dense
-        round's mean, bit for bit."""
+        round's mean, bit for bit. An overlapped round takes x̄ and the
+        server variate from the slot, as `round_flat`'s does."""
+        x_used, cons, _ = self.start(state)
+        c_used = state["c"] if cons is None else state["c"] + cons[1]
         xc = self._anchors(state, active.capacity, stale=stale,
-                           active=active)
+                           active=active, x=x_used)
         ci_t = active.gather_state(state["ci"])
         y, ci_new_t, losses0, grads0 = self._local(
-            state, active.gather_tree(batch), spec, xc, ci_t)
+            state, active.gather_tree(batch), spec, xc, ci_t, c_used)
         ci = active.scatter_state(state["ci"], ci_new_t)
         # the screened ActiveSet's `valid` zeroes the screened rows out of
         # the variate rider too
         y, active, updates, n_scr = self.upload_active(
             state, y, spec, active, compressor, faults, screening)
-        *agg, dci = api.flat_round_aggregate_active(
-            y, grads0, losses0, active, spec,
-            weights=api.stale_weights(stale),
+        agg, dci, ovl = self.aggregate_active(
+            state, x_used, y, grads0, losses0, spec, active, stale,
             extra_mean_tile=ci_new_t - ci_t)
-        return self._result(state, agg, self.fed.k0, n_scr,
-                            c=state["c"] + dci, ci=ci, **updates)
+        c_new = c_used if dci is None else state["c"] + dci
+        return self._result(state, agg, self.fed.k0, n_scr, c=c_new, ci=ci,
+                            **updates, **ovl)
 
     def round(self, state, batch, mask=None, stale=None):
         """`round_flat` on the state's dicts (`run_rounds(flat=False)`):

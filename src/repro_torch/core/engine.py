@@ -66,7 +66,9 @@ round, on the device; the engine makes the codec's error-feedback
 residual ``ef`` and the replay buffer ``fault_prev`` as (m, N) client
 buffers. The stochastic codecs' key is the round's key before its split:
 the chunked driver, which keeps the key on the host, computes a chunk's
-keys there and uploads them beside its masks.
+keys there and uploads them beside its masks, one more than the chunk's
+rounds: an overlapped FedGiA round uploads at its end under the next
+round's key.
 
 The guard (`quorum=`, `watchdog=`, the reference's `_make_guard`): after
 each round, `torch.where` merges put back the state before the round (a
@@ -95,10 +97,13 @@ host and keeps its rows. The stop and the guard read only all-reduced
 metrics, so every rank runs the same rounds. The history is the same on
 every rank; the final state's client rows (and the `staleness` history)
 are gathered once after the last round, outside any round. On the card
-the chunks capture the NCCL collectives with the rounds. The sharded
-active store, codecs, faults and screening are not ported (ROADMAP queue
-1, item 9b) and raise under a mesh, as do the reference's refusals:
-`chunk_size="auto"`, `store="offload"`, checkpoints.
+the chunks capture the NCCL collectives with the rounds. The active
+store, the codecs, the faults and the screening run sharded too: each
+shard packs its tile from its own rows of the mask (the capacity clamped
+to m_local), the codec's residual and the replay buffer are client rows
+like the state's, and the uplink keys on global client ids. The
+reference's refusals stay: `chunk_size="auto"`, `store="offload"`,
+checkpoints.
 
 Overlapped rounds (`overlap="scatter"`, flat rounds): eq. (11) is split
 across the round boundary. The state carries a slot
@@ -111,8 +116,8 @@ the barrier run bit for bit; under a mesh the padded buffer must divide
 over the shards. After the last round the slot folds back into the state
 (`algo.overlap_finalize`, else x = the slot's row 0), and a clock prices
 rounds as ``max(compute, comm)`` (`ComputeClock.with_overlap`). The
-uplink stages and the client stores other than "dense" are not
-overlapped in the port (ROADMAP queue 1, item 9b).
+active store and the uplink stages overlap too; `store="offload"` does
+not (the reference's refusal).
 
 `flat=False` (`--no-flat`) runs the per-leaf rounds (`algo.round`) on a
 copy of the state's dicts in both drivers, with the policies, async
@@ -334,9 +339,10 @@ def run_rounds(algo, state, batch, num_rounds: int, *, tol: float = 0.0,
     _check_flat(algo, flat, compressor, faults, screening)
     spec = ravel_spec(state["x"])
     axis = _check_mesh(algo, mesh, client_axis, overlap, store, auto, flat,
-                       checkpoint_every > 0 or resume, spec,
-                       compressor is not None or faults is not None
-                       or screening is not None)
+                       checkpoint_every > 0 or resume, spec)
+    if axis is not None and cap is not None:
+        # each shard packs its own rows: at most m_local of them
+        cap = min(cap, m // axis.shards)
     if clock is not None and clock.bandwidth_bps is not None:
         # the logical model size: the wire never carries the padding
         clock = clock.with_wire(compress.uplink_bytes(wire_comp, spec.size),
@@ -455,17 +461,25 @@ def _drive(algo, flat, batch, spec, num_rounds, tol, tol_metric, scan,
 
 
 def make_round_fn(algo, mesh=None, client_axis="data", masked=False,
-                  stale=False, flat_spec=None, overlap="off"):
+                  stale=False, flat_spec=None, overlap="off",
+                  active_capacity=None, compressor=None, faults=None,
+                  screening=None):
     """One round of `algo` as a callable, optionally on `mesh`'s client
     axis: ``(state, batch) -> (state, metrics)``, with `masked` ``(state,
     batch, mask)``, with `stale` (async rounds, implies masked) ``(state,
     batch, mask, stale) -> (state, metrics)`` (the stale state advances
     in place). `flat_spec` (a `pt.RavelSpec`) runs `algo.round_flat` on
     the flat state (`flatten_state`), else `algo.round` on the dicts.
+    `active_capacity` (with `flat_spec` and a mask) runs
+    `algo.round_flat_active` on the tile packed from the mask;
+    `compressor` (a `compress.Compressor`), `faults` and `screening` are
+    the round's uplink (the caller adds the ``"ef"`` and ``"fault_prev"``
+    buffers they read).
 
     Under a mesh the state and batch are this rank's (`shard_inputs`),
-    the mask is the whole (m,) mask (each rank keeps its rows), the
-    stale state holds the rank's rows, and the round runs inside
+    the mask is the whole (m,) mask (each rank keeps its rows and packs
+    its tile from them, the capacity clamped to m_local), the stale
+    state holds the rank's rows, and the round runs inside
     `api.client_sharding`: its cross-client reductions are collectives.
     `overlap="scatter"` checks that the flat state's padded buffer
     divides over the shards (the caller seeds ``state["ovl_shard"]``);
@@ -477,10 +491,13 @@ def make_round_fn(algo, mesh=None, client_axis="data", masked=False,
             "overlap='scatter' splits the flat comm buffer's collective — "
             "it requires the flat round path (flat=True on an algorithm "
             "providing round_flat; drop --no-flat)")
-    axis = None
+    axis, cap = None, active_capacity
     if mesh is not None:
         axis = _check_mesh(algo, mesh, client_axis, overlap, "dense", False,
-                           flat_spec is not None, False, flat_spec, False)
+                           flat_spec is not None, False, flat_spec)
+        if cap is not None:
+            cap = min(cap, algo.fed.num_clients // axis.shards)
+    kw = dict(compressor=compressor, faults=faults, screening=screening)
 
     def round_fn(state, batch, mask=None, sl=None):
         with (api.client_sharding(axis) if axis is not None
@@ -489,8 +506,12 @@ def make_round_fn(algo, mesh=None, client_axis="data", masked=False,
                 mask = api.local_client_slice(mask)
             if flat_spec is None:
                 return algo.round(state, batch, mask=mask, stale=sl)
+            if cap is not None:
+                return algo.round_flat_active(
+                    state, batch, flat_spec, pt.make_active_set(mask, cap),
+                    stale=sl, **kw)
             return algo.round_flat(state, batch, flat_spec, mask=mask,
-                                   stale=sl)
+                                   stale=sl, **kw)
 
     if stale:
         return lambda state, batch, mask, sl: round_fn(state, batch, mask,
@@ -545,11 +566,10 @@ def _finalize_overlap(algo, state):
 
 
 def _check_mesh(algo, mesh, client_axis, overlap, store, auto, flat,
-                ckpt_on, spec, uplink_on):
+                ckpt_on, spec):
     """The reference's checks of `mesh`, `client_axis` and `overlap`, with
-    its messages, and the port's refusals of what it does not shard or
-    overlap (ROADMAP queue 1, item 9b). Returns the mesh's
-    `api.ClientAxis` (None without a mesh)."""
+    its messages. Returns the mesh's `api.ClientAxis` (None without a
+    mesh)."""
     if overlap not in ("off", "scatter"):
         raise ValueError(f"unknown overlap {overlap!r}: ('off', 'scatter')")
     if overlap == "scatter":
@@ -563,10 +583,6 @@ def _check_mesh(algo, mesh, client_axis, overlap, store, auto, flat,
                 "store='offload' runs the host-driven tile loop — the "
                 "overlapped-collective carry slot (overlap='scatter') "
                 "does not ride it")
-        if store != "dense" or uplink_on:
-            raise NotImplementedError(
-                "overlap='scatter' with the active store, codecs, faults or "
-                "screening is not ported: ROADMAP queue 1, item 9b")
     if mesh is None:
         return None
     if auto:
@@ -584,10 +600,6 @@ def _check_mesh(algo, mesh, client_axis, overlap, store, auto, flat,
             "checkpointing round-trips the carry through host npz — not "
             "supported under a mesh (GSPMD carry placements); checkpoint "
             "unsharded runs")
-    if store != "dense" or uplink_on:
-        raise NotImplementedError(
-            "the sharded active store, codecs, faults and screening are not "
-            "ported: ROADMAP queue 1, item 9b")
     axis = mesh.client_axis(client_axis)
     m = algo.fed.num_clients
     if m % axis.shards:
@@ -1008,12 +1020,14 @@ def _round(algo, st, batch, spec, mask, slots, cap, packed, stale=None,
     `ActiveSet` of (mask, slots), of the active store; an async round
     when `stale` is given (it advances in place, and the metrics gain
     the staleness). `uplink` carries the codec, faults and screening to
-    the round and guards it (with the watchdog slot `ws`); `key` is the
-    codec's key where the state holds none (the chunked driver)."""
+    the round and guards it (with the watchdog slot `ws`); `key` holds the
+    codec's keys of this round and the next, (2, 2), where the state
+    holds no key (the chunked driver)."""
     uplink = uplink or Uplink()
     guard = uplink.guard
     saved = guard.before(st, stale) if guard is not None else None
-    st_in = st if key is None else dict(st, codec_key=key)
+    st_in = st if key is None else dict(st, codec_key=key[0],
+                                        codec_key_next=key[1])
     if spec is None:  # the per-leaf round (flat=False)
         st, met = algo.round(st_in, batch, mask=mask, stale=stale)
     elif cap is None:
@@ -1025,7 +1039,8 @@ def _round(algo, st, batch, spec, mask, slots, cap, packed, stale=None,
                                               packed=packed),
             stale=stale, donate_kernel=True, **uplink.round_kw)
     if key is not None:
-        st = {k: v for k, v in st.items() if k != "codec_key"}
+        st = {k: v for k, v in st.items()
+              if k not in ("codec_key", "codec_key_next")}
     if stale is not None:
         met = _with_staleness_metrics(met, stale)
     if guard is not None:
@@ -1089,11 +1104,12 @@ def _run_legacy_loop(algo, flat, batch, spec, num_rounds, tol, tol_metric,
         if participation is not None:
             td = time.perf_counter()
             mask, pstate = participation.mask(pstate, i)
+            extras.append(_host_metrics(participation, pstate, mask))
+            mask = api.local_client_slice(mask)  # this shard's rows
             if cap is not None:
                 slots = pt.pack_slots(mask, cap).to(device)
             draw += time.perf_counter() - td
-            extras.append(_host_metrics(participation, pstate, mask))
-            mask = api.local_client_slice(mask).to(device)
+            mask = mask.to(device)
         new, met = _round(algo, flat, batch, spec, mask, slots, cap, packed,
                           stale, uplink, ws)
         # advance the state in the dict the caller holds too, so the last
@@ -1153,7 +1169,13 @@ class _Chunked:
     splits it a chunk ahead, once a round, where the algorithm selects,
     and, under a stochastic codec, folds each round's key before its
     split with the round counter (`compress.round_key`) and uploads the
-    chunk's (rounds, 2) codec keys beside its masks.
+    chunk's (rounds + 1, 2) codec keys beside its masks: round i reads
+    key i and, as ``codec_key_next``, key i + 1 (the next round's, which
+    an overlapped FedGiA round uploads under; for the chunk's last round
+    the key after its split, folded with the round after it).
+
+    Under a mesh the masks are drawn whole on the host and each shard
+    keeps, and packs its active tile from, its own rows.
 
     Launch counts: a capture makes no launch, so the counts that the
     wrappers add while a chunk is captured are taken back, and each
@@ -1222,9 +1244,10 @@ class _Chunked:
                                               dtype=torch.int64,
                                               pin_memory=self.cuda)
         if self.keyed:
-            self.keys = torch.zeros((longest, 2), dtype=torch.int64,
+            self.keys = torch.zeros((longest + 1, 2), dtype=torch.int64,
                                     device=dev)
-            self.host_keys = torch.zeros((longest, 2), dtype=torch.int64,
+            self.host_keys = torch.zeros((longest + 1, 2),
+                                         dtype=torch.int64,
                                          pin_memory=self.cuda)
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1239,7 +1262,7 @@ class _Chunked:
     def _round(self, st, i):
         mask = self.masks[i] if self.selects else None
         slots = self.slots[i] if self.cap is not None else None
-        key = self.keys[i] if self.keyed else None
+        key = self.keys[i:i + 2] if self.keyed else None
         st, met = _round(self.algo, st, self.batch, self.spec, mask, slots,
                          self.cap, self.packed, self.stale, self.uplink,
                          self.ws, key)
@@ -1325,7 +1348,7 @@ class _Chunked:
                     0, slots, True)
             elif self.selects:
                 mask = torch.ones_like(self.masks[0])
-            key = self.keys[0] if self.keyed else None
+            key = self.keys[0:2] if self.keyed else None
             return _round(self.algo, copies, self.batch, self.spec, mask,
                           slots, self.cap, self.packed, stale, self.uplink,
                           ws, key)[1]
@@ -1384,9 +1407,15 @@ class _Chunked:
                 extras.append(_host_metrics(self.policy, self.pstate,
                                             self.host_masks[i]))
             if self.cap is not None:
-                self.host_slots[i] = pt.pack_slots(self.host_masks[i],
-                                                   self.cap)
+                rows = self.host_masks[i]
+                if self.rows is not None:
+                    rows = rows[self.rows]
+                self.host_slots[i] = pt.pack_slots(rows, self.cap)
         states.append((self.key, self.pstate))
+        if self.keyed:  # the key the round after the chunk's last draws
+            self.host_keys[length] = torch.from_numpy(compress.round_key(
+                self.key, self.round0 + first_round + length).astype(
+                    np.int64))
         draw = time.perf_counter() - t0
         if self.selects:
             host = self.host_masks[:length]
@@ -1397,8 +1426,8 @@ class _Chunked:
             self.slots[:length].copy_(self.host_slots[:length],
                                       non_blocking=self.cuda)
         if self.keyed:
-            self.keys[:length].copy_(self.host_keys[:length],
-                                     non_blocking=self.cuda)
+            self.keys[:length + 1].copy_(self.host_keys[:length + 1],
+                                         non_blocking=self.cuda)
         if self.cuda:
             self.uploaded.record()
         return states, draw, extras

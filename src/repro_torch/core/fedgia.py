@@ -34,9 +34,11 @@ split's (m,) mask is drawn whole from the replicated key and sliced
 (`api.local_client_slice`), and the fused update runs on the shard's
 rows with the global m in its 1/m. The overlapped round (the engine's
 ``state["ovl_shard"]`` slot, `overlap="scatter"`) takes x̄ from the
-slot's all-gather at its top and reduce-scatters the fresh z into the
-slot at its end (`api.flat_overlap_consensus`, `flat_overlap_aggregate`);
-unsharded it is the barrier round bit for bit.
+slot's all-gather at its top and reduces the fresh z into the slot at
+its end (`api.flat_overlap_consensus`, `flat_overlap_aggregate`); the
+uplink stages then run at the round's end too, on the fresh z, under the
+next round's codec key and fault draws. Uncompressed and unhardened, the
+unsharded overlapped round is the barrier round bit for bit.
 
 `round` is the per-leaf twin of `round_flat` (`run_rounds(flat=False)`,
 `--no-flat`): the same steps on the state's dicts, leaf by leaf, with no
@@ -295,8 +297,11 @@ class FedGiA:
         is the slot's consensus (`api.flat_overlap_consensus`) and the
         round ends by reducing the fresh z into the new slot
         (`api.flat_overlap_aggregate`), whose scalars give the metrics.
-        The uplink stages are not overlapped in the port (ROADMAP queue 1,
-        item 9b).
+        The uplink stages run where the upload happens, at the round's
+        end on the fresh z: the codec under `api.next_codec_key` (the key
+        the barrier round + 1 would draw), the faults drawn for round + 1,
+        and the screened mask into the slot's reduction, as the
+        reference's overlapped round runs them.
 
         `donate_kernel=True` runs the in-place kernel: π' is written into
         the buffer of `state["pi"]` and z' into this round's own ḡ, so
@@ -321,11 +326,6 @@ class FedGiA:
         if ovl is None:
             xbar, ef_new, fprev_new, n_scr = self.upload(
                 state, spec, stale, compressor, faults, screening)
-        elif compressor is not None or faults is not None \
-                or screening is not None:
-            raise NotImplementedError(
-                "the overlapped round's uplink stages (codecs, faults, "
-                "screening) are not ported: ROADMAP queue 1, item 9b")
         else:  # the deferred half of the last round's eq. (11)
             xbar = api.flat_overlap_consensus(ovl)[0]
             ef_new = fprev_new = n_scr = None
@@ -365,20 +365,19 @@ class FedGiA:
         new_state.update(x=xbar, z=z_new, pi=pi_new, round=state["round"] + 1)
         if rng is not None:
             new_state["rng"] = rng
-        if ef_new is not None:
-            new_state["ef"] = ef_new
-        if fprev_new is not None:
-            new_state["fault_prev"] = fprev_new
         if diag:  # in place when the state is donated
             new_state["h"] = hparams.update_diag_h(
                 state["h"], gbar, state["r"], m,
                 out=state["h"] if donate_kernel else None)
         if ovl is not None:
             # the upload half of the split collective: the fresh z (the
-            # next round's eq. (11) numerator) into the next slot, the
-            # metrics riding its scalars
+            # next round's eq. (11) numerator), through the uplink where
+            # the upload happens, into the next slot, the metrics riding
+            # its scalars
+            z_up, ef_new, sc_mask, fprev_new, n_scr = self._upload_end(
+                state, z_new, rng, spec, compressor, faults, screening)
             slot, gsq, f_mean, n_sel = api.flat_overlap_aggregate(
-                z_new, None, losses, sel, spec,
+                z_up, None, losses, sel, spec, mask=sc_mask,
                 weights=api.stale_weights(stale),
                 gsq=None if sharded_ovl else gsq,
                 grad_sum=gsq if sharded_ovl else None)
@@ -386,6 +385,10 @@ class FedGiA:
         else:
             f_mean = api.client_scalar_mean(losses)
             n_sel = api.client_scalar_sum(sel)
+        if ef_new is not None:
+            new_state["ef"] = ef_new
+        if fprev_new is not None:
+            new_state["fault_prev"] = fprev_new
         metrics = {
             "f_xbar": f_mean,
             "grad_sq_norm": gsq,
@@ -396,6 +399,28 @@ class FedGiA:
         if n_scr is not None:
             metrics["screened"] = n_scr
         return new_state, metrics
+
+    def _upload_end(self, state, z_new, rng, spec, compressor, faults,
+                    screening):
+        """The overlapped round's uplink, at its end on the fresh z: the
+        codec under the next round's key (`api.next_codec_key`), then the
+        faults drawn for round + 1 and the screening. Returns (z_up, ef',
+        screened mask, fault_prev', n_screened), None where a stage is
+        off."""
+        z_up, ef_new, sc_mask, fprev_new, n_scr = z_new, None, None, None, \
+            None
+        if compressor is not None:
+            ef = state.get("ef") if compressor.error_feedback else None
+            key = (api.next_codec_key(state, rng, z_new.device)
+                   if compressor.stochastic else None)
+            z_up, ef_new = api.compress_upload(compressor, z_up, ef, spec,
+                                               key=key)
+        if faults is not None or screening is not None:
+            z_up, sc_mask, fprev_new, n_scr = api.harden_upload(
+                z_up, None, spec, faults=faults, screening=screening,
+                fault_prev=state.get("fault_prev"),
+                round_idx=state["round"] + 1)
+        return z_up, ef_new, sc_mask, fprev_new, n_scr
 
     def overlap_finalize(self, state, slot):
         """The engine's hook closing an overlapped run: the state's x is
@@ -413,7 +438,8 @@ class FedGiA:
         whatever the draw (`active_tile = "population"`). The round is
         therefore the dense round on `active.mask`, bitwise by
         construction, with the same one `fedgia_update` launch; the codec
-        and the faults run on all m rows, as the dense upload's."""
+        and the faults run on all m rows, as the dense upload's, and an
+        overlapped round reduces into the slot as the dense one does."""
         return self.round_flat(state, batch, spec, mask=active.mask,
                                stale=stale, compressor=compressor,
                                donate_kernel=donate_kernel, faults=faults,

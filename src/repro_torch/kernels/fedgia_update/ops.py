@@ -199,10 +199,11 @@ def fedgia_update_flat(xbar_c, gbar, pi, h, sel, sigma, m, *, k0: int,
     aliases, so it then runs the undonated kernel.
 
     A one-client buffer (mb == 1) runs the single-client launch
-    (`fedgia_update_single`) and never donates: its results come back in
-    fresh buffers even with `donate=True`. This departs from the
-    reference's `fedgia_update_flat`, which runs the batched kernel (or
-    its donated form) for one client too; the values are the same.
+    (`fedgia_update_single`, counted under that name); with `donate=True`
+    it writes π' into `pi` and z' into `gbar` as the batched donated form
+    does, as the reference's `fedgia_update_flat` donates for one client
+    too. The launch is the same kernel source either way, so the values
+    are the same.
 
     `z_out`: an (mb, N) buffer, none of the operands, that the undonated
     kernel writes z' into instead of a fresh one (diag_ema's round, whose
@@ -224,12 +225,13 @@ def fedgia_update_flat(xbar_c, gbar, pi, h, sel, sigma, m, *, k0: int,
         if z_out is not None:
             z = z_out.copy_(z)
         return (x if want_x else None), p, z
+    donate = donate and n % LANES == 0
     if mb == 1:
-        name, donate = "fedgia_update_single", False
-    elif donate and n % LANES == 0:
+        name = "fedgia_update_single"
+    elif donate:
         name = "fedgia_update_batched_donated"
     else:
-        name, donate = "fedgia_update_batched", False
+        name = "fedgia_update_batched"
     if donate:
         x_out = None
         if want_x:

@@ -77,9 +77,10 @@ eq. (11) is then one all-reduce a round over the ranks. Rank 0 logs and
 prints the `done:` line, which matches the unsharded run's to fp
 tolerance. `--overlap scatter` splits eq. (11) into a reduce-scatter at
 a round's end and an all-gather at the next round's top (bit for bit the
-barrier run unsharded). The sharded active store, codecs, faults and
-screening, and the overlapped ones, are not ported (ROADMAP queue 1,
-item 9b) and are refused.
+barrier run unsharded, uncompressed and unhardened). Both combine with
+`--store active`, the codecs, the faults and the screening, as the
+reference's do; `--store offload` and checkpoints stay unsharded, and
+offload is not overlapped.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --shard-clients 4 --pod 2 --overlap scatter
@@ -306,14 +307,15 @@ def validate_flags(args) -> dict:
            "periods": periods, "speeds": speeds, "use_kernel": use_kernel,
            "flat": not args.no_flat}
     out.update(_validate_uplink(args, chunk, clock_kind, kind, store))
-    _validate_mesh(args, store, out)
+    _validate_mesh(args)
     return out
 
 
-def _validate_mesh(args, store, parsed) -> None:
+def _validate_mesh(args) -> None:
     """`validate_flags`' checks of `--shard-clients`, `--pod` and
-    `--overlap`, with the reference's messages, and the port's refusals
-    of what it does not shard or overlap (ROADMAP queue 1, item 9b)."""
+    `--overlap`, with the reference's messages (its refusals of
+    `--store offload`, `--chunk auto` and checkpoints under a mesh sit
+    beside the flags they name)."""
     if args.overlap == "scatter" and args.no_flat:
         raise SystemExit(
             "--overlap scatter carries the reduce-scattered consensus "
@@ -332,14 +334,6 @@ def _validate_mesh(args, store, parsed) -> None:
     if shard > 1 and args.clients % shard:
         raise SystemExit(f"--clients ({args.clients}) must be divisible by "
                          f"--shard-clients ({shard})")
-    uplink = (parsed["compression"] is not None or parsed["fault_kinds"]
-              or parsed["screening"])
-    for on, what in ((shard > 1, "--shard-clients"),
-                     (args.overlap == "scatter", "--overlap scatter")):
-        if on and (store == "active" or uplink):
-            raise SystemExit(
-                f"{what} with --store active, --compression, --faults or "
-                "--screening is not ported (ROADMAP queue 1, item 9b)")
 
 
 def _validate_uplink(args, chunk, clock_kind, kind, store) -> dict:

@@ -151,17 +151,47 @@ def test_donated_plain_writes_into_its_inputs():
 
 
 def test_one_client_runs_the_single_launch_form():
+    """One client takes the single-client form (its inputs read before
+    the donated call overwrites them)."""
     n = LANES
     xbar, g, pi, h, _ = _inputs(11, (1, n))
-    tx = _torch(xbar, g, pi, h)
     sigma = torch.tensor(SIGMA)
     for s in (True, False):
         sel = torch.tensor([s])
-        out = ops.fedgia_update_flat(*tx, sel, sigma, 1, k0=3, donate=True)
-        want = ops.fedgia_update_single(*(t[0] for t in tx), sel[0], sigma,
-                                        1, k0=3)
+        want = ops.fedgia_update_single(*(t[0] for t in _torch(xbar, g, pi,
+                                                                h)),
+                                        sel[0], sigma, 1, k0=3)
+        out = ops.fedgia_update_flat(*_torch(xbar, g, pi, h), sel, sigma, 1,
+                                     k0=3, donate=True)
         for a, b in zip(out, want):
             assert a.shape == (1, n) and torch.equal(a[0], b)
+
+
+@pytest.mark.parametrize("scalar_h", [False, True])
+def test_one_client_donates_into_pi_and_gbar(scalar_h):
+    """mb = 1 with donate=True: π' comes back in `pi` and z' in `gbar`
+    (the same buffers), as the batched donated form writes them, with the
+    undonated call's values bit for bit; the round's (N,) anchor is not
+    written."""
+    n = 2 * LANES
+    xbar, g, pi, h, _ = _inputs(13, (1, n))
+    sigma = torch.tensor(SIGMA)
+    sel = torch.tensor([True])
+
+    def args():
+        tx, tg, tp, th = _torch(xbar[0], g, pi, h)
+        return tx, tg, tp, (torch.tensor(1.3) if scalar_h else th)
+
+    want = ops.fedgia_update_flat(*args(), sel, sigma, 1, k0=3,
+                                  want_x=False)
+    tx, tg, tp, th = args()
+    out = ops.fedgia_update_flat(tx, tg, tp, th, sel, sigma, 1, k0=3,
+                                 donate=True, want_x=False)
+    assert out[0] is None
+    assert out[1].data_ptr() == tp.data_ptr()
+    assert out[2].data_ptr() == tg.data_ptr()
+    assert torch.equal(out[1], want[1]) and torch.equal(out[2], want[2])
+    np.testing.assert_array_equal(tx.numpy(), xbar[0])  # the anchor
 
 
 def test_cpu_plain_versions_count_no_launches():

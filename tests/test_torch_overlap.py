@@ -138,8 +138,8 @@ def test_overlap_off_bitwise_identical(raw, key):
 
 
 def test_overlap_validation(raw):
-    """The reference's refusals, and the port's of what it does not
-    overlap (ROADMAP queue 1, item 9b)."""
+    """The reference's refusals, with its messages; the active store and
+    the codecs overlap (tests/test_torch_sharded_uplink.py holds them)."""
     algo, state, batch = _make(raw, "fedgia_diag")
     with pytest.raises(ValueError, match="overlap"):
         run_rounds(algo, state, batch, 2, overlap="bogus")
@@ -149,12 +149,10 @@ def test_overlap_validation(raw):
     with pytest.raises(ValueError, match="offload"):
         run_rounds(algo, state, batch, 2, overlap="scatter",
                    participation=pol, store="offload")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        run_rounds(algo, state, batch, 2, overlap="scatter",
-                   participation=pol, store="active")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        run_rounds(algo, state, batch, 2, overlap="scatter",
-                   compression="int8")
+    for kw in (dict(participation=pol, store="active"),
+               dict(compression="int8")):
+        res = run_rounds(algo, state, batch, 2, overlap="scatter", **kw)
+        assert res.rounds_run == 2 and "ovl_shard" not in res.state
 
 
 @pytest.mark.parametrize("mode", ["sync", "masked", "async"])
@@ -362,8 +360,8 @@ def _assert_overlap_budget(c):
                                   "scaffold"])
 def test_overlap_matrix_collective_budget(runs, name, stale):
     """The overlapped sharded round: zero model-size all-reduces, one
-    reduce-scatter, one all-gather (the sharded active store and codecs
-    of the reference's matrix are ROADMAP queue 1, item 9b)."""
+    reduce-scatter, one all-gather (the matrix's active and int8 columns:
+    tests/test_torch_sharded_uplink.py)."""
     _assert_overlap_budget(counts(runs[1][f"budget/{name}/{stale}"]))
 
 

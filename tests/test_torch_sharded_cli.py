@@ -7,8 +7,7 @@ checks in repro/launch/train.py and its engine's refusals under a mesh).
     unsharded run's `done:` line: the same rounds and CR, f and err equal
     to the line's printed resolution (the runs agree at fp tolerance);
   * every reference refusal of the flags, and of `run_rounds` under a
-    mesh, raises with its message; what the port does not shard or
-    overlap (ROADMAP queue 1, item 9b) raises naming the item;
+    mesh, raises with its message;
   * a CUDA job with more ranks than devices raises with the device
     count, and a rank's exception makes the CLI exit non-zero.
 """
@@ -114,9 +113,12 @@ def test_cli_sharded_async_baseline(lines):
       "--checkpoint-dir", "ck"], "runs unsharded"),
     (["--shard-clients", "5"], "divisible by --shard-clients"),
     (["--shard-clients", "4", "--participation", "uniform", "--store",
-      "active"], "item 9b"),
-    (["--shard-clients", "4", "--compression", "int8"], "item 9b"),
-    (["--overlap", "scatter", "--faults", "nan"], "item 9b"),
+      "offload", "--compression", "int8"],
+     "single-device host/device split"),
+    (["--shard-clients", "4", "--compression", "int8", "--resume",
+      "--checkpoint-dir", "ck"], "runs unsharded"),
+    (["--overlap", "scatter", "--faults", "nan", "--participation",
+      "uniform", "--store", "offload"], "does not ride it"),
 ])
 def test_cli_refusals(flags, match):
     args = train_mod.build_parser().parse_args(BASE + flags)
@@ -143,9 +145,10 @@ _MESH = mesh_mod.Mesh(("data", "model"), (4, 1), 0, torch.device("cpu"))
      "single-device host/device split"),
     (dict(checkpoint_every=2, checkpoint_dir="ck"), ValueError,
      "not supported under a mesh"),
-    (dict(participation="uniform", store="active"), NotImplementedError,
-     "item 9b"),
-    (dict(compression="bf16"), NotImplementedError, "item 9b"),
+    (dict(participation="uniform", store="offload", compression="bf16"),
+     ValueError, "single-device host/device split"),
+    (dict(resume=True, checkpoint_dir="ck", compression="bf16"), ValueError,
+     "not supported under a mesh"),
     (dict(client_axis="pod"), ValueError, "mesh has no axis"),
 ])
 def test_engine_refusals_under_a_mesh(kw, exc, match):
