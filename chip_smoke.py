@@ -161,8 +161,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      driver (one captured chunk) and with `--no-scan`: the donated
      kernel once a round, the same f every round and final states bit
      for bit; the split of one eager round (torch.profiler, at most
-     ATTEMPTS sessions), whole only where every step the round runs
-     timed > 0 (`split_is_whole`), else timed by CUDA events and
+     FULL_WIDTH_ATTEMPTS sessions), whole only where every step the
+     round runs timed > 0 (`split_is_whole`), else timed by CUDA events and
      printed as flagged spans; then the round after the last one's
      `fedgia_update` at
      (2, N) in three forms (undonated with the 0-d h, donated with it,
@@ -170,6 +170,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      version on every 16M-column tile (bitwise expected), the donated
      and the h (m, N) forms timed against their bounds, the plain
      version timed in tiles;
+   * phase 2j, the planning dry run held against the card on that
+     model's live state, between the split and the update's forms:
+     `repro_torch.launch.dryrun.dryrun_one` at phase 2g's shapes (m = 2,
+     batch 2 x 64, bf16 gradients, fp32 state, scalar H) on a 1 x 1
+     mesh (nothing modelled), traced on fake CPU tensors, against one
+     more eager donated round on the state under FlopCounterMode, its
+     peak device memory reset before it: the traced FLOPs equal the
+     counted ones (rel DRYRUN_FLOPS_RTOL), the argument bytes equal the
+     bytes the round reads less the flat buffers' padding and the
+     tokens' int64 (the dry run takes the reference's int32), and
+     argument + output + temp within DRYRUN_MEMORY_RTOL of the round's
+     peak less the device memory it does not read (the raw peak printed
+     beside); the roofline terms beside a timed eager round; then the
+     full-width production record (tinyllama-1.1b train_4k on 16 x 16,
+     its tensor parallelism modelled) with its host trace time;
    * the same model under `--h-policy diag_ema`, 3 rounds, `--no-scan`
      (the chunked driver's warm-up copies would not fit): the batched
      kernel once a round; this run and the `--no-scan` one take the
@@ -379,6 +394,10 @@ FP32_FLOPS = 67e12  # fp32 peak outside the tensor cores, H100 SXM
 RTOL = 2.4e-7
 REPS, WARMUP = 25, 3
 ATTEMPTS = 3  # profiler sessions for one split or busy time, at most
+# a cut of depth for the script's time (PERF.md §4): phase 2g's
+# full-width split takes one profiler session before its CUDA-event
+# spans (in earlier proof runs every full-width session lost eq. (11))
+FULL_WIDTH_ATTEMPTS = 1
 # replayed vs eager rounds on the card: the same kernels in the same
 # order, so bitwise is expected; were cuBLAS to pick another algorithm
 # inside a graph, the states would be held to the port's per-round fp32
@@ -478,6 +497,10 @@ NORMAL_SEED, NORMAL_WORDS, NORMAL_MAX_ULPS = 5, 1 << 22, 64
 # the full-width update held against its plain version a column tile at a
 # time (the plain version's temporaries at (2, N) would not fit)
 TILE_COLUMNS = 1 << 24
+# phase 2j: the dry run's traced FLOPs against FlopCounterMode on the
+# eager round (the same aten products at the same shapes: equal
+# expected) and its argument + output + temp against the round's peak
+DRYRUN_FLOPS_RTOL, DRYRUN_MEMORY_RTOL = 1e-3, 0.10
 
 # phase 2h: the per-leaf rounds (--no-flat) and the benchmark suite.
 # Lemma IV.1 in tests/test_fedgia_convergence.py's setting: m 8, n 30,
@@ -3092,6 +3115,145 @@ def full_width_update(algo, batch, flat, spec, ops, ref, card):
     return numbers
 
 
+def tensor_bytes(tree) -> int:
+    """numel x element size of every tensor in a dict (nested) or list."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+
+def storage_bytes(*trees) -> int:
+    """Bytes of the distinct storages under the tensors of `trees`."""
+    seen = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif torch.is_tensor(t):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+
+    for tree in trees:
+        walk(tree)
+    return sum(seen.values())
+
+
+def layout_gap(flat, spec, batch, token_bytes=4) -> int:
+    """What the round reads beyond the dry run's argument bytes: the flat
+    buffers' zero padding past the spec's size (the dry run lays the
+    state out leaf by leaf) and the tokens' width past `token_bytes` (the
+    dry run takes the reference's int32)."""
+    gap = 0
+    for t in flat.values():
+        if torch.is_tensor(t) and t.dim() and t.shape[-1] == spec.padded_size:
+            gap += (spec.padded_size - spec.size) * (t.numel() // t.shape[-1]
+                                                     ) * t.element_size()
+    for t in batch.values():
+        if not t.is_floating_point():
+            gap += t.numel() * (t.element_size() - token_bytes)
+    return gap
+
+
+def dryrun_checks(rec, counted_flops, read_bytes, gap, peak_net):
+    """Phase 2j's three comparisons of a dry-run record with the eager
+    round. Returns (lines to print, failures)."""
+    pd = rec["per_device"]
+    lines, bad = [], []
+    traced = pd["flops"]
+    rel = abs(traced - counted_flops) / max(counted_flops, 1.0)
+    lines.append(f"  FLOPs: traced {traced!r} against counted "
+                 f"{counted_flops!r} on the card (rel {rel!r})")
+    if rel > DRYRUN_FLOPS_RTOL:
+        bad.append(f"traced FLOPs {traced} vs counted {counted_flops}")
+    args = pd["argument_bytes"]
+    lines.append(f"  argument bytes: {args} against the {read_bytes} bytes "
+                 f"the round reads, {read_bytes - args} apart (the flat "
+                 f"buffers' padding and the int64 tokens: {gap})")
+    if read_bytes - args != gap:
+        bad.append(f"argument bytes {args} + {gap} != {read_bytes}")
+    fit = args + pd["output_bytes"] + pd["temp_bytes"]
+    rel = (fit - peak_net) / peak_net
+    lines.append(f"  memory: argument + output + temp {fit} bytes "
+                 f"({gib(fit):.2f} GiB) against the round's peak {peak_net} "
+                 f"bytes ({gib(peak_net):.2f} GiB) less the memory it does "
+                 f"not read: {100 * rel:+.2f} %")
+    if abs(rel) > DRYRUN_MEMORY_RTOL:
+        bad.append(f"memory {fit} vs peak {peak_net} ({100 * rel:+.2f} %)")
+    return lines, bad
+
+
+def dryrun_phase(algo, batch, flat, spec, card):
+    """Phase 2j: the planning dry run at phase 2g's shapes on a 1 x 1
+    mesh against one more eager donated round on the live full-width
+    state (`flat`, whose π the round overwrites in place), then the
+    full-width production record. Raises on a mismatch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+
+    t_phase = time.perf_counter()
+    m, bc, s1 = batch["tokens"].shape
+    shape = ShapeConfig("phase_2g", s1 - 1, m * bc, "train")
+    state_dtype = str(flat["z"].dtype).replace("torch.", "")
+    rec = dryrun.dryrun_one("tinyllama-1.1b", shape, num_clients=m,
+                            mesh=AbstractMesh(("data", "model"), (1, 1)),
+                            state_dtype=state_dtype, verbose=False)
+    total = torch.cuda.get_device_properties(0).total_memory
+    say(f"phase 2j: the card's total_memory {total} bytes ({gib(total)!r} "
+        f"GiB; fill_experiments' per-card budget), {card}")
+    say(f"phase 2j: the dry run at phase 2g's shapes (m={m}, batch {bc} x "
+        f"{s1 - 1}, {state_dtype} state, scalar H, mesh 1x1, model axis "
+        f"{rec['model_axis']}) traced on the host in {rec['t_trace_s']!r} "
+        f"s, against one eager donated round on the live state, on {card}:")
+    read = tensor_bytes(flat) + tensor_bytes(batch)
+    gap = layout_gap(flat, spec, batch)
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - storage_bytes(flat, batch)
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = algo.round_flat(dict(flat), batch, spec, donate_kernel=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = algo.round_flat(dict(flat), batch, spec, donate_kernel=True)
+    end.record()
+    torch.cuda.synchronize()
+    round_ms = start.elapsed_time(end)
+    del out
+    lines, bad = dryrun_checks(rec, float(fc.get_total_flops()), read, gap,
+                               peak - other)
+    for line in lines:
+        say(line)
+    say(f"  (the round's raw peak {peak} bytes, {gib(peak):.2f} GiB; live "
+        f"device memory the round does not read {other} bytes)")
+    r = rec["roofline"]
+    say(f"  roofline terms: compute {r['t_compute_s'] * 1e3!r} ms, memory "
+        f"{r['t_memory_s'] * 1e3!r} ms (unfused bytes), collective "
+        f"{r['t_collective_s'] * 1e3!r} ms -> {r['bottleneck']}-bound; the "
+        f"eager donated round measured {round_ms!r} ms (CUDA events)")
+    if bad:
+        raise SystemExit("phase 2j: " + "; ".join(bad))
+    prod = dryrun.dryrun_one("tinyllama-1.1b", "train_4k", verbose=False)
+    pd, r = prod["per_device"], prod["roofline"]
+    fit = pd["argument_bytes"] + pd["output_bytes"] + pd["temp_bytes"]
+    say(f"  production record tinyllama-1.1b train_4k on {prod['mesh']} "
+        f"(model axis {prod['model_axis']}): traced on the host in "
+        f"{prod['t_trace_s']!r} s; per card args+out+temp {gib(fit):.2f} "
+        f"GiB, flops {pd['flops']!r}, hbm {pd['hbm_bytes']!r}, collectives "
+        f"{prod['collectives']['total']!r} B; roofline compute "
+        f"{r['t_compute_s'] * 1e3!r} ms, memory {r['t_memory_s'] * 1e3!r} "
+        f"ms, collective {r['t_collective_s'] * 1e3!r} ms -> "
+        f"{r['bottleneck']}-bound")
+    say(f"phase 2j took {time.perf_counter() - t_phase!r} s")
+
+
 def train_vs_cpu(train, arch, dtype="bf16"):
     """A reduced `--arch` run on the card and on the CPU: the same rounds,
     f each round within TRAIN_CPU_RTOL of that round's f on the CPU,
@@ -3191,7 +3353,7 @@ def training_phase(train, fl_transformer, counters, launches, card, ops,
     say(f"  chunked vs --no-scan: the same f every round and final states "
         f"bitwise equal ({len(diffs)} leaves of x, z, pi)")
     algo, batch, flat, spec = full_width_flat(eager, engine, pt)
-    for attempt in range(1, ATTEMPTS + 1):
+    for attempt in range(1, FULL_WIDTH_ATTEMPTS + 1):
         split, wall_us = full_width_split(algo, batch, flat, spec, modules)
         busy = sum(split.values())
         whole = split_is_whole(split)
@@ -3216,6 +3378,7 @@ def training_phase(train, fl_transformer, counters, launches, card, ops,
         if not split_is_whole(split):
             raise SystemExit("full-width split: neither the profiler nor "
                              "CUDA events timed every step of the round")
+    dryrun_phase(algo, batch, flat, spec, card)
     numbers = full_width_update(algo, batch, flat, spec, ops, ref, card)
     numbers["fedgia_update_batched_donated"]["launches"] = n[
         "fedgia_update_batched_donated"]

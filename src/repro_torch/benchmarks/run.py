@@ -16,6 +16,8 @@ one section a paper table or figure, the round engine and the kernels.
                  the codecs, the overlap and the faults (also writes
                  --wallclock-json)
   kernels        the round micro-benchmarks, parts 1-3 of kernels_bench
+  roofline       the roofline table from the dry run's records
+                 (results/dryrun/*.json, `repro_torch.launch.dryrun`)
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run
     PYTHONPATH=src python -m repro_torch.benchmarks.run --only engine \
@@ -25,10 +27,10 @@ The sections whose main returns data are written, machine-readable, to
 `--json` under their names (a value JSON cannot hold is coerced to float,
 else str, as the reference coerces it); `check_bench.py` gates the
 engine section's rounds/s and the wallclock rows' simulated time against
-the port's committed baselines. The reference's `roofline` section reads
-XLA's dry-run artifacts, which the port has no counterpart of (ROADMAP
-queue 1, item 10): it is absent (`ABSENT`). Every section runs on the
-card unless `--device cpu` is given.
+the port's committed baselines. Every section runs on the card unless
+`--device cpu` is given, but `roofline`, which reads the dry run's
+records and runs nothing; `ABSENT` lists the reference's sections that
+the port has not (none).
 """
 from __future__ import annotations
 
@@ -44,12 +46,12 @@ from repro_torch.benchmarks import (
     fig3_alpha,
     kernels_bench,
     participation_bench,
+    roofline,
     table4,
     wallclock_bench,
 )
 
-ABSENT = {"roofline": "reads XLA dry-run artifacts (ROADMAP queue 1, "
-                      "item 10)"}
+ABSENT: dict = {}
 
 
 def _engine(device, ctx):
@@ -88,6 +90,8 @@ SECTIONS = {
     "wallclock": _wallclock,
     "kernels": lambda d, ctx: kernels_bench.main(["--device", d, "--parts",
                                                   "1,2,3"]),
+    "roofline": lambda d, ctx: roofline.main(
+        ["--dir", ctx.get("dryrun_dir") or "results/dryrun"]),
 }
 
 
@@ -96,16 +100,19 @@ def _coerce(o):
 
 
 def run(names, device="cuda", json_path="BENCH_engine.json",
-        wallclock_json="BENCH_wallclock.json", engine_rows=None) -> dict:
+        wallclock_json="BENCH_wallclock.json", engine_rows=None,
+        dryrun_dir="results/dryrun") -> dict:
     """Run the sections `names` on `device` and write the ones that return
     data to `json_path` (none where it is empty). `engine_rows`: the
     `active_1m` and `offload_1m` rows, already run, for the engine
-    section to reuse. Returns {section: its data}."""
+    section to reuse; `dryrun_dir`: the roofline section's records.
+    Returns {section: its data}."""
     unknown = sorted(set(names) - set(SECTIONS))
     if unknown:
         raise SystemExit(f"unknown section(s) {unknown}; absent in the "
                          f"port: {ABSENT}")
-    ctx = {"engine_rows": engine_rows, "wallclock_json": wallclock_json}
+    ctx = {"engine_rows": engine_rows, "wallclock_json": wallclock_json,
+           "dryrun_dir": dryrun_dir}
     results = {}
     for name in names:
         print(f"\n===== {name} =====", flush=True)
@@ -133,9 +140,12 @@ def main(argv=None):
     ap.add_argument("--wallclock-json", default="BENCH_wallclock.json",
                     help="where the wallclock section writes its rows")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--dryrun-dir", default="results/dryrun",
+                    help="the roofline section's dry-run records")
     args = ap.parse_args(argv)
     names = args.only if args.only else list(SECTIONS)
-    return run(names, args.device, args.json, args.wallclock_json)
+    return run(names, args.device, args.json, args.wallclock_json,
+               dryrun_dir=args.dryrun_dir)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-from repro_torch.config.base import ALGORITHMS, FedConfig, ModelConfig
+from repro_torch.config.base import (ALGORITHMS, INPUT_SHAPES, FedConfig,
+                                     ModelConfig, ShapeConfig)

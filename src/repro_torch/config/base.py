@@ -1,7 +1,8 @@
-"""The port's configs: `ModelConfig` for the serving path and the
+"""The port's configs: `ModelConfig` for the serving path, the four input
+shapes of the planning dry run (`ShapeConfig`, `INPUT_SHAPES`) and the
 `FedConfig` fields that the flat rounds of the five algorithms read
-(counterparts of `repro/config/base.py::ModelConfig` and `::FedConfig`,
-same fields and defaults)."""
+(counterparts of `repro/config/base.py::ModelConfig`, `::ShapeConfig`,
+`::INPUT_SHAPES` and `::FedConfig`, same fields and defaults)."""
 from __future__ import annotations
 
 import dataclasses
@@ -163,6 +164,33 @@ class ModelConfig:
             )
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: only routed-in experts), the
+        reference's formula."""
+        if not self.moe:
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.moe_d_ff
+        moe_layers = self.num_layers - self.first_dense_layers
+        inactive = moe_layers * per_expert * (
+            self.num_experts - self.experts_per_token)
+        return int(self.param_count() - inactive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
@@ -194,6 +222,12 @@ class FedConfig:
     # the mesh axes that enumerate clients (`launch/mesh.py`): the engine
     # splits the client rows over their product
     client_axes: Tuple[str, ...] = ("data",)
+    # the placement knobs that only `sharding/specs.py` and the dry run
+    # read: fsdp_axes additionally shards the client states' inner dims
+    # over these mesh axes (FSDP); replicate_params keeps the parameters
+    # replicated over `model` (pure data parallelism within a client)
+    fsdp_axes: Tuple[str, ...] = ()
+    replicate_params: bool = False
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -211,6 +245,13 @@ class FedConfig:
                 "mode, which has no CUDA meaning: the port runs the kernel's "
                 "plain version on the CPU (use_kernel=None) or, anywhere, "
                 "with use_kernel=False")
+        overlap = set(self.fsdp_axes) & set(self.client_axes)
+        if overlap:
+            raise ValueError(f"fsdp_axes {self.fsdp_axes} share "
+                             f"{sorted(overlap)} with client_axes "
+                             f"{self.client_axes}")
+        if len(set(self.fsdp_axes)) != len(self.fsdp_axes):
+            raise ValueError(f"fsdp_axes repeats an axis: {self.fsdp_axes}")
         if self.inner_steps < 1:
             raise ValueError(
                 f"inner_steps must be >= 1, got {self.inner_steps}")

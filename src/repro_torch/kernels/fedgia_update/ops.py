@@ -23,7 +23,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, run_plain
 from repro_torch.kernels.fedgia_update.ref import fedgia_update_collapsed
 
 LANES = 128
@@ -124,6 +124,13 @@ def _update(name, xbar, gbar, pi, h, sel, sigma, m, k0, outs):
     tensor, the kernel on a CUDA one. Returns `outs`."""
     if gbar.device.type != "cpu":
         return _launch(name, xbar, gbar, pi, h, outs, sel, sigma, m, k0)
+    return run_plain("fedgia_update", _plain_into, name, xbar, gbar, pi, h,
+                     sel, sigma, m, k0, outs)
+
+
+def _plain_into(name, xbar, gbar, pi, h, sel, sigma, m, k0, outs):
+    """The plain version's results copied into `outs`, as the kernel
+    writes them."""
     _check_forms(name, xbar, gbar, pi, h)
     for o, v in zip(outs, _plain(xbar, gbar, pi, h, sel, sigma, m, k0)):
         if o is not None:

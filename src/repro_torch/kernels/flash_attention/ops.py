@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, run_plain
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (64, 128, 160)
@@ -145,5 +145,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     of 16 bytes (`tma_strides`); float32 takes any strides.
     """
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return run_plain("flash_attention", flash_attention_ref, q, k, v,
+                         causal=causal, window=window)
     return _launch(q, k, v, causal, window)

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, run_plain
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
 HEAD_DIMS = (32, 64)
@@ -143,5 +143,5 @@ def rwkv6_scan(r, k, v, w, u):
     or bfloat16, w and u float32; all of the scan's math is fp32.
     """
     if r.device.type == "cpu":
-        return rwkv6_scan_ref(r, k, v, w, u)
+        return run_plain("rwkv6_scan", rwkv6_scan_ref, r, k, v, w, u)
     return _launch(r, k, v, w, u)

@@ -1,5 +1,6 @@
-"""Client meshes on `torch.distributed`, and the launcher of their ranks
-(counterpart of `repro/launch/mesh.py::make_host_mesh`).
+"""Client meshes on `torch.distributed`, the launcher of their ranks, and
+the production meshes of the planning dry run (counterpart of
+`repro/launch/mesh.py::make_host_mesh` and `::make_production_mesh`).
 
 A mesh lays its ranks out row-major over ``("data", "model")`` or
 ``("pod", "data", "model")``, as `jax.make_mesh` orders devices: rank r
@@ -15,12 +16,20 @@ over a mesh axis it does not name.
 temporary directory and a timeout on every collective: gloo on the CPU
 (one torch thread a rank), NCCL on the card with rank r on ``cuda:r``,
 which needs one device a rank (NCCL refuses two ranks on one device).
-A rank's exception makes `launch` raise. The 256- and 512-chip
-production meshes of the reference (`make_production_mesh`) are not
-ported (ROADMAP queue 1, item 9c).
+A rank's exception makes `launch` raise.
+
+`make_production_mesh` gives the reference's 256- and 512-chip meshes,
+``(data 16, model 16)`` and ``(pod 2, data 16, model 16)``, as an
+`AbstractMesh`: axis names, shape and the same row-major rank layout,
+with no process group and no device. `fake_process_group(mesh)` runs a
+block under a fake default process group of the mesh's world size in
+this one process and gives it rank 0's `Mesh`, so that the dry run
+traces a sharded round's collectives at 256 or 512 ranks on fake
+tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -105,6 +114,56 @@ class Mesh:
                 mine = g
         self._axes[axes] = ClientAxis(mine, shards, index)
         return self._axes[axes]
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, ranks laid out row-major as in
+    `Mesh`; it holds no process group and no device."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def tag(self) -> str:
+        """"16x16", "2x16x16": the dry run's name of the mesh."""
+        return "x".join(str(n) for n in self.shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production meshes: one pod 16x16 = 256 chips
+    (data, model); two pods 2x16x16 = 512 chips (pod, data, model)."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+@contextlib.contextmanager
+def fake_process_group(mesh: AbstractMesh):
+    """Within the block, a fake default process group of `mesh.size`
+    ranks in this process (torch's test backend: every collective returns
+    at once and moves nothing) and rank 0's `Mesh` on the CPU, which
+    the block receives; its `client_axis` groups are made on the fake
+    group. Raises where a process group is already initialised; destroys
+    its own on leaving."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_process_group needs no process group to "
+                           "be initialised: one already is")
+    # the fake backend registers itself on this import (torch ships it
+    # with its test utilities; nothing else of the port imports it)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield Mesh(tuple(mesh.axis_names), tuple(mesh.shape), 0,
+                   torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model: int = 1, data: int = 1, pod: int = 0,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import run_plain
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
 from repro_torch.models.layers import rmsnorm_nohead, silu
 
@@ -71,7 +72,8 @@ def time_mix_apply(params, cfg: ModelConfig, x, tm_state):
             w.transpose(1, 2), u)
         y = y.transpose(1, 2)
     else:
-        y, wkv_new = wkv6_scan(r, k, v, w, u, tm_state["wkv"])
+        y, wkv_new = run_plain("wkv6_scan", wkv6_scan, r, k, v, w, u,
+                               tm_state["wkv"])
     y = rmsnorm_nohead(y, eps=1e-5).to(x.dtype)  # per-head group norm
     y = (y * g).reshape(B, T, H * hd)
     out = y @ params["wo"]

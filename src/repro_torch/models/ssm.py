@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import run_plain
 from repro_torch.models.layers import silu
 
 # bytes of one (B, chunk, d, st) float32 term of the scan: the decay, the
@@ -70,7 +71,8 @@ def ssm_apply(params, cfg: ModelConfig, x, ssm_state):
     Bm = (x @ params["w_B"]).float()
     Cm = (x @ params["w_C"]).float()
     A = -torch.exp(params["A_log"])
-    y, new_state = ssm_scan(u.float(), dt, Bm, Cm, A, ssm_state)
+    y, new_state = run_plain("ssm_scan", ssm_scan, u.float(), dt, Bm, Cm, A,
+                             ssm_state)
     y = y.to(x.dtype) + params["D"] * u
     return (y * silu(z)) @ params["out"], new_state
 

@@ -150,13 +150,35 @@ def test_run_writes_the_sections_it_ran(tmp_path, monkeypatch, capsys):
     assert f"wrote {path}" in capsys.readouterr().out
 
 
-def test_run_lists_the_absent_section():
+def test_run_lists_the_absent_section(tmp_path, capsys):
+    """Every section of the reference is there (none absent), and the
+    roofline section runs: with no dry-run records it prints the hint,
+    with two it prints their rows."""
     assert set(bench_run.SECTIONS) == {
         "table4", "fig1", "fig2", "fig3", "engine", "participation",
-        "async", "wallclock", "kernels"}
-    assert set(bench_run.ABSENT) == {"roofline"}
-    with pytest.raises(SystemExit, match="roofline"):
-        bench_run.run(["roofline"], "cpu", "")
+        "async", "wallclock", "kernels", "roofline"}
+    assert bench_run.ABSENT == {}
+    bench_run.run(["roofline"], "cpu", "", dryrun_dir=str(tmp_path))
+    assert ("no dry-run records found — run: python -m "
+            "repro_torch.launch.dryrun --all") in capsys.readouterr().out
+    for i, (arch, shape) in enumerate((("tinyllama-1.1b", "train_4k"),
+                                       ("rwkv6-3b", "decode_32k"))):
+        rec = {"arch": arch, "shape": shape, "mesh": "16x16",
+               "algo": "fedgia" if shape == "train_4k" else "serve",
+               "collapsed": True, "num_clients": 16,
+               "per_device": {"argument_bytes": 2**30, "output_bytes": 0,
+                              "temp_bytes": 2**30, "flops": 1e12,
+                              "hbm_bytes": 1e9},
+               "roofline": {"t_compute_s": 1e-3, "t_memory_s": 2e-3,
+                            "t_collective_s": 0.0, "bottleneck": "memory"}}
+        (tmp_path / f"r{i}.json").write_text(json.dumps(rec))
+    out = bench_run.run(["roofline"], "cpu", "", dryrun_dir=str(tmp_path))
+    printed = capsys.readouterr().out
+    assert len(out["roofline"]) == 2
+    assert "tinyllama-1.1b,train_4k,16x16,fedgia,1.000,2.000,0.000," in printed
+    assert "rwkv6-3b,decode_32k,16x16,serve," in printed
+    with pytest.raises(SystemExit, match="unknown section"):
+        bench_run.run(["dryrun"], "cpu", "")
 
 
 def test_run_coerces_what_json_cannot_hold():

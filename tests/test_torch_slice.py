@@ -154,6 +154,9 @@ def _run(code):
 def test_port_imports_neither_jax_nor_repro():
     out = _run(
         "import sys, repro_torch.launch.train, repro_torch.utils.convert\n"
+        "import repro_torch.launch.dryrun, repro_torch.sharding\n"
+        "import repro_torch.benchmarks.roofline\n"
+        "import repro_torch.benchmarks.fill_experiments\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
