@@ -1,0 +1,8 @@
+"""% of its byte bound reached by `fedgia_update_kernel` (undonated, h
+(m, N)) in the traced window."""
+
+from pbench.readers import update_roofline
+
+
+def read(ctx):
+    return update_roofline(ctx)
