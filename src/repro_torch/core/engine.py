@@ -144,6 +144,7 @@ from repro_torch.core import api, compress, graphs, selection
 from repro_torch.core.clock import ClockArrivals
 from repro_torch.kernels import launch_counters
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import spans
 from repro_torch.utils.pytree import ravel_spec
 
 
@@ -1381,12 +1382,13 @@ class _Chunked:
         active store, make each round's codec key from the key before its
         split, and send them to the static buffers. Returns the (key,
         policy state) before each round and after the last, so a stop can
-        put back the state at it, the host seconds the draws and packs
+        put back the state at it, the host nanoseconds the draws and packs
         took, and the rounds' host metrics (`_host_metrics`)."""
         if self.cuda:
-            self.uploaded.synchronize()  # the last upload has left
+            with spans.span("driver.upload_wait"):
+                self.uploaded.synchronize()  # the last upload has left
         m, alpha = self.algo.fed.num_clients, self.algo.fed.alpha
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         states, extras = [], []
         for i in range(length):
             states.append((self.key, self.pstate))
@@ -1416,7 +1418,9 @@ class _Chunked:
             self.host_keys[length] = torch.from_numpy(compress.round_key(
                 self.key, self.round0 + first_round + length).astype(
                     np.int64))
-        draw = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        spans.record("driver.draw", t0, t1)
+        spans.mark("driver.upload_start")  # the chunk's first device work
         if self.selects:
             host = self.host_masks[:length]
             if self.rows is not None:
@@ -1430,7 +1434,7 @@ class _Chunked:
                                          non_blocking=self.cuda)
         if self.cuda:
             self.uploaded.record()
-        return states, draw, extras
+        return states, t1 - t0, extras
 
     def _carry(self, rounds_run, history):
         """The whole carry that a checkpoint holds."""
@@ -1466,7 +1470,25 @@ class _Chunked:
         `plan` (chunk_size="auto": the fastest per round among them then
         sets `chunk`). On the card each length of `lengths` is captured
         before the timed window. Under checkpoints the chunks end at
-        every multiple of `checkpoint_every`, where the carry is saved."""
+        every multiple of `checkpoint_every`, where the carry is saved.
+
+        Under a profiler session (`utils/spans.py`) the call is the span
+        ``driver.call``; each chunk ``driver.chunk``, holding
+        ``driver.upload_wait`` (the wait for the last upload),
+        ``driver.draw`` (the draws, timed by the reads that ``draw_s``
+        sums) and ``driver.replay`` (the replay, or on the CPU the
+        chunk's eager run). On the card the marks ``driver.upload_start``
+        (before the upload's copies), ``driver.replay_start`` and
+        ``driver.chunk_end`` (after the replay and the chunk's history
+        copies) put each chunk on the device's clock, tied to the host
+        clock by the anchor at the synchronise that opens the timed loop.
+        The counter ``driver.graph_captures`` counts by length the graphs
+        captured inside the timed loop: each one a length that `lengths`
+        did not hold, captured while the window runs."""
+        with spans.call("driver.call"):
+            return self._run(num_rounds, chunk, plan, lengths)
+
+    def _run(self, num_rounds, chunk, plan, lengths):
         t0 = time.perf_counter()
         self._warm_up()
         resumed = self._resume()
@@ -1479,10 +1501,11 @@ class _Chunked:
             for length in lengths:  # others (a remainder that tol > 0 may
                 self._graph(length)  # never reach) are captured on use
             torch.cuda.synchronize(self.device)
+            spans.anchor()  # the stream idle until the timed loop
         capture = time.perf_counter() - t0
 
         plan, timings = list(plan), []
-        chunks, extras, rounds_run, stopped, draw = [], [], 0, False, 0.0
+        chunks, extras, rounds_run, stopped, draw_ns = [], [], 0, False, 0
         executed, saved = 0, {}
         if resumed is not None:
             executed, rounds_run, saved = resumed
@@ -1497,35 +1520,44 @@ class _Chunked:
             if every:  # cut the chunk at the next checkpoint round
                 length = min(length, (executed // every + 1) * every
                              - executed)
-            tc = time.perf_counter()
-            chunk_extras = []
-            if self.selects or self.keyed:
-                states, dt, chunk_extras = self._upload(length, executed)
-                draw += dt
-            if self.cuda:
-                tg = time.perf_counter()
-                fresh = length not in self.graphs
-                graph, per_round = self._graph(length)
-                if fresh:
-                    torch.cuda.synchronize(self.device)
-                    capture += time.perf_counter() - tg
-                    t0 += time.perf_counter() - tg
-                graph.replay()
-            else:
-                per_round = self._program(length, self._eager_unless_done)
-            live = length
-            if self.tol > 0:  # the chunk's one read back to the host
-                live = int(self.count) - rounds_run
-                stopped = bool(self.done)
-            if timed:
+            with spans.span("driver.chunk"):
+                tc = time.perf_counter()
+                chunk_extras = []
+                if self.selects or self.keyed:
+                    states, dt, chunk_extras = self._upload(length, executed)
+                    draw_ns += dt
                 if self.cuda:
-                    torch.cuda.synchronize(self.device)
-                timings.append(((time.perf_counter() - tc) / length, length))
-                chunk = min(timings)[1]
-            if self.cuda:
-                for d in per_round[:live]:
-                    _add_counts(d)
-            chunks.append({k: v[:live].clone() for k, v in self.hist.items()})
+                    tg = time.perf_counter()
+                    fresh = length not in self.graphs
+                    graph, per_round = self._graph(length)
+                    if fresh:
+                        spans.count("driver.graph_captures", key=length)
+                        torch.cuda.synchronize(self.device)
+                        capture += time.perf_counter() - tg
+                        t0 += time.perf_counter() - tg
+                    spans.mark("driver.replay_start")
+                    with spans.span("driver.replay"):
+                        graph.replay()
+                else:
+                    with spans.span("driver.replay"):
+                        per_round = self._program(length,
+                                                  self._eager_unless_done)
+                live = length
+                if self.tol > 0:  # the chunk's one read back to the host
+                    live = int(self.count) - rounds_run
+                    stopped = bool(self.done)
+                if timed:
+                    if self.cuda:
+                        torch.cuda.synchronize(self.device)
+                    timings.append(((time.perf_counter() - tc) / length,
+                                    length))
+                    chunk = min(timings)[1]
+                if self.cuda:
+                    for d in per_round[:live]:
+                        _add_counts(d)
+                chunks.append({k: v[:live].clone()
+                               for k, v in self.hist.items()})
+                spans.mark("driver.chunk_end")
             extras += chunk_extras[:live]
             rounds_run += live
             executed += length
@@ -1544,7 +1576,7 @@ class _Chunked:
         for k in self.counters:
             flat[k] = int(self.st[k])
         return RoundResult(flat, history, rounds_run, stopped, wall, capture,
-                           chunk_size=chunk, draw_s=draw,
+                           chunk_size=chunk, draw_s=draw_ns * 1e-9,
                            policy_state=self.pstate, stale=self.stale)
 
     def _history(self, chunks, extras):

@@ -47,6 +47,12 @@ kernel. Its collapsed branch is the fused update's plain version
 round's update, and its means reduce each leaf as the flat buffer's
 lanes, so on the CPU the two rounds agree bit for bit. `lagrangian` is
 L(Zᵏ) of eq. (7), the quantity Lemma IV.1 says never increases.
+
+Under a profiler session (`utils/spans.py`) the flat round's steps are
+spans, profiler ranges that hold the step's kernels: ``round.eq11`` (the
+mean that makes x̄), ``round.ravel`` (x̄ unraveled and cast for the
+model, and both ravels of the gradients into the (m, N) buffer),
+``round.gradient`` and ``round.h_refresh``.
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ from repro_torch.core import api, hparams, prng, selection
 from repro_torch.kernels.fedgia_update import fedgia_update_flat
 from repro_torch.kernels.fedgia_update.ref import fedgia_update_collapsed
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import spans
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -196,8 +203,9 @@ class FedGiA:
                 z_up, None, spec, faults=faults, screening=screening,
                 fault_prev=state.get("fault_prev"),
                 round_idx=state["round"])
-        xbar = api.client_mean(z_up, mask=sc_mask,
-                               weights=api.stale_weights(stale))
+        with spans.span("round.eq11"):
+            xbar = api.client_mean(z_up, mask=sc_mask,
+                                   weights=api.stale_weights(stale))
         return xbar, ef_new, fprev_new, n_scr
 
     def round_inputs(self, state, batch, spec, mask=None, stale=None,
@@ -229,8 +237,9 @@ class FedGiA:
         grad_sq_norm."""
         m = self.fed.num_clients
         if xbar is None:  # (1) eq. (11)
-            xbar = api.client_mean(state["z"],
-                                   weights=api.stale_weights(stale))
+            with spans.span("round.eq11"):
+                xbar = api.client_mean(state["z"],
+                                       weights=api.stale_weights(stale))
         if mask is None:  # (3) client selection
             if stale is not None:
                 raise ValueError("stale-x̄ rounds need the engine's "
@@ -245,17 +254,23 @@ class FedGiA:
         dtype = getattr(self.model, "dtype", None)
         cast = ((lambda t: {k: v.to(dtype) for k, v in t.items()})
                 if isinstance(dtype, torch.dtype) else (lambda t: t))
-        if anchor is xbar:
-            losses, grads = self._vg(cast(spec.unravel(xbar)), batch)
-        else:
-            losses, grads = self._vg_stacked(
-                cast(spec.unravel_stacked(anchor)), batch)
-        buf = spec.ravel_stacked(grads)
+        with spans.span("round.ravel"):
+            params = cast(spec.unravel(xbar) if anchor is xbar
+                          else spec.unravel_stacked(anchor))
+        with spans.span("round.gradient"):
+            if anchor is xbar:
+                losses, grads = self._vg(params, batch)
+            else:
+                losses, grads = self._vg_stacked(params, batch)
+        del params  # free x̄'s cast copy before the ravels
+        with spans.span("round.ravel"):
+            buf = spec.ravel_stacked(grads)
         gsq = (torch.sum(buf, dim=0) if grad_sum
                else api.flat_grad_sq_norm(buf, spec))
         sdt = _DTYPES[self.fed.state_dtype]
-        gbar = spec.ravel_stacked(grads, out=buf,
-                                  leaf_fn=lambda g: (g * (1.0 / m)).to(sdt))
+        with spans.span("round.ravel"):
+            gbar = spec.ravel_stacked(
+                grads, out=buf, leaf_fn=lambda g: (g * (1.0 / m)).to(sdt))
         return xbar, mask, losses, gsq, gbar
 
     def kernel_args(self, state, xbar, gbar, sel):
@@ -366,9 +381,10 @@ class FedGiA:
         if rng is not None:
             new_state["rng"] = rng
         if diag:  # in place when the state is donated
-            new_state["h"] = hparams.update_diag_h(
-                state["h"], gbar, state["r"], m,
-                out=state["h"] if donate_kernel else None)
+            with spans.span("round.h_refresh"):
+                new_state["h"] = hparams.update_diag_h(
+                    state["h"], gbar, state["r"], m,
+                    out=state["h"] if donate_kernel else None)
         if ovl is not None:
             # the upload half of the split collective: the fresh z (the
             # next round's eq. (11) numerator), through the uplink where
